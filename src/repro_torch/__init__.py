@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the VDMS-Async visual query engine.
+"""PyTorch/CUDA port of the VDMS-Async visual query engine and of the
+model-serving path behind its model UDF.
 
 The package mirrors the JAX package ``repro`` module for module and is
 held against it by the ``tests/test_torch_*.py`` parity tests; it

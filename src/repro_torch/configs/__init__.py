@@ -1,0 +1,20 @@
+"""Architecture configs ported so far.  Importing this package registers
+them with ``repro_torch.configs.base``; select one with
+``get_arch("<id>")``.
+"""
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    get_arch,
+    list_archs,
+)
+
+# registration side-effects — one module per ported architecture
+from repro_torch.configs import (  # noqa: F401
+    zamba2_2p7b,
+    qwen3_0p6b,
+)
+
+ALL_ARCHS = [
+    "zamba2-2.7b",
+    "qwen3-0.6b",
+]

@@ -15,6 +15,9 @@ crosses between the two at exactly three places, all in
 Between launch and response an entity's data stays a tensor on the
 device: native workers, remote servers, the batcher and the device
 backend all pass tensors along.
+
+:func:`resolve_device` is the one reading of a ``device`` argument that
+the engine, the model UDF and the model launcher share.
 """
 from __future__ import annotations
 
@@ -37,3 +40,25 @@ def to_host(data):
     if isinstance(data, torch.Tensor):
         return data.detach().to("cpu", copy=True).numpy()
     return np.asarray(data)
+
+
+def resolve_device(device) -> torch.device:
+    """A ``device`` argument as a torch device: ``"cuda"`` (the current
+    card), ``"cuda:<i>"`` or ``"cpu"``.  Raises when CUDA is asked for
+    and absent — nothing falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device={device!r} asks for the CUDA card, and torch sees "
+                "no CUDA device on this host; pass device='cpu' to run on "
+                "the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        elif dev.index >= torch.cuda.device_count():
+            raise ValueError(f"device={device!r}: only "
+                             f"{torch.cuda.device_count()} CUDA device(s)")
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be 'cuda', 'cuda:<i>' or 'cpu', "
+                         f"got {device!r}")
+    return dev

@@ -36,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.boundary import to_device, to_host
+from repro_torch.core.boundary import resolve_device, to_device, to_host
 from repro_torch.core.entity import ERD, Entity
 from repro_torch.core.event_loop import EventLoop
 from repro_torch.core.remote import RemoteServerPool, TransportModel
@@ -62,25 +62,6 @@ def _no_cuda(what: str) -> RuntimeError:
         f"{what} asks for the CUDA card, and torch sees no CUDA device "
         f"on this host; pass device='cpu' (and device_backend='cpu') to "
         f"run on the CPU")
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's pipeline device: ``"cuda"`` (the current card),
-    ``"cuda:<i>"`` or ``"cpu"``.  Raises when CUDA is asked for and
-    absent — the engine never falls back to the CPU on its own."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise _no_cuda(f"device={device!r}")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        elif dev.index >= torch.cuda.device_count():
-            raise ValueError(f"device={device!r}: only "
-                             f"{torch.cuda.device_count()} CUDA device(s)")
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be 'cuda', 'cuda:<i>' or 'cpu', "
-                         f"got {device!r}")
-    return dev
 
 
 def resolve_device_pool(device_backend) -> list[torch.device]:

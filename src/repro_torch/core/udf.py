@@ -7,14 +7,18 @@ In-process transport models the paper's message queue: the UDF executor
 (repro_torch.core.remote.UDFProcess) pulls requests off a queue.Queue — the
 same decoupling as the paper's separate-process design, minus the wire.
 
-UDFs receive and return torch tensors on the engine's device.  Model
-UDFs (an assigned-architecture LM as a pipeline operation) arrive with
-the model layer.
+UDFs receive and return torch tensors on the engine's device.
+
+Model UDFs: ``register_model_udf`` wraps an assigned-architecture LM
+(via the serving layer) as a pipeline operation — the realistic
+"run ML inference inside the query" case the paper motivates.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any, Callable
+
+import torch
 
 _REGISTRY: dict[str, Callable] = {}
 _BATCHED: dict[str, Callable] = {}
@@ -90,3 +94,114 @@ def list_udfs() -> list[str]:
     with _LOCK:
         return sorted(set(_REGISTRY) | set(BUILTIN_UDFS))
 
+
+def prompt_tokens(img: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The model UDF's prompt, (C,) int32 on the image's device: the JAX
+    package's ``feats_of`` — truncate ``img*255`` to int32, take the
+    float32 mean over H and W, clip to the vocabulary, truncate.  The sum
+    is taken in int64 (exact) and divided in float32, which is the
+    float32 mean exactly wherever the float32 sum is exact (sums below
+    2^24: any image up to 256x256)."""
+    q = (img * 255).to(torch.int32)
+    total = q.to(torch.int64).sum(dim=(0, 1)).to(torch.float32)
+    mean = total / float(q.shape[0] * q.shape[1])
+    return torch.clamp(mean, 0, vocab_size - 1).to(torch.int32)
+
+
+def register_model_udf(name: str, arch: str = "qwen3-0.6b", *,
+                       steps: int = 4, reduced: bool = True,
+                       labels=("WALK", "RUN", "JUMP", "SIT"),
+                       device="cuda", params=None) -> None:
+    """Register an assigned-architecture LM as a classification UDF.
+
+    The image is hashed into a short token prompt; the LM decodes a few
+    tokens and the argmax bucket picks a label stamped onto the image.
+    The model runs on ``device`` (the CUDA card unless the caller asks
+    for the CPU) with ``params`` (a tree on that device, e.g. from
+    :func:`repro_torch.interop.params_from_jax`), or, when ``params`` is
+    None, the port's own seeded init.  Three routes are registered, all
+    stamping the same label (greedy decoding): per entity, grouped
+    behind a :class:`~repro_torch.serving.batcher.GroupBatcher` (the
+    batcher backend), and one prefill + decode over the whole
+    micro-batch (the device backend).  An image on the card given to a
+    model on the CPU raises: nothing moves the card's work to the CPU.
+    """
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.boundary import resolve_device
+    from repro_torch.distributed.sharding import ShardingCtx
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.serving.batcher import GroupBatcher
+    from repro_torch.serving.serve_step import (greedy_generate,
+                                                make_serve_fns, sample_token)
+    from repro_torch.visual.font import draw_text
+
+    dev = resolve_device(device)
+    cfg = get_arch(arch, reduced=reduced)
+    model = get_model(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+    elif any(leaf.device != dev for leaf in tree_leaves(params)):
+        raise ValueError(f"params must lie on the model's device {dev}")
+    sh = ShardingCtx(mesh=None)
+    lock = threading.Lock()
+
+    def feats_of(img):
+        if img.is_cuda and dev.type != "cuda":
+            raise ValueError("the model UDF got an image on the card and "
+                             "serves its model on the CPU; register it "
+                             "with device='cuda'")
+        return prompt_tokens(img, cfg.vocab_size)
+
+    def label_of(tok) -> str:
+        return labels[int(tok) % len(labels)]
+
+    def udf(img, **_):
+        prompt = {"tokens": feats_of(img)[None, :].to(dev)}
+        with lock:  # model params shared across engine threads
+            toks = greedy_generate(model, params, prompt, steps=steps, sh=sh)
+        return draw_text(img, label_of(toks[0, -1]), 4, 4)
+
+    register_udf(name, udf)
+
+    # Grouped serving path: the same model behind a GroupBatcher, so the
+    # dispatch router can amortize prefill+decode over a group instead of
+    # paying full inference per entity.  Greedy decoding (temperature 0)
+    # makes batched == sequential token-for-token, so the label — the
+    # argmax bucket of the LAST decoded token — is identical to the
+    # per-entity UDF.
+    batcher = GroupBatcher(model, params, group_size=8,
+                           max_new_default=steps, sh=sh, temperature=0.0)
+
+    def batched(imgs, **_):
+        with lock:
+            reqs = [batcher.submit(feats_of(img).cpu().numpy(),
+                                   max_new=steps) for img in imgs]
+            batcher.run_until_idle()
+        return [draw_text(img, label_of(r.result(30)[-1]), 4, 4)
+                for img, r in zip(imgs, reqs)]
+
+    register_batched_udf(name, batched)
+
+    # Device-backend path: the same model as ONE prefill + decode over
+    # the whole micro-batch, built on the serving layer's serve_step fns.
+    # Greedy decoding again keeps the result token-for-token identical
+    # to the per-entity UDF.
+    prefill_fn, serve_step = make_serve_fns(model, sh)
+
+    def device_batched(imgs, **_):
+        with lock:
+            toks = torch.stack([feats_of(img).to(dev) for img in imgs])
+            prompt_len = toks.shape[1]
+            logits, cache = prefill_fn(params, {"tokens": toks},
+                                       prompt_len + steps + 1)
+            tok = sample_token(logits, None, 0.0, cfg.vocab_size)
+            for i in range(steps - 1):
+                logits, cache = serve_step(params, tok, cache, prompt_len + i)
+                tok = sample_token(logits, None, 0.0, cfg.vocab_size)
+            last = tok[:, 0].cpu().numpy()
+        return [draw_text(img, label_of(t), 4, 4)
+                for img, t in zip(imgs, np.asarray(last))]
+
+    register_device_udf(name, device_batched)

@@ -1,2 +1,3 @@
 """Distributed substrate: so far the query path's fault-tolerance layer
-(error taxonomy, fault injection, heartbeats)."""
+(error taxonomy, fault injection, heartbeats) and the single-device
+sharding context the model code is written against."""

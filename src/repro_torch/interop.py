@@ -1,12 +1,15 @@
-"""State carried across from an engine of the JAX package.
+"""State carried across from the JAX package.
 
-The query engine runs no model, so its state is its data: metadata rows
-and blobs.  :func:`engine_state` reads them from an engine of the JAX
-package (its ``meta.find``/``store.get`` layout) as
-``(eid, kind, array, properties)`` records, and
-:func:`ingest_reference_state` ingests such records into a port engine
-keeping their eids, so the two engines answer one query over the same
-data.
+An engine's state is its data: metadata rows and blobs.
+:func:`engine_state` reads them from an engine of the JAX package (its
+``meta.find``/``store.get`` layout) as ``(eid, kind, array,
+properties)`` records, and :func:`ingest_reference_state` ingests such
+records into a port engine keeping their eids, so the two engines
+answer one query over the same data.
+
+A model's state is its parameters: :func:`params_from_jax` turns the JAX
+package's LM parameter tree (as numpy arrays) into the port's, so both
+packages compute the same function in the parity tests.
 """
 from __future__ import annotations
 
@@ -31,3 +34,41 @@ def ingest_reference_state(engine, entities: Iterable[tuple]) -> list[str]:
     ``engine`` under their own eids; returns the eids."""
     return [engine.add_entity(kind, np.asarray(data), dict(props), eid=eid)
             for eid, kind, data, props in entities]
+
+
+def params_from_jax(tree, cfg, device="cpu") -> dict:
+    """The JAX package's parameter tree of an LM of ``cfg`` — nested
+    dicts whose leaves convert with ``np.asarray``, per-layer leaves
+    stacked as ``init_lm`` stacks them (``blocks`` (L, ...); hybrid
+    ``mamba`` (n_app, group, ...) and ``shared`` (num_shared_blocks,
+    ...)) — as the port's parameters on ``device``.  The port keeps the
+    same layout, so leaves carry over one for one; the top-level keys
+    and the stacked axes are checked against ``cfg``."""
+    import torch
+
+    from repro_torch.models.lm import (family_kind, hybrid_shape,
+                                      tree_leaves, tree_map)
+
+    kind = family_kind(cfg)
+    want = {"embed", "final_norm"}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    want |= {"blocks"} if kind == "tblock" else {"mamba", "shared"}
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: expected top-level keys "
+                         f"{sorted(want)}, got {sorted(tree)}")
+    out = tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    if tuple(out["embed"].shape) != (cfg.padded_vocab, cfg.d_model):
+        raise ValueError(f"{cfg.name}: embed is {tuple(out['embed'].shape)}")
+    if kind == "tblock":
+        lead = {"blocks": (cfg.num_layers,)}
+    else:
+        lead = {"mamba": hybrid_shape(cfg),
+                "shared": (cfg.num_shared_blocks,)}
+    for key, axes in lead.items():
+        for leaf in tree_leaves(out[key]):
+            if tuple(leaf.shape[:len(axes)]) != axes:
+                raise ValueError(f"{cfg.name}: a {key!r} leaf of shape "
+                                 f"{tuple(leaf.shape)} is not stacked as "
+                                 f"{axes}")
+    return out

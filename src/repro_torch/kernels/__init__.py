@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels for the hot spots of the query path.
+"""Hand-written CUDA kernels for the hot spots of the query path and the
+model path.
 
 Layout per kernel ``<name>``:
 - ``csrc/<name>.cu`` — the kernel, with a plain C interface

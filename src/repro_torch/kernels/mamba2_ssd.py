@@ -1,0 +1,112 @@
+"""Mamba2 SSD chunked-scan CUDA kernel (``csrc/mamba2_ssd.cu``).
+
+One CTA per (batch, head) walks the chunks in order with the P x N fp32
+state in registers; per chunk it stages x, B and C in shared memory,
+builds the causal score rows ``(C Bᵀ ∘ L ∘ dt)`` 32 at a time, and
+writes ``y = scores · x + exp(la) C·h + D x`` before updating the
+state.  B and C are read by group — never repeated to heads — and x, B
+and C through their batch and time strides, so the model's slices of
+the in-projection go in without a copy.  The plain version is
+:func:`repro_torch.kernels.ref.mamba2_ssd_chunked`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = _build.LaunchCounter("mamba2_ssd")
+
+MAX_CHUNK = 128     # chunk rows staged per CTA
+MAX_P = 64          # head dim the register tiles hold
+MAX_N = 64          # state size the register tiles hold
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_build.declare("mamba2_ssd", "mamba2_ssd.cu", {
+    "repro_mamba2_ssd": [ctypes.c_int] + [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]})
+
+
+def _strided(t: torch.Tensor, inner: int) -> torch.Tensor:
+    """``t`` (B, T, heads, inner) as the kernel reads it: unit feature
+    stride and a head stride of ``inner``; batch and time strides free."""
+    if t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == inner):
+        return t
+    return t.contiguous()
+
+
+def mamba2_ssd_cuda(
+    x: torch.Tensor,    # (B, T, H, P) float32 | bfloat16, on CUDA
+    dt: torch.Tensor,   # (B, T, H)
+    A: torch.Tensor,    # (H,)
+    Bm: torch.Tensor,   # (B, T, G, N), x's dtype
+    Cm: torch.Tensor,   # (B, T, G, N), x's dtype
+    D: torch.Tensor | None = None,       # (H,)
+    state: torch.Tensor | None = None,   # (B, H, P, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the SSD kernel on the current CUDA stream.  Returns ``y``
+    (B, T, H, P) in x's dtype and the final state (B, H, P, N) in
+    float32.  ``chunk`` follows the TPU wrapper's rule,
+    ``min(chunk, max(T, 8))``."""
+    if not x.is_cuda:
+        raise ValueError("mamba2_ssd_cuda takes CUDA tensors, got x on "
+                         f"{x.device}")
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
+                    ("D", D), ("state", state)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 x, got {x.dtype}")
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"B and C must have x's dtype {x.dtype}, got "
+                        f"{Bm.dtype} and {Cm.dtype}")
+    if x.ndim != 4 or Bm.ndim != 4:
+        raise ValueError(f"expected x (B,T,H,P) and B (B,T,G,N), got "
+                         f"{tuple(x.shape)} and {tuple(Bm.shape)}")
+    batch, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if (tuple(dt.shape) != (batch, T, H) or tuple(A.shape) != (H,)
+            or tuple(Bm.shape) != (batch, T, G, N)
+            or tuple(Cm.shape) != (batch, T, G, N)
+            or (D is not None and tuple(D.shape) != (H,))
+            or (state is not None
+                and tuple(state.shape) != (batch, H, P, N))):
+        raise ValueError("mamba2_ssd_cuda: inconsistent shapes")
+    if H % G:
+        raise ValueError(f"groups G={G} must divide heads H={H}")
+    if P > MAX_P or N > MAX_N:
+        raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
+                         f"got P={P}, N={N}")
+    chunk = min(chunk, max(T, 8))
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
+    if batch > 65535:
+        raise ValueError(f"batch {batch} exceeds the grid's 65535")
+    f32 = torch.float32
+    state = (torch.zeros((batch, H, P, N), dtype=f32, device=x.device)
+             if state is None else state.to(f32).contiguous())
+    if T == 0 or batch == 0:
+        return torch.empty_like(x), state.clone()
+    x, Bm, Cm = _strided(x, P), _strided(Bm, N), _strided(Cm, N)
+    dt = dt.to(f32).contiguous()
+    A = A.to(f32).contiguous()
+    D = None if D is None else D.to(f32).contiguous()
+    y = torch.empty((batch, T, H, P), dtype=x.dtype, device=x.device)
+    h_out = torch.empty((batch, H, P, N), dtype=f32, device=x.device)
+    lib = _build.load("mamba2_ssd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_mamba2_ssd(
+            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(),
+            None if D is None else D.data_ptr(), state.data_ptr(),
+            y.data_ptr(), h_out.data_ptr(), batch, T, H, P, G, N, chunk,
+            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+            Cm.stride(0), Cm.stride(1), stream)
+    _build.check(err, "mamba2_ssd")
+    launches.add()
+    return y, h_out

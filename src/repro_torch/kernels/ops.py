@@ -12,6 +12,7 @@ import torch
 from repro_torch.kernels import preprocess as pp
 from repro_torch.kernels import ref
 from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
+from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
 
 
 def _on_cuda(img: torch.Tensor) -> bool:
@@ -20,6 +21,27 @@ def _on_cuda(img: torch.Tensor) -> bool:
     if img.device.type == "cpu":
         return False
     raise ValueError(f"no kernel and no plain path for tensors on {img.device}")
+
+
+# ----------------------------------------------------------------- attn
+def flash_attention(q, k, v, *, causal=True, sm_scale=None, impl="naive",
+                    q_offset=0):
+    """(B,Sq,H,D) x (B,Sk,Hkv,D) -> (B,Sq,H,D); GQA via Hkv | H.  Only
+    the ``naive`` route is ported: plain code on every device, as the
+    JAX package runs it on its serving path."""
+    if impl != "naive":
+        raise NotImplementedError(
+            f"attention impl {impl!r} is not ported yet: the flash kernel "
+            "(K3) and its chunked jnp route come with the K3 slice")
+    return ref.naive_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None):
+    """Single-token attention against a cache: q (B,1,H,D).  Plain code
+    on every device, as in the JAX package."""
+    return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                    sm_scale=sm_scale)
 
 
 # ----------------------------------------------------------------- blur
@@ -50,3 +72,14 @@ def fused_preprocess(img, *, resize_h: int, resize_w: int,
     out = pp.fused_resize_crop_normalize_cuda(
         img.reshape((-1,) + tuple(img.shape[-3:])), **kw)
     return out.reshape(lead + out.shape[-3:])
+
+
+# ---------------------------------------------------------------- mamba
+def mamba2_ssd(x, dt, A, Bm, Cm, D=None, state=None, *, chunk: int = 128):
+    """Chunked Mamba2 SSD scan: x (B,T,H,P) -> (y in x's dtype, final
+    state (B,H,P,N) float32).  The chunk follows the TPU wrapper's rule
+    ``min(chunk, max(T, 8))`` on both routes."""
+    chunk = min(chunk, max(x.shape[1], 8))
+    if not _on_cuda(x):
+        return ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+    return mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)

@@ -1,0 +1,104 @@
+"""Model-serve launcher: batched prefill + decode over an assigned arch.
+
+  PYTHONPATH=src python -m repro_torch.launch.model_serve \\
+      --arch zamba2-2.7b --full --requests 16 --prompt-len 512 --gen 16
+
+This is the device-side half of the query engine's model-UDF path: the
+engine's Thread_3 coalesces entities into request batches and this layer
+runs prefill once + a decode loop with a cache updated in place.  It
+runs on the CUDA card unless asked for the CPU (``--device cpu``), and
+on one device (``model_par=1``): meshes come with the distribution
+slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core.boundary import resolve_device
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.models import get_model
+from repro_torch.serving.serve_step import make_serve_fns, sample_token
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
+        model_par=1, temperature=0.0, device="cuda", params=None) -> dict:
+    """Prefill ``requests`` seeded prompts of ``prompt_len`` tokens and
+    decode ``gen`` tokens each.  ``params`` (on ``device``) replaces the
+    port's seeded init.  Times are host wall clock around work that ends
+    in a device synchronise; the first call of a process includes its
+    one-time set-up (kernel library load, cuBLAS handles)."""
+    if model_par != 1:
+        raise NotImplementedError(
+            "model_par > 1 needs a mesh, which comes with the "
+            "training/distribution slice")
+    dev = resolve_device(device)
+    cfg = get_arch(arch, reduced=reduced)
+    sh = ShardingCtx(mesh=None)
+    model = get_model(cfg)
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, cfg.vocab_size, (requests, prompt_len))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+
+    prefill_fn, serve_step = make_serve_fns(model, sh)
+    max_cache = prompt_len + gen + 1
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, batch, max_cache)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    gen_rng = None
+    if temperature > 0.0:
+        gen_rng = torch.Generator(device=dev).manual_seed(0)
+    tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
+    toks = []
+    t1 = time.perf_counter()
+    for i in range(gen):
+        toks.append(tok)
+        logits, cache = serve_step(params, tok, cache, prompt_len + i)
+        tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
+    _sync(dev)
+    t_decode = time.perf_counter() - t1
+    out = torch.cat(toks, dim=1)
+    return {
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "tokens_per_s": requests * gen / max(t_decode, 1e-9),
+        "generated": out.cpu().numpy(),
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths (default: the reduced config)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args()
+    out = run(a.arch, reduced=not a.full, requests=a.requests,
+              prompt_len=a.prompt_len, gen=a.gen, model_par=a.model_par,
+              device=a.device)
+    print(f"[serve] {a.arch}: prefill {out['prefill_s']*1e3:.1f} ms, "
+          f"decode {out['decode_s']*1e3:.1f} ms "
+          f"({out['tokens_per_s']:.1f} tok/s)")
+
+
+if __name__ == "__main__":
+    main()

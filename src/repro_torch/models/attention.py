@@ -1,0 +1,132 @@
+"""Multi-head attention with GQA, qk-norm, QKV bias and rope (qwen3
+qk_norm, qwen1.5 bias, GQA, zamba2 shared blocks).
+
+Caches are preallocated ``(B, S_max, Hkv, D)`` tensors written in place
+at ``cache_index`` (the JAX package's ``dynamic_update_slice`` into a
+donated cache computes the same thing).  Attention longer than 1024
+positions takes the JAX package's chunked flash route, which comes with
+the K3 slice: here it raises rather than quietly running the naive
+route at that length.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import common
+from repro_torch.models.rope import apply_rope
+
+
+def init_attention(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    qdim, kvdim = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    p = {
+        "wq": common.normal(kg(), (d, qdim), dtype),
+        "wk": common.normal(kg(), (d, kvdim), dtype),
+        "wv": common.normal(kg(), (d, kvdim), dtype),
+        "wo": common.normal(kg(), (qdim, d), dtype,
+                            std=(qdim ** -0.5) / max(cfg.num_layers, 1) ** 0.5),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = common.zeros((qdim,), dtype, kg.device)
+        p["bk"] = common.zeros((kvdim,), dtype, kg.device)
+        p["bv"] = common.zeros((kvdim,), dtype, kg.device)
+    if cfg.qk_norm:
+        p["q_norm"] = common.ones((hd,), dtype, kg.device)
+        p["k_norm"] = common.ones((hd,), dtype, kg.device)
+    return p
+
+
+def _project_qkv(p, x, cfg: ArchConfig, sh: ShardingCtx):
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[:2]
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = common.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = common.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = sh(q, "batch", "seq", "act_heads", None)
+    k = sh(k, "batch", "seq", "cache_heads", None)
+    v = sh(v, "batch", "seq", "cache_heads", None)
+    return q, k, v
+
+
+def _pick_impl(seq: int) -> str:
+    # naive materializes (Sq,Sk) logits — fine for short seq, flash beyond
+    return "naive" if seq <= 1024 else "chunked"
+
+
+def apply_attention(
+    p: dict,
+    x: torch.Tensor,                     # (B, S, d)
+    *,
+    cfg: ArchConfig,
+    sh: ShardingCtx,
+    positions: torch.Tensor | None = None,  # (S,) or (B,S)
+    causal: bool = True,
+    use_rope: bool = True,
+    kv_cache: dict | None = None,        # {"k": (B,Smax,Hkv,D), "v": ...}
+    cache_index: int | None = None,      # write offset / valid length
+) -> tuple[torch.Tensor, dict | None]:
+    """Returns (output, kv_cache written in place, or None).
+
+    Modes:
+    - no cache: full (causal) attention over x;
+    - cache + S>=1: prefill-into-cache or single-token decode; new keys
+      are written at ``cache_index`` and attention spans the first
+      ``cache_index + S`` cache slots.
+    """
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(p, x, cfg, sh)
+
+    if use_rope and cfg.pos_scheme == "rope":
+        if positions is None:
+            base = 0 if cache_index is None else cache_index
+            positions = base + torch.arange(S, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if kv_cache is not None:
+        idx = 0 if cache_index is None else int(cache_index)
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        if idx + S > kc.shape[1]:
+            raise ValueError(f"cache of {kc.shape[1]} slots cannot take "
+                             f"{S} positions at {idx}")
+        kc[:, idx:idx + S] = k.to(kc.dtype)
+        vc[:, idx:idx + S] = v.to(vc.dtype)
+        new_cache = kv_cache
+        if S == 1:
+            out = kops.decode_attention(q, kc, vc, idx + 1)
+        else:
+            # prefill into cache: with causal masking at offset ``idx`` the
+            # not-yet-written cache tail (> idx+S) is never attended.
+            if _pick_impl(kc.shape[1]) != "naive":
+                raise NotImplementedError(
+                    f"prefill into a cache of {kc.shape[1]} slots takes the "
+                    "chunked flash route (flash_vjp), which comes with the "
+                    "K3 slice; the naive route covers caches up to 1024")
+            out = kref.naive_attention(q, kc, vc, causal=causal,
+                                       kv_len=idx + S, q_offset=idx)
+    else:
+        impl = _pick_impl(S)
+        if impl != "naive":
+            raise NotImplementedError(
+                f"attention over {S} positions takes the chunked flash "
+                "route (flash_vjp), which comes with the K3 slice; the "
+                "naive route covers sequences up to 1024")
+        out = kops.flash_attention(q, k, v, causal=causal, impl=impl)
+
+    out = sh(out, "batch", "seq", "act_heads", None)
+    out = out.reshape(B, S, cfg.num_heads * hd)
+    return out @ p["wo"], new_cache

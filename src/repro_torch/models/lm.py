@@ -1,0 +1,274 @@
+"""Unified decoder-only LM for the dense (``tblock``) and hybrid (zamba2)
+families.  Parameters are nested dicts of tensors laid out as the JAX
+package lays them out: per-layer leaves stacked on a leading axis
+(``blocks`` (L, ...); ``mamba`` (n_app, group, ...); ``shared``
+(num_shared_blocks, ...)), so ``repro_torch.interop.params_from_jax``
+carries a JAX tree over leaf for leaf.  The JAX package's ``lax.scan``
+over the stack becomes a Python loop over views of the stacked tensors,
+and caches are preallocated stacked tensors written in place (the JAX
+package threads them through the scan and donates them, which computes
+the same thing).  The ``rwkv`` family comes with the K5 slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.models import blocks, common
+from repro_torch.models.mamba2 import conv_dim
+
+
+def family_kind(cfg: ArchConfig) -> str:
+    if cfg.family == "hybrid":
+        return "hybrid"
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the rwkv family is not ported yet: it comes with "
+            "the RWKV6 slice (kernel K5, models/rwkv6.py)")
+    return "tblock"  # dense, vlm, moe
+
+
+def hybrid_shape(cfg: ArchConfig) -> tuple[int, int]:
+    group = cfg.shared_attn_every
+    if group <= 0 or cfg.num_layers % group:
+        raise ValueError(f"{cfg.name}: shared_attn_every={group} must divide "
+                         f"num_layers={cfg.num_layers}")
+    return cfg.num_layers // group, group
+
+
+# ---------------------------------------------------------- tree helpers
+def tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def layer(tree, *index):
+    """The per-layer view ``leaf[index]`` of every stacked leaf."""
+    return tree_map(lambda a: a[index], tree)
+
+
+def _stack_init(init_one: Callable, kg: common.KeyGen, n: int) -> dict:
+    """``n`` layers of ``init_one(kg)`` stacked on a leading axis, drawn
+    one layer after another and written into one preallocated tensor per
+    leaf (no second copy of the stack is ever held)."""
+    first = init_one(kg)
+    out = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    for i in range(n):
+        one = first if i == 0 else init_one(kg)
+        for dst, src in zip(tree_leaves(out), tree_leaves(one)):
+            dst[i].copy_(src)
+    return out
+
+
+# ======================================================================
+# init
+# ======================================================================
+def init_lm(generator: torch.Generator, cfg: ArchConfig,
+            dtype=torch.float32) -> dict:
+    """Random parameters drawn from ``generator`` on its device."""
+    kg = common.KeyGen(generator)
+    kind = family_kind(cfg)
+    dev = kg.device
+    p: dict[str, Any] = {
+        "embed": common.normal(kg(), (cfg.padded_vocab, cfg.d_model), dtype,
+                               std=0.02),
+        "final_norm": common.ones((cfg.d_model,), dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = common.normal(kg(), (cfg.d_model, cfg.padded_vocab),
+                                     dtype, std=0.02)
+    if kind == "tblock":
+        p["blocks"] = _stack_init(
+            lambda k: blocks.init_tblock(k, cfg, dtype, use_moe=cfg.is_moe),
+            kg, cfg.num_layers)
+    else:  # hybrid (zamba2)
+        n_app, group = hybrid_shape(cfg)
+        mb = _stack_init(lambda k: blocks.init_mblock(k, cfg, dtype),
+                         kg, n_app * group)
+        p["mamba"] = tree_map(
+            lambda a: a.reshape(n_app, group, *a.shape[1:]), mb)
+        p["shared"] = _stack_init(lambda k: blocks.init_tblock(k, cfg, dtype),
+                                  kg, cfg.num_shared_blocks)
+    return p
+
+
+# ======================================================================
+# caches
+# ======================================================================
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.float32, device=None) -> dict:
+    kind = family_kind(cfg)
+    hd = cfg.resolved_head_dim
+    if kind == "tblock":
+        kv = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd)
+        return {"k": torch.zeros(kv, dtype=dtype, device=device),
+                "v": torch.zeros(kv, dtype=dtype, device=device)}
+    n_app, group = hybrid_shape(cfg)
+    H, P, N = cfg.mamba_nheads, cfg.mamba_head_dim, cfg.ssm_state
+    kv = (n_app, batch, max_seq, cfg.num_kv_heads, hd)
+    return {
+        "conv": torch.zeros((n_app, group, batch, cfg.mamba_conv_width - 1,
+                             conv_dim(cfg)), dtype=dtype, device=device),
+        "ssm": torch.zeros((n_app, group, batch, H, P, N),
+                           dtype=torch.float32, device=device),
+        "k": torch.zeros(kv, dtype=dtype, device=device),
+        "v": torch.zeros(kv, dtype=dtype, device=device),
+    }
+
+
+# ======================================================================
+# embedding / head
+# ======================================================================
+def embed_tokens(p, tokens, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
+    h = p["embed"][tokens.to(p["embed"].device)]
+    if cfg.scale_emb != 1.0:
+        h = h * cfg.scale_emb
+    if cfg.pos_scheme == "sinusoidal":
+        pos = common.sinusoidal_positions(
+            torch.arange(h.shape[1], device=h.device), cfg.d_model, h.dtype)
+        h = h + pos[None]
+    return sh(h, "batch", "seq", "embed")
+
+
+def _final_norm(p, h, cfg):
+    return common.rms_norm(h, p["final_norm"], cfg.norm_eps)
+
+
+def lm_head(p, h, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
+    """h (B,S,d) -> logits (B,S,Vp); expects h already final-normed."""
+    logits = (h @ p["embed"].T) if cfg.tie_embeddings else (h @ p["lm_head"])
+    if cfg.dim_model_base:
+        logits = logits / (cfg.d_model / cfg.dim_model_base)
+    return sh(logits, "batch", "seq", "vocab")
+
+
+# ======================================================================
+# forward (no cache)
+# ======================================================================
+def forward(params, tokens, cfg: ArchConfig, sh: ShardingCtx,
+            *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B,S,Vp), moe_aux)."""
+    kind = family_kind(cfg)
+    if remat:
+        raise NotImplementedError("remat comes with the training slice")
+    h = embed_tokens(params, tokens, cfg, sh)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind == "tblock":
+        for li in range(cfg.num_layers):
+            h, _, a = blocks.apply_tblock(
+                layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
+                positions=positions, use_moe=cfg.is_moe)
+            aux = aux + a
+    else:
+        n_app, group = hybrid_shape(cfg)
+        for g in range(n_app):
+            sp = layer(params["shared"], g % cfg.num_shared_blocks)
+            h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
+                                          positions=positions)
+            for i in range(group):
+                h, _, _ = blocks.apply_mblock(layer(params["mamba"], g, i), h,
+                                              cfg=cfg, sh=sh)
+    h = _final_norm(params, h, cfg)
+    return lm_head(params, h, cfg, sh), aux
+
+
+# ======================================================================
+# prefill: forward + cache construction
+# ======================================================================
+def prefill(params, tokens, cfg: ArchConfig, sh: ShardingCtx, max_cache: int,
+            *, cache_dtype=None) -> tuple[torch.Tensor, dict]:
+    """Returns (last-position logits (B,Vp), cache)."""
+    kind = family_kind(cfg)
+    h = embed_tokens(params, tokens, cfg, sh)
+    B, S = h.shape[0], h.shape[1]
+    cache_dtype = cache_dtype or h.dtype
+    positions = torch.arange(S, device=h.device)
+    cache = init_cache(cfg, B, max_cache, cache_dtype, device=h.device)
+
+    if kind == "tblock":
+        for li in range(cfg.num_layers):
+            kv = {"k": cache["k"][li], "v": cache["v"][li]}
+            h, _, _ = blocks.apply_tblock(
+                layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
+                positions=positions, use_moe=cfg.is_moe, kv_cache=kv,
+                cache_index=0)
+    else:
+        # conv states stay in the activations' dtype, as in the JAX package
+        cache["conv"] = cache["conv"].to(h.dtype)
+        n_app, group = hybrid_shape(cfg)
+        for g in range(n_app):
+            sp = layer(params["shared"], g % cfg.num_shared_blocks)
+            kv = {"k": cache["k"][g], "v": cache["v"][g]}
+            h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
+                                          positions=positions, kv_cache=kv,
+                                          cache_index=0)
+            for i in range(group):
+                h, nc, ns = blocks.apply_mblock(
+                    layer(params["mamba"], g, i), h, cfg=cfg, sh=sh,
+                    conv_state=cache["conv"][g, i],
+                    ssm_state=cache["ssm"][g, i])
+                cache["conv"][g, i] = nc
+                cache["ssm"][g, i] = ns
+
+    h_last = _final_norm(params, h[:, -1:], cfg)
+    logits = lm_head(params, h_last, cfg, sh)
+    return logits[:, 0], cache
+
+
+# ======================================================================
+# decode: one token against the cache
+# ======================================================================
+def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
+                sh: ShardingCtx) -> tuple[torch.Tensor, dict]:
+    """tokens (B,1) integer; cache_index the valid length so far.
+    Returns (logits (B,Vp), the cache, updated in place)."""
+    kind = family_kind(cfg)
+    cache_index = int(cache_index)
+    h = embed_tokens(params, tokens, cfg, sh)
+    if cfg.pos_scheme == "sinusoidal":
+        # embed_tokens added position 0; replace with cache_index position
+        dev = h.device
+        pos = common.sinusoidal_positions(
+            torch.arange(1, device=dev) + cache_index, cfg.d_model, h.dtype)
+        pos0 = common.sinusoidal_positions(torch.arange(1, device=dev),
+                                           cfg.d_model, h.dtype)
+        h = h + (pos - pos0)[None]
+    positions = cache_index + torch.arange(1, device=h.device)
+
+    if kind == "tblock":
+        for li in range(cfg.num_layers):
+            kv = {"k": cache["k"][li], "v": cache["v"][li]}
+            h, _, _ = blocks.apply_tblock(
+                layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
+                positions=positions, use_moe=cfg.is_moe, kv_cache=kv,
+                cache_index=cache_index)
+    else:
+        n_app, group = hybrid_shape(cfg)
+        for g in range(n_app):
+            sp = layer(params["shared"], g % cfg.num_shared_blocks)
+            kv = {"k": cache["k"][g], "v": cache["v"][g]}
+            h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
+                                          positions=positions, kv_cache=kv,
+                                          cache_index=cache_index)
+            for i in range(group):
+                h, nc, ns = blocks.apply_mblock(
+                    layer(params["mamba"], g, i), h, cfg=cfg, sh=sh,
+                    conv_state=cache["conv"][g, i],
+                    ssm_state=cache["ssm"][g, i])
+                cache["conv"][g, i] = nc
+                cache["ssm"][g, i] = ns
+
+    h = _final_norm(params, h, cfg)
+    logits = lm_head(params, h, cfg, sh)
+    return logits[:, 0], cache

@@ -1,1 +1,2 @@
-"""Serving layer: so far the grouped-UDF dispatch backend."""
+"""Serving layer: prefill/decode steps, greedy generation, the grouped
+model batcher and the grouped-UDF dispatch backend."""

@@ -1,21 +1,156 @@
-"""Grouped-UDF execution as a first-class *dispatch backend* behind the
-common ``repro_torch.query.dispatch.Backend`` protocol: ops with a
-registered batched variant (``register_batched_udf``) become routable,
-the router's cost model amortizes the op estimate over the group size,
-and group results hand back to the engine through the existing Thread_3
-reply path (a ``("batched", entity, result, err)`` message on Queue_2).
+"""Batched model-UDF serving: iteration-level grouped batching.
 
-The model-serving ``GroupBatcher`` of the JAX package arrives with the
-model layer.
+The query engine's Thread_3 hands entities to model UDFs; running
+prefill+decode per entity wastes the card.  The ``GroupBatcher``
+coalesces queued requests into groups (by prompt length, so the cache
+write offsets stay uniform — the decode step takes one scalar
+cache_index), prefill runs once per group, and one ``decode_step``
+advances every sequence in the group per iteration.  Requests that hit
+EOS/max_tokens are marked done immediately (their slots idle until the
+group drains, then the next group is admitted — iteration-level, not
+token-level, admission).
+
+``UDFBatcherBackend`` promotes this layer to a first-class *dispatch
+backend* behind the common ``repro_torch.query.dispatch.Backend``
+protocol: ops with a registered batched variant
+(``register_batched_udf`` — model UDFs register one built on a
+GroupBatcher) become routable, the router's cost model amortizes the op
+estimate over the group size, and group results hand back to the engine
+through the existing Thread_3 reply path (a ``("batched", entity,
+result, err)`` message on Queue_2).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
 from typing import Optional
 
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.models.registry import ModelAPI
 from repro_torch.query.dispatch import OFFLOAD_STOP, OffloadInboxMixin
+from repro_torch.serving.serve_step import sample_token
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    tokens: np.ndarray            # (prompt_len,)
+    max_new: int = 16
+    eos_id: int = -1              # -1: never
+    out: list = dataclasses.field(default_factory=list)
+    done_event: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+
+    def result(self, timeout=None) -> np.ndarray:
+        if not self.done_event.wait(timeout):
+            raise TimeoutError(f"request {self.rid} timed out")
+        return np.asarray(self.out, np.int32)
+
+    def done(self) -> bool:
+        # mirrors the engine's QueryFuture polling API
+        return self.done_event.is_set()
+
+
+class GroupBatcher:
+    """Groups same-length prompts and serves each group with one prefill
+    and one decode step per iteration, on the device the parameters
+    live on."""
+
+    def __init__(self, model: ModelAPI, params, *, group_size: int = 8,
+                 max_new_default: int = 16, sh: ShardingCtx | None = None,
+                 temperature: float = 0.0, cache_dtype=torch.float32):
+        self.model = model
+        self.params = params
+        self.device = params["embed"].device
+        self.sh = sh or ShardingCtx(mesh=None)
+        self.group_size = group_size
+        self.max_new_default = max_new_default
+        self.temperature = temperature
+        self.cache_dtype = cache_dtype
+        self.waiting: "queue.Queue[Request]" = queue.Queue()
+        self._rid = 0
+        self._lock = threading.Lock()
+        self.steps_run = 0
+        self.tokens_out = 0
+        self.groups_run = 0
+
+    def submit(self, tokens, max_new: int | None = None, eos_id=-1) -> Request:
+        with self._lock:
+            self._rid += 1
+            req = Request(self._rid, np.asarray(tokens, np.int32),
+                          max_new or self.max_new_default, eos_id)
+        self.waiting.put(req)
+        return req
+
+    def run_until_idle(self):
+        """Serve every waiting request, group by group."""
+        while True:
+            group = self._next_group()
+            if not group:
+                return
+            self._run_group(group)
+
+    # ------------------------------------------------------------------
+    def _next_group(self) -> list[Request]:
+        """Pull up to group_size same-prompt-length requests."""
+        leftovers = []
+        group: list[Request] = []
+        while len(group) < self.group_size:
+            try:
+                r = self.waiting.get_nowait()
+            except queue.Empty:
+                break
+            if not group or len(r.tokens) == len(group[0].tokens):
+                group.append(r)
+            else:
+                leftovers.append(r)
+        for r in leftovers:
+            self.waiting.put(r)
+        return group
+
+    def _run_group(self, group: list[Request]):
+        cfg = self.model.cfg
+        n = len(group)
+        prompt_len = len(group[0].tokens)
+        max_new = max(r.max_new for r in group)
+        max_cache = prompt_len + max_new + 1
+
+        toks = torch.from_numpy(np.stack([r.tokens for r in group]))
+        batch = {"tokens": toks.to(self.device)}
+        logits, cache = self.model.prefill(self.params, batch, self.sh,
+                                           max_cache,
+                                           cache_dtype=self.cache_dtype)
+        live = np.ones(n, bool)
+        gen = None
+        if self.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.groups_run)
+        tok = sample_token(logits, gen, self.temperature, cfg.vocab_size)
+        for step in range(max_new):
+            tok_np = tok.cpu().numpy()
+            for i, r in enumerate(group):
+                if not live[i]:
+                    continue
+                t = int(tok_np[i, 0])
+                r.out.append(t)
+                self.tokens_out += 1
+                if t == r.eos_id or len(r.out) >= r.max_new:
+                    live[i] = False
+                    r.done_event.set()
+            if not live.any() or step == max_new - 1:
+                break
+            logits, cache = self.model.decode_step(
+                self.params, tok, cache, prompt_len + step, self.sh)
+            self.steps_run += 1
+            tok = sample_token(logits, gen, self.temperature, cfg.vocab_size)
+        for r in group:
+            r.done_event.set()
+        self.groups_run += 1
 
 
 class UDFBatcherBackend(OffloadInboxMixin):

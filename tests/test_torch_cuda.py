@@ -7,6 +7,11 @@ card's host run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 Tolerances (absolute, float32 images in [0, 1]): blur kernel 1e-5 (the
 same taps in the same order, rounded separately), fused preprocess
 kernel 1e-4 (band sums in another order than the composed products).
+Mamba2 SSD kernel: 5e-4 in float32 (chunk sums of up to 128 products in
+another order than cuBLAS, on outputs of magnitude up to about 10), and
+in bfloat16 5e-2 plus one bfloat16 rounding step (2^-7 relative), since
+the two versions may round a float32 value on either side of a
+bfloat16 boundary.
 """
 import hashlib
 
@@ -14,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels import preprocess as pp
 from repro_torch.kernels import ref
 
 STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b0"
+SSD_TOL = 5e-4
+SSD_BF16_ATOL, SSD_BF16_RTOL = 5e-2, 2.0 ** -7
 
 PREPROCESS_CASES = [
     # (N, H, W), resize (h, w), crop (x, y, w, h), method
@@ -131,3 +139,131 @@ def test_engine_static_hash_and_device_backend_on_the_card(cuda):
     for eid in out["native"]:
         np.testing.assert_allclose(out["cost"][eid], out["native"][eid],
                                    atol=1e-4, rtol=0)
+
+
+def _ssd_inputs(seed, B, T, H, P, G, N, device, dtype=torch.float32):
+    """x ~ N(0,1), dt = softplus(N(0,1)) / 2, A = -exp(0.3 N), B, C ~
+    0.5 N, D = |0.1 N|, h0 ~ 0.1 N (the JAX package's kernel-test
+    inputs), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def n(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+
+    x = n((B, T, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(n((B, T, H))) * 0.5
+    A = -torch.exp(n((H,), 0.3))
+    Bm, Cm = n((B, T, G, N), 0.5).to(dtype), n((B, T, G, N), 0.5).to(dtype)
+    return x, dt, A, Bm, Cm, n((H,), 0.1).abs(), n((B, H, P, N), 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", [
+    (2, 100, 4, 16, 2, 8, 32), (1, 64, 2, 8, 1, 16, 16),
+    (16, 3, 80, 64, 1, 64, 128),        # the model UDF's 3-token prompts
+    (2, 300, 16, 64, 4, 64, 128),       # G > 1, ragged tail
+    (2, 512, 80, 64, 1, 64, 128), (1, 77, 3, 40, 3, 24, 64)])
+def test_ssd_kernel_matches_plain(cuda, B, T, H, P, G, N, chunk):
+    from repro_torch.kernels.mamba2_ssd import launches, mamba2_ssd_cuda
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(T + N, B, T, H, P, G, N, cuda)
+    before = launches.count
+    y, h = mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+    y_p, h_p = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, h0,
+                                      chunk=min(chunk, max(T, 8)))
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert float((y - y_p).abs().max()) <= SSD_TOL
+    assert float((h - h_p).abs().max()) <= SSD_TOL
+    # no state and no D, through the public wrapper
+    y, h = ops.mamba2_ssd(x, dt, A, Bm, Cm, chunk=chunk)
+    y_p, h_p = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm,
+                                      chunk=min(chunk, max(T, 8)))
+    assert float((y - y_p).abs().max()) <= SSD_TOL
+    assert float((h - h_p).abs().max()) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_bf16_and_strided_operands(cuda):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(5, 4, 200, 8, 64, 2, 64, cuda,
+                                          torch.bfloat16)
+    y, h = mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0)
+    y_p, h_p = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, h0)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), y_p.float(), atol=SSD_BF16_ATOL,
+                               rtol=SSD_BF16_RTOL)
+    torch.testing.assert_close(h, h_p, atol=SSD_BF16_ATOL, rtol=SSD_BF16_RTOL)
+    # x, B and C as the model passes them: slices of one packed tensor
+    Bsz, T, H, P, G, N = 2, 130, 8, 64, 1, 64
+    xs, dt, A, Bm, Cm, D, h0 = _ssd_inputs(6, Bsz, T, H, P, G, N, cuda)
+    packed = torch.cat([xs.reshape(Bsz, T, H * P), Bm.reshape(Bsz, T, N),
+                        Cm.reshape(Bsz, T, N)], dim=-1)
+    xv, bv, cv = torch.split(packed, [H * P, N, N], dim=-1)
+    xv, bv, cv = (xv.reshape(Bsz, T, H, P), bv.reshape(Bsz, T, G, N),
+                  cv.reshape(Bsz, T, G, N))
+    assert not xv.is_contiguous()
+    y, h = mamba2_ssd_cuda(xv, dt, A, bv, cv, D, h0)
+    y_p, h_p = ref.mamba2_ssd_chunked(xs, dt, A, Bm, Cm, D, h0)
+    assert float((y - y_p).abs().max()) <= SSD_TOL
+    assert float((h - h_p).abs().max()) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_reduced_zamba2_on_the_card_goes_through_the_kernel(cuda):
+    """Prefill + decode of reduced zamba2 on the card launches the SSD
+    kernel once per Mamba2 layer and agrees with the same model on the
+    host; the three model-UDF routes stamp identical images."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.udf import register_model_udf
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.kernels.mamba2_ssd import launches
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_map
+    cfg = get_arch("zamba2-2.7b", reduced=True)
+    api = get_model(cfg)
+    host = api.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    before = launches.count
+    lg, cache = api.prefill(card, {"tokens": toks.to(cuda)}, REPLICATED, 24)
+    assert launches.count - before == cfg.num_layers
+    lg, _ = api.decode_step(card, toks[:, -1:].to(cuda), cache, 20,
+                            REPLICATED)
+    lh, hcache = api.prefill(host, {"tokens": toks}, REPLICATED, 24)
+    lh, _ = api.decode_step(host, toks[:, -1:], hcache, 20, REPLICATED)
+    assert float((lg.cpu() - lh).abs().max()) <= 3e-4
+
+    register_model_udf("cuda_lm", arch="zamba2-2.7b", reduced=True,
+                       params=card)
+    pinned = {"cuda_lm": {"batcher": 1e-6, "native": 10.0, "remote": 10.0}}
+    on_device = {"cuda_lm": {"device": 1e-6, "native": 10.0, "remote": 10.0,
+                             "batcher": 10.0}}
+    query = [{"FindImage": {"constraints": {"category": ["==", "m"]},
+                            "operations": [{"type": "udf",
+                                            "options": {"id": "cuda_lm"}}]}}]
+    out = {}
+    for arm, kw in (("per_entity", dict(dispatch="native")),
+                    ("batcher", dict(dispatch="cost", cost_overrides=pinned)),
+                    ("device", dict(dispatch="cost", device_backend=True,
+                                    cost_overrides=on_device))):
+        eng = VDMSAsyncEngine(device="cuda", **kw)
+        try:
+            rng = np.random.default_rng(3)
+            for i in range(4):
+                eng.add_entity("image", rng.uniform(0, 1, (32, 32, 3)).astype(
+                    np.float32), {"category": "m"})
+            before = launches.count
+            res = eng.execute(query, timeout=300)
+            assert launches.count > before
+        finally:
+            eng.shutdown()
+        assert res["stats"]["failed"] == 0
+        out[arm] = res["entities"]
+    for eid in out["per_entity"]:
+        for arm in ("batcher", "device"):
+            np.testing.assert_array_equal(out[arm][eid],
+                                          out["per_entity"][eid])

@@ -13,7 +13,11 @@ Tolerances (absolute, float32 images in [0, 1]):
 - resize matrices: 1e-6 — the same float32 formula, a few ulps apart
   where XLA and numpy order a reduction differently; nearest: exact;
 - fused preprocess: 1e-5 — two matrix products in another order than
-  XLA's.
+  XLA's;
+- Mamba2 SSD: 2e-4 in float32 (the JAX package's own tolerance for its
+  chunked and Pallas paths against the sequential oracle,
+  ``tests/test_kernels.py``), 5e-2 in bfloat16 (the same);
+- attention: 1e-5 — the same float32 softmax over the same products.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 from repro.kernels import preprocess as jpp
 from repro.kernels import ref as jref
 from repro.kernels.gaussian_blur import gaussian_blur_pallas
+from repro.kernels.mamba2_ssd import mamba2_ssd_pallas
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import preprocess as tpp
 from repro_torch.kernels import ref as tref
@@ -32,6 +37,9 @@ torch.set_num_threads(1)
 BLUR_TOL = 1e-6
 RESIZE_TOL = 1e-6
 PREPROCESS_TOL = 1e-5
+SSD_TOL = 2e-4
+SSD_BF16_TOL = 5e-2
+ATTN_TOL = 1e-5
 
 
 def _uniform(seed, shape):
@@ -130,6 +138,138 @@ def test_fused_preprocess_plain_matches_pallas(shape, res, crop, method):
     np.testing.assert_allclose(got, folded, atol=PREPROCESS_TOL, rtol=0)
 
 
+# ---------------------------------------------------------- mamba2 SSD
+def _ssd_inputs(seed, B, T, H, P, G, N, *, state=True, skip=True):
+    """The JAX package's test inputs (``tests/test_kernels.py``), drawn
+    with numpy: x ~ N(0,1), dt = softplus(N(0,1)) / 2, A = -exp(0.3 N),
+    B, C ~ 0.5 N, D = |0.1 N|, h0 ~ 0.1 N."""
+    rng = np.random.default_rng(seed)
+
+    def n(shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = n((B, T, H, P))
+    dt = (np.log1p(np.exp(n((B, T, H)))) * 0.5).astype(np.float32)
+    A = (-np.exp(n((H,), 0.3))).astype(np.float32)
+    Bm, Cm = n((B, T, G, N), 0.5), n((B, T, G, N), 0.5)
+    D = np.abs(n((H,), 0.1)) if skip else None
+    h0 = n((B, H, P, N), 0.1) if state else None
+    return x, dt, A, Bm, Cm, D, h0
+
+
+def _t(a, dtype=torch.float32):
+    return None if a is None else torch.from_numpy(a).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return None if a is None else jnp.asarray(a, dtype)
+
+
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk", [(2, 100, 4, 16, 2, 8, 32),
+                                               (1, 64, 2, 8, 1, 16, 16)])
+def test_mamba2_plain_matches_pallas_and_ref(B, T, H, P, G, N, chunk):
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(T + N, B, T, H, P, G, N)
+    jargs = [_j(a) for a in (x, dt, A, Bm, Cm, D, h0)]
+    y_ref, h_ref = jref.mamba2_ssd_ref(*jargs)
+    y_pl, h_pl = mamba2_ssd_pallas(*jargs, chunk=chunk, interpret=True)
+    targs = [_t(a) for a in (x, dt, A, Bm, Cm, D, h0)]
+    y, h = tops.mamba2_ssd(*targs, chunk=chunk)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    for got, want in ((y, y_ref), (y, y_pl), (h, h_ref), (h, h_pl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=SSD_TOL, rtol=0)
+    # the port's sequential oracle is the JAX package's
+    y_sq, h_sq = tref.mamba2_ssd_ref(*targs)
+    np.testing.assert_allclose(y_sq.numpy(), np.asarray(y_ref), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(h_sq.numpy(), np.asarray(h_ref), atol=1e-5,
+                               rtol=0)
+
+
+def test_mamba2_plain_matches_pallas_bf16():
+    B, T, H, P, G, N = 1, 64, 2, 16, 1, 8
+    x, dt, A, Bm, Cm, _, _ = _ssd_inputs(321, B, T, H, P, G, N,
+                                         state=False, skip=False)
+    bf = jnp.bfloat16
+    y_ref, h_ref = jref.mamba2_ssd_ref(_j(x, bf), _j(dt), _j(A), _j(Bm, bf),
+                                       _j(Cm, bf))
+    y_pl, h_pl = mamba2_ssd_pallas(_j(x, bf), _j(dt), _j(A), _j(Bm, bf),
+                                   _j(Cm, bf), chunk=32, interpret=True)
+    tb = torch.bfloat16
+    y, h = tops.mamba2_ssd(_t(x, tb), _t(dt), _t(A), _t(Bm, tb), _t(Cm, tb),
+                           chunk=32)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    for want in (y_ref, y_pl):
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=SSD_BF16_TOL, rtol=0)
+    for want in (h_ref, h_pl):
+        np.testing.assert_allclose(h.numpy(), np.asarray(want),
+                                   atol=SSD_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 3, 9, 130])
+def test_mamba2_chunk_rule_and_ragged_tails(T):
+    """``min(chunk, max(T, 8))``: a 3-token prompt runs as one 8-step
+    chunk; every tail length gives the sequential result."""
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(T, 2, T, 4, 8, 2, 8)
+    targs = [_t(a) for a in (x, dt, A, Bm, Cm, D, h0)]
+    y, h = tops.mamba2_ssd(*targs)
+    y_sq, h_sq = tref.mamba2_ssd_ref(*targs)
+    np.testing.assert_allclose(y.numpy(), y_sq.numpy(), atol=SSD_TOL, rtol=0)
+    np.testing.assert_allclose(h.numpy(), h_sq.numpy(), atol=SSD_TOL, rtol=0)
+    y_j, h_j = jref.mamba2_ssd_chunked_jnp(*[_j(a) for a in
+                                             (x, dt, A, Bm, Cm, D, h0)])
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=SSD_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_j), atol=SSD_TOL,
+                               rtol=0)
+
+
+# ------------------------------------------------------------ attention
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (4, 4)])
+def test_decode_attention_matches_jax(H, Hkv):
+    B, S, D = 2, 96, 16
+    rng = np.random.default_rng(H * 10 + Hkv)
+    q, kc, vc = (rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, 1, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    lens = np.array([40, 96], np.int32)
+    want = np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens)))
+    got = tops.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc), torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL, rtol=0)
+    # an int length as the model passes it, and the naive route
+    got = tops.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                torch.from_numpy(vc), 40)
+    naive = tref.naive_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                 torch.from_numpy(vc), causal=False,
+                                 kv_len=40)
+    np.testing.assert_allclose(got.numpy(), naive.numpy(), atol=ATTN_TOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal,q_offset,kv_len", [(True, 0, None),
+                                                    (False, 0, None),
+                                                    (True, 5, 29)])
+def test_naive_attention_matches_jax(causal, q_offset, kv_len):
+    B, Sq, Sk, H, Hkv, D = 2, 24, 40, 4, 2, 16
+    rng = np.random.default_rng(Sq + q_offset)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+    jl = None if kv_len is None else jnp.full((B,), kv_len)
+    want = np.asarray(jref.naive_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        kv_len=jl, q_offset=q_offset))
+    got = tref.naive_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               kv_len=kv_len, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL, rtol=0)
+    with pytest.raises(NotImplementedError, match="K3"):
+        tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), impl="chunked")
+
+
 def test_wrappers_refuse_devices_without_a_path():
     with pytest.raises(ValueError, match="CUDA tensor"):
         from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
@@ -140,3 +280,10 @@ def test_wrappers_refuse_devices_without_a_path():
             crop_y=0, crop_w=4, crop_h=4)
     with pytest.raises(ValueError, match="meta"):
         tops.gaussian_blur(torch.zeros(1, 4, 4, 3, device="meta"), 3, 1.0)
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+    x, dt, A, Bm, Cm, D, h0 = (_t(a) for a in _ssd_inputs(0, 1, 8, 2, 4, 1,
+                                                           4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0)
+    with pytest.raises(ValueError, match="meta"):
+        tops.mamba2_ssd(x.to("meta"), dt, A, Bm, Cm)
