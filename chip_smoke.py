@@ -23,20 +23,30 @@ Phases (any failed check exits non-zero, before the result line):
    against the no-cache forward; and one engine query over 16 images
    whose only op is a ``register_model_udf`` model UDF, through the
    per-entity, batcher and device-backend arms, which must stamp
-   identical labels.
+   identical labels;
+7. the same at the full width of rwkv6-1.6b (24 layers, d_model 2048):
+   every prefill runs the WKV6 kernel K5;
+8. the long-context path at the full width of qwen3-0.6b (28 layers,
+   16 q heads and 8 kv heads of 128): ``model_serve.run`` over 4
+   requests of 4096 tokens + 16 generated, and prefill + 4 decode steps
+   of a 2048-token prompt against the no-cache forward; every layer of
+   a prefill or forward beyond 1024 positions runs the flash-attention
+   kernel K3.
 
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
-zeroed again just before phase 6 and read just after it (the model
-path: the SSD kernel K4 must have launched).  Phase 5's launches, which
-only compare kernels with their plain versions, count in neither.  The
-last lines are the card's name and power limit, one
+zeroed again just before each of phases 6, 7 and 8 and read just after
+it (K4, K5 and K3 must have launched on their paths).  Phase 5's
+launches, which only compare kernels with their plain versions, count
+in none.  The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,9 +56,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b0"
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and fp32 (non-tensor) peak
+# NVIDIA H100 SXM data sheet (dense rates): HBM3 bandwidth, and the peak
+# operations a second for each operand type: float32 outside the tensor
+# cores (TF32 stays off), bfloat16 on them
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+PEAK_FLOP_S = {"torch.float32": FP32_FLOP_S, "torch.bfloat16": 989e12}
 
 K1_TOL = 1e-5       # blur kernel vs plain, absolute (same tap order)
 K2_TOL = 1e-4       # fused preprocess vs composed ops, absolute
@@ -63,8 +76,25 @@ K4_BF16_ATOL, K4_BF16_RTOL = 5e-2, 2.0 ** -7
 # the JAX package's 3e-4 at reduced width, widened for 54 layers of
 # float32 products of length up to 10240 summed in other orders
 MODEL_TOL = 1e-3
+# WKV6 kernel vs plain, float32, absolute: sums over 64 steps of decayed
+# products in another order, on outputs up to about 10
+K5_TOL = 5e-4
+# ... in bfloat16: one bfloat16 rounding step of the output, plus 5e-2
+K5_BF16_ATOL, K5_BF16_RTOL = 5e-2, 2.0 ** -7
+# flash-attention kernel vs plain: float32 2e-5 (the JAX package's flash
+# tolerance, tests/test_kernels.py), on softmax averages of N(0,1) values;
+# its log-sum-exp 1e-4 on values up to about 10; in bfloat16 both compute
+# in float32 from the same inputs and round the output once, so they may
+# land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
+# sixth of a typical output (about 0.03 for a row over 4096 keys)
+K3_TOL, K3_LSE_TOL = 2e-5, 1e-4
+K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
+# the RWKV6 decay with log w about -8 a step: ww = log(8) + N(0, 1)
+STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 
 ARCH = "zamba2-2.7b"
+RWKV_ARCH = "rwkv6-1.6b"
+LONG_ARCH = "qwen3-0.6b"
 MODEL_UDF = "lm"
 
 # a few ms of device sleep ahead of each timed call (outlasts the host
@@ -344,8 +374,59 @@ def ssd_work(B, T, H, P, G, N, chunk, itemsize):
     return nbytes, flops * B * H
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+def wkv_inputs(rng, B, T, H, K, dtype, shift=0.0):
+    """r, k ~ 0.5 N, v ~ N, u ~ 0.1 N, s0 ~ 0.1 N, and the model's decay
+    w = exp(-exp(ww)) with ww = -4 + shift + N(0, 1) (the seeded LoRA's
+    spread around ``decay_base``), drawn with numpy, moved to the card;
+    r, k and v in ``dtype``, w, u and s0 in float32."""
+    import numpy as np
+    import torch
+
+    def n(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+
+    r, k, v = n((B, T, H, K), 0.5), n((B, T, H, K), 0.5), n((B, T, H, K))
+    w = torch.exp(-torch.exp(-4.0 + shift + n((B, T, H, K))))
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, n((H, K), 0.1),
+            n((B, H, K, K), 0.1))
+
+
+def wkv_work(B, T, H, K, V, itemsize):
+    """Bytes and operations of one WKV6 call, counted for the function
+    and not for the chunked algorithm: with w given, the sequential
+    recurrence needs no exponential.  Bytes: r, k, v and y in their
+    type, w in float32, u and both states in float32, each once.
+    Operations, per (batch, head) step: r . S (2KV), the state's decay
+    and update S = w S + k v (3KV), the bonus (r u . k) v (3K + 2V)."""
+    nbytes = (3 * B * T * H * K + B * T * H * V) * itemsize \
+        + (B * T * H * K + H * K + 2 * B * H * K * V) * 4
+    return nbytes, (5 * K * V + 3 * K + 2 * V) * B * T * H
+
+
+def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
+    """Bytes and operations of one flash-attention call over the
+    (query, key) pairs it must visit: every key when not causal, keys
+    up to ``q_offset + row`` when causal.  Bytes: q and out in their
+    type, the keys and values that some row sees, by kv head, and the
+    float32 log-sum-exp, each once.  Operations: 2D for the logit and
+    2D for its share of P V per visible pair and head."""
+    if causal:
+        pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq))
+        keys = min(Sk, q_offset + Sq)
+    else:
+        pairs, keys = Sq * Sk, Sk
+    nbytes = (2 * B * Sq * H * D + 2 * B * keys * Hkv * D) * itemsize \
+        + B * Sq * H * 4
+    return nbytes, 4 * pairs * D * H * B
+
+
+def bound(nbytes, flops, dtype):
+    """Least time in ms and what sets it: bytes at the HBM rate, or the
+    operations at the card's peak for the operands' type (``dtype``),
+    whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOP_S[str(dtype)]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -357,8 +438,10 @@ def phase_kernels():
     from repro_torch.kernels import preprocess as pp
     from repro_torch.kernels import ref
     from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
     from repro_torch.kernels.ref import gaussian_blur_ref, gaussian_kernel_1d
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
     print("phase 5: kernels against their plain versions", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -389,6 +472,7 @@ def phase_kernels():
         n, h, w, _ = shape
         nbytes = 2 * n * h * w * c * 4
         flops = 4 * ksize * n * h * w * c
+        bound_ms, bound_by = bound(nbytes, flops, x.dtype)
         return {
             "shape": list(shape), "ksize": ksize, "sigma": sigma,
             "max_abs_err": err,
@@ -399,9 +483,7 @@ def phase_kernels():
                             "(a composition; no single torch call)",
             "library_max_abs_err": lib_err,
             "bytes": nbytes, "flops": flops,
-            "bound_ms": max(nbytes / HBM_BYTES_S, flops / FP32_FLOP_S) * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= flops / FP32_FLOP_S else "operations"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
 
     def preprocess_case(n, size, kw):
@@ -427,6 +509,7 @@ def phase_kernels():
         flops = (2 * n * c * (nnz_y * size + hc * nnz_x)
                  + 2 * n * hc * wc * c)
         dense_flops = 2 * n * c * (hc * size * size + hc * wc * size)
+        bound_ms, bound_by = bound(nbytes, flops, x.dtype)
         return {
             "shape": [n, size, size, 3], "params": kw,
             "max_abs_err": err,
@@ -438,9 +521,7 @@ def phase_kernels():
                             "cropped matrices (no normalize)",
             "bytes": nbytes, "flops": flops, "dense_flops": dense_flops,
             "dense_fp32_ms": dense_flops / FP32_FLOP_S * 1e3,
-            "bound_ms": max(nbytes / HBM_BYTES_S, flops / FP32_FLOP_S) * 1e3,
-            "bound_by": ("bytes" if nbytes / HBM_BYTES_S
-                         >= flops / FP32_FLOP_S else "operations"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
         }
 
     def ssd_case(B, T, H, P, G, N, dtype=torch.float32, chunk=128):
@@ -462,7 +543,7 @@ def phase_kernels():
                   f"{what}; beyond {K4_BF16_RTOL:.4g} relative: "
                   f"{excess:.3g} <= {K4_BF16_ATOL}")
         nbytes, flops = ssd_work(B, T, H, P, G, N, chunk, x.element_size())
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
         return {
             "shape": [B, T, H, P], "G": G, "N": N, "chunk": c,
             "dtype": str(dtype), "max_abs_err": err,
@@ -495,6 +576,113 @@ def phase_kernels():
               f"max_abs_err {err:.3g} <= {K4_TOL}")
         return {"shape": [Bsz, T, H, P], "strided": True, "max_abs_err": err}
 
+    def held(what, got, want, atol, rtol=0.0):
+        """Max |got - want| over pairs; checks that it stays within
+        ``atol`` beyond ``rtol`` of |want|.  Returns the max error."""
+        err, excess = 0.0, 0.0
+        for g, w in zip(got, want):
+            d = (g.float() - w.float()).abs()
+            err = max(err, float(d.max()))
+            excess = max(excess, float((d - rtol * w.float().abs()).max()))
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        beyond = f"; beyond {rtol:.4g} relative {excess:.3g}" if rtol else ""
+        check(finite and excess <= atol,
+              f"{what}: finite, max_abs_err {err:.3g}{beyond} <= {atol}")
+        return err
+
+    def wkv_case(B, T, H, K, dtype=torch.float32, shift=0.0, plain=None,
+                 timed=True, what=""):
+        r, k, v, w, u, s0 = wkv_inputs(rng, B, T, H, K, dtype, shift)
+        plain = plain or ref.rwkv6_chunked
+        y, s = rwkv6_scan_cuda(r, k, v, w, u, s0)
+        y_p, s_p = plain(r, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        name = (f"K5 {(B, T, H, K)} {str(dtype)[6:]}{what} against "
+                f"{plain.__name__}")
+        if dtype == torch.float32:
+            err = held(name, (y, s), (y_p, s_p), K5_TOL)
+        else:
+            err = held(name, (y, s), (y_p, s_p), K5_BF16_ATOL, K5_BF16_RTOL)
+        row = {"kernel": "rwkv6_scan", "shape": [B, T, H, K],
+               "dtype": str(dtype), "decay_shift": shift, "max_abs_err": err,
+               # the reference's clamp: strong decays underflow w to 0
+               "log_w_median": float(torch.log(w.clamp_min(1e-30)).median())}
+        if not timed:
+            return row
+        nbytes, flops = wkv_work(B, T, H, K, K, r.element_size())
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        row.update({
+            "ms": time_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, s0), flush),
+            "plain_ms": time_ms(lambda: ref.rwkv6_chunked(r, k, v, w, u, s0),
+                                flush, reps=10),
+            "library_ms": None,
+            "library_call": "none: no single PyTorch call computes WKV6",
+            "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        return row
+
+    def wkv_carry(B, T, H, K, split):
+        """Two calls that carry the state, against one over the whole."""
+        r, k, v, w, u, s0 = wkv_inputs(rng, B, T, H, K, torch.float32)
+        y, s = rwkv6_scan_cuda(r, k, v, w, u, s0)
+        y1, s1 = rwkv6_scan_cuda(r[:, :split], k[:, :split], v[:, :split],
+                                 w[:, :split], u, s0)
+        y2, s2 = rwkv6_scan_cuda(r[:, split:], k[:, split:], v[:, split:],
+                                 w[:, split:], u, s1)
+        torch.cuda.synchronize()
+        err = held(f"K5 {(B, T, H, K)} as two calls split at {split} "
+                   "carrying the state, against one call",
+                   (torch.cat([y1, y2], 1), s2), (y, s), K5_TOL)
+        return {"kernel": "rwkv6_scan", "shape": [B, T, H, K],
+                "split": split, "max_abs_err": err}
+
+    def attn_case(B, Sq, Sk, H, Hkv, D, q_offset=0, causal=True,
+                  dtype=torch.float32, library=False):
+        def n(shape):
+            return torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).cuda().to(dtype)
+        q, k, v = n((B, Sq, H, D)), n((B, Sk, Hkv, D)), n((B, Sk, Hkv, D))
+        o, lse = flash_attention_cuda(q, k, v, q_offset=q_offset,
+                                      causal=causal)
+        o_p, lse_p = ref.flash_attention_chunked(q, k, v, causal=causal,
+                                                 q_offset=q_offset)
+        torch.cuda.synchronize()
+        what = (f"K3 q {(B, Sq, H, D)} kv {(Sk, Hkv)} q_offset {q_offset} "
+                f"{'causal' if causal else 'full'} {str(dtype)[6:]}")
+        if dtype == torch.float32:
+            err = held(what, (o,), (o_p,), K3_TOL)
+        else:
+            err = held(what, (o,), (o_p,), K3_BF16_ATOL, K3_BF16_RTOL)
+        lse_err = held(f"{what}: log-sum-exp", (lse,), (lse_p,), K3_LSE_TOL)
+        nbytes, flops = attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal,
+                                  q.element_size())
+        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        row = {"kernel": "flash_attention", "shape": [B, Sq, H, D],
+               "kv": [Sk, Hkv], "q_offset": q_offset, "causal": causal,
+               "dtype": str(dtype), "max_abs_err": err,
+               "lse_max_abs_err": lse_err,
+               "ms": time_ms(lambda: flash_attention_cuda(
+                   q, k, v, q_offset=q_offset, causal=causal), flush),
+               "plain_ms": time_ms(lambda: ref.flash_attention_chunked(
+                   q, k, v, causal=causal, q_offset=q_offset), flush, reps=5),
+               "library_ms": None,
+               "library_call": "none timed at this shape",
+               "bytes": nbytes, "flops": flops,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if library:  # top-left causal mask: the same function at offset 0
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+            row["library_max_abs_err"] = float(
+                (lib().transpose(1, 2).float() - o_p.float()).abs().max())
+            row["library_ms"] = time_ms(lib, flush)
+            row["library_call"] = ("F.scaled_dot_product_attention(is_causal, "
+                                   "enable_gqa) on (B,H,S,D) views")
+        return row
+
     entries["gaussian_blur"] = blur_case((32, 224, 224, 3), 9, 2.0)
     rows.append(entries["gaussian_blur"])
     rows.append(blur_case((1, 250, 250, 3), 5, 1.5))
@@ -512,11 +700,36 @@ def phase_kernels():
     rows.append(ssd_case(16, 3, 80, 64, 1, 64))
     rows.append(ssd_case(16, 512, 80, 64, 8, 64))
     rows.append(ssd_case(16, 512, 80, 64, 1, 64, torch.bfloat16))
+    # K5 at launch.model_serve's prefill shape (16 x 512 tokens, rwkv6's
+    # 32 heads of 64, chunk 64), bfloat16 r/k/v with float32 w, the model
+    # UDF's 3-token prompts, and decays of log w about -8 a step against
+    # the sequential scan (an overflowing factored decay shows there)
+    entries["rwkv6_scan"] = wkv_case(16, 512, 32, 64)
+    rows.append(entries["rwkv6_scan"])
+    rows.append(wkv_case(16, 512, 32, 64, torch.bfloat16))
+    rows.append(wkv_case(8, 3, 32, 64))
+    rows.append(wkv_case(16, 512, 32, 64, shift=STRONG_DECAY_SHIFT,
+                         plain=ref.rwkv6_scan_ref, timed=False,
+                         what=" strong decay"))
+    # K3 at the long-context prefill (4 x 4096 rows of qwen3's 16 heads of
+    # 128 against a 4113-slot cache of 8 kv heads), in bfloat16, a
+    # 512-row prefill at q_offset 3584 into that cache, a non-causal case
+    # and lengths that are no multiple of the 64-row tile
+    entries["flash_attention"] = attn_case(4, 4096, 4113, 16, 8, 128,
+                                           library=True)
+    rows.append(entries["flash_attention"])
+    rows.append(attn_case(4, 4096, 4113, 16, 8, 128, dtype=torch.bfloat16,
+                          library=True))
+    rows.append(attn_case(4, 512, 4113, 16, 8, 128, q_offset=3584))
+    rows.append(attn_case(2, 64, 192, 6, 2, 32, causal=False))
+    rows.append(attn_case(1, 100, 100, 2, 1, 64))
+    rows.append(attn_case(2, 1100, 1105, 4, 2, 16))
     for r in rows:
-        print("  " + json.dumps({k: r[k] for k in (
+        print("  " + json.dumps({k: r.get(k) for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")}), flush=True)
     rows.append(ssd_model_layout())
+    rows.append(wkv_carry(16, 512, 32, 64, 200))
     return entries, rows
 
 
@@ -531,6 +744,10 @@ def kernels_line(entries, path_launches):
             "src/repro/kernels/preprocess.py:79"),
         "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                        "src/repro/kernels/mamba2_ssd.py:68"),
+        "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+                       "src/repro/kernels/rwkv6_scan.py:78"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:77"),
     }
     kernels = []
     for name, e in entries.items():
@@ -545,26 +762,27 @@ def kernels_line(entries, path_launches):
     return kernels
 
 
-def phase_model(launches, device="cuda", reduced=False, requests=16,
-                prompt_len=512, gen=16, n_images=16):
-    """The model path: ``launch.model_serve.run``, the forward-consistency
-    check and the model UDF through the engine's three arms.  ``device``
-    and ``reduced`` let a host without a card rehearse it."""
+def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
+                device="cuda", reduced=False, requests=16, prompt_len=512,
+                gen=16, consistency=(2, 16, 4), n_images=16):
+    """A model path: ``launch.model_serve.run`` (cold, then warm), prefill
+    + decode against the no-cache forward over ``consistency`` = (batch,
+    prompt, decode steps), and, when ``n_images`` is not 0, the model UDF
+    through the engine's three arms, counting ``kernel``'s launches in
+    each.  ``device`` and ``reduced`` let a host without a card rehearse
+    it."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.core.engine import VDMSAsyncEngine
-    from repro_torch.core.remote import TransportModel
-    from repro_torch.core.udf import register_model_udf
     from repro_torch.distributed.sharding import REPLICATED
     from repro_torch.launch import model_serve
     from repro_torch.models import get_model
-    from repro_torch.visual.font import draw_text
-    cfg = get_arch(ARCH, reduced=reduced)
+    from repro_torch.models.lm import tree_leaves
+    cfg = get_arch(arch, reduced=reduced)
     on_card = device == "cuda"
-    print(f"phase 6: model path, {cfg.name} ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params)",
-          flush=True)
+    print(f"phase {phase}: model path, {cfg.name} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.param_count() / 1e9:.3f} B params "
+          "by the configs' formula)", flush=True)
     out = {"arch": cfg.name, "params": cfg.param_count()}
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -572,7 +790,8 @@ def phase_model(launches, device="cuda", reduced=False, requests=16,
     # -- the launcher: prefill + decode, twice (the first pays set-up)
     serve = []
     for run_i in range(2):
-        r = model_serve.run(ARCH, reduced=reduced, requests=requests,
+        before = launches[kernel].count
+        r = model_serve.run(arch, reduced=reduced, requests=requests,
                             prompt_len=prompt_len, gen=gen, device=device)
         gen_toks = r.pop("generated")
         r["generated_ok"] = bool(gen_toks.shape == (requests, gen)
@@ -580,12 +799,13 @@ def phase_model(launches, device="cuda", reduced=False, requests=16,
                                  and (gen_toks < cfg.vocab_size).all())
         r["prefill_ms"], r["decode_ms"] = r["prefill_s"] * 1e3, \
             r["decode_s"] * 1e3
+        r["kernel_launches"] = launches[kernel].count - before
         serve.append(r)
         print(f"  model_serve {'cold' if run_i == 0 else 'warm'}: "
               f"{requests} x {prompt_len} tokens, prefill "
               f"{r['prefill_ms']:.3f} ms, {gen} decode steps "
-              f"{r['decode_ms']:.3f} ms, {r['tokens_per_s']:.3f} tokens/s",
-              flush=True)
+              f"{r['decode_ms']:.3f} ms, {r['tokens_per_s']:.3f} tokens/s, "
+              f"{kernel} launches {r['kernel_launches']}", flush=True)
         check(r["generated_ok"], f"generated tokens: shape ({requests}, "
               f"{gen}), inside the vocabulary")
     out["serve"] = serve
@@ -593,31 +813,55 @@ def phase_model(launches, device="cuda", reduced=False, requests=16,
     # -- prefill + decode against the no-cache forward
     api = get_model(cfg)
     params = api.init(torch.Generator(device=device).manual_seed(1))
-    S, extra = 16, 4
+    out["tree_params"] = sum(t.numel() for t in tree_leaves(params))
+    print(f"  the parameter tree holds {out['tree_params']} values "
+          f"({cfg.param_count()} by the configs' formula)", flush=True)
+    batch, S, extra = consistency
     toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (2, S + extra)).astype(np.int32)).to(device)
-    full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
-    lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
-                            S + extra + 1)
-    errs = [float((lg - full[:, S - 1]).abs().max())]
-    for i in range(extra):
-        lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1], cache,
-                                    S + i, REPLICATED)
-        errs.append(float((lg - full[:, S + i]).abs().max()))
+        0, cfg.vocab_size, (batch, S + extra)).astype(np.int32)).to(device)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
+        lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
+                                S + extra + 1)
+        errs = [float((lg - full[:, S - 1]).abs().max())]
+        for i in range(extra):
+            lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1],
+                                        cache, S + i, REPLICATED)
+            errs.append(float((lg - full[:, S + i]).abs().max()))
     finite = bool(torch.isfinite(full).all())
-    out["forward_consistency"] = {"max_abs_err": max(errs), "per_step": errs,
+    out["forward_consistency"] = {"shape": list(consistency),
+                                  "max_abs_err": max(errs), "per_step": errs,
                                   "logit_absmax": float(full.abs().max())}
-    print(f"  prefill + {extra} decode steps vs forward: max_abs_err "
-          f"{max(errs):.3g} (logits up to {float(full.abs().max()):.3g})",
-          flush=True)
-    check(finite and full.shape == (2, S + extra, cfg.padded_vocab),
-          "forward logits finite, shape (2, 20, padded vocab)")
+    print(f"  prefill of {batch} x {S} + {extra} decode steps vs forward: "
+          f"max_abs_err {max(errs):.3g} (logits up to "
+          f"{float(full.abs().max()):.3g})", flush=True)
+    check(finite and full.shape == (batch, S + extra, cfg.padded_vocab),
+          f"forward logits finite, shape ({batch}, {S + extra}, padded vocab)")
     check(max(errs) <= MODEL_TOL,
           f"prefill/decode logits vs forward: {max(errs):.3g} <= {MODEL_TOL}")
     del params, full, cache, lg
 
-    # -- the model UDF through the engine's three arms
-    register_model_udf(MODEL_UDF, arch=ARCH, reduced=reduced, device=device)
+    if n_images:
+        out.update(_model_udf_arms(launches, arch, kernel, device, reduced,
+                                   n_images))
+    if on_card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        print(f"  peak device memory {out['peak_memory_bytes'] / 2**30:.3f} "
+              "GiB", flush=True)
+    return out
+
+
+def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
+    """The model UDF through the engine's per-entity, batcher and
+    device-backend arms, which must stamp identical labels."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    from repro_torch.core.udf import register_model_udf, unregister_udf
+    from repro_torch.visual.font import draw_text
+    on_card = device == "cuda"
+    register_model_udf(MODEL_UDF, arch=arch, reduced=reduced, device=device)
     query = find("lm", [{"type": "udf", "options": {"id": MODEL_UDF}}])
     off = {"native": 10.0, "remote": 10.0}
     arms = {
@@ -630,23 +874,27 @@ def phase_model(launches, device="cuda", reduced=False, requests=16,
                                         "device": 1e-6}}),
     }
     transport = TransportModel(network_latency_s=0.001, service_time_s=0.001)
-    responses, out["arms"] = {}, {}
-    for arm, kw in arms.items():
-        eng = VDMSAsyncEngine(device=device, num_remote_servers=1,
-                              transport=transport, **kw)
-        try:
-            fill(eng, n_images, 32, "lm")
-            k4 = launches["mamba2_ssd"].count
-            res, dt = run_query(eng, query)
-            stats = eng.dispatch_stats()
-        finally:
-            eng.shutdown()
-        responses[arm] = res["entities"]
-        out["arms"][arm] = {"query": dt, "placements": stats.get("placements"),
-                            "k4_launches": launches["mamba2_ssd"].count - k4}
-        print(f"  {arm} arm: {n_images} images, {fmt(dt)}; placements "
-              f"{stats.get('placements')}; K4 launches "
-              f"{out['arms'][arm]['k4_launches']}", flush=True)
+    responses, out = {}, {"arms": {}}
+    try:
+        for arm, kw in arms.items():
+            eng = VDMSAsyncEngine(device=device, num_remote_servers=1,
+                                  transport=transport, **kw)
+            try:
+                fill(eng, n_images, 32, "lm")
+                before = launches[kernel].count
+                res, dt = run_query(eng, query)
+                stats = eng.dispatch_stats()
+            finally:
+                eng.shutdown()
+            responses[arm] = res["entities"]
+            out["arms"][arm] = {
+                "query": dt, "placements": stats.get("placements"),
+                "kernel_launches": launches[kernel].count - before}
+            print(f"  {arm} arm: {n_images} images, {fmt(dt)}; placements "
+                  f"{stats.get('placements')}; {kernel} launches "
+                  f"{out['arms'][arm]['kernel_launches']}", flush=True)
+    finally:  # free the model's parameters before the next phase
+        unregister_udf(MODEL_UDF)
     # which label each image carries: the stamp that reproduces it
     rng = np.random.default_rng(11)    # fill()'s images
     labels = []
@@ -664,10 +912,6 @@ def phase_model(launches, device="cuda", reduced=False, requests=16,
             np.array_equal(responses[arm][e], responses["per_entity"][e])
             for e in responses["per_entity"])
         check(same, f"{arm} arm stamps the per-entity arm's labels exactly")
-    if on_card:
-        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        print(f"  peak device memory {out['peak_memory_bytes'] / 2**30:.3f} "
-              "GiB", flush=True)
     return out
 
 
@@ -692,9 +936,11 @@ def main() -> int:
     from repro_torch.core.remote import TransportModel
     from repro_torch.dataio.synthetic import synthetic_faces
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gaussian_blur as gb
     from repro_torch.kernels import mamba2_ssd as ssd
     from repro_torch.kernels import preprocess as pp
+    from repro_torch.kernels import rwkv6_scan as wkv
 
     print("phase 1: build and identify", flush=True)
     t0 = time.monotonic()
@@ -716,7 +962,8 @@ def main() -> int:
     faces256 = synthetic_faces(256, 250, seed=1)
     launches = {"gaussian_blur": gb.launches,
                 "fused_resize_crop_normalize": pp.launches,
-                "mamba2_ssd": ssd.launches}
+                "mamba2_ssd": ssd.launches, "rwkv6_scan": wkv.launches,
+                "flash_attention": fa.launches}
     engine_path = ("gaussian_blur", "fused_resize_crop_normalize")
 
     # ---- the engine's image path: counts zeroed just before, read just after
@@ -736,17 +983,29 @@ def main() -> int:
     entries, rows = phase_kernels()
     details["kernels"] = rows
 
-    # ---- the model path: counts zeroed just before, read just after
-    for c in launches.values():
-        c.reset()
-    details["model"] = phase_model(launches)
-    model_launches = {k: c.count for k, c in launches.items()}
-    print(f"  model-path launches: {model_launches}", flush=True)
-    check(model_launches["mamba2_ssd"] > 0,
-          f"mamba2_ssd launched on the model path "
-          f"({model_launches['mamba2_ssd']})")
-    kernels = kernels_line(entries, {
-        **main_launches, "mamba2_ssd": model_launches["mamba2_ssd"]})
+    # ---- the model paths, each with its kernel: counts zeroed just
+    # before each, read just after it
+    path_launches = dict(main_launches)
+    model_paths = [
+        ("model", 6, dict(arch=ARCH, kernel="mamba2_ssd")),
+        ("rwkv", 7, dict(arch=RWKV_ARCH, kernel="rwkv6_scan")),
+        ("long_context", 8, dict(arch=LONG_ARCH, kernel="flash_attention",
+                                 requests=4, prompt_len=4096, gen=16,
+                                 consistency=(1, 2048, 4), n_images=0)),
+    ]
+    for key, phase, kw in model_paths:
+        for c in launches.values():
+            c.reset()
+        details[key] = phase_model(launches, phase=phase, **kw)
+        counts = {k: c.count for k, c in launches.items()}
+        kernel = kw["kernel"]
+        print(f"  phase {phase} launches: {counts}", flush=True)
+        check(counts[kernel] > 0,
+              f"{kernel} launched on the {kw['arch']} path ({counts[kernel]})")
+        path_launches[kernel] = counts[kernel]
+        gc.collect()
+        torch.cuda.empty_cache()
+    kernels = kernels_line(entries, path_launches)
     details["seconds"] = time.monotonic() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

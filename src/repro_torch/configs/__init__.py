@@ -12,9 +12,11 @@ from repro_torch.configs.base import (  # noqa: F401
 from repro_torch.configs import (  # noqa: F401
     zamba2_2p7b,
     qwen3_0p6b,
+    rwkv6_1p6b,
 )
 
 ALL_ARCHS = [
     "zamba2-2.7b",
     "qwen3-0.6b",
+    "rwkv6-1.6b",
 ]

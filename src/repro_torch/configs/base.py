@@ -6,7 +6,8 @@ each also provides a reduced same-family config for CPU tests.  The
 fields are those of the JAX package's ``ArchConfig``, so a config reads
 the same in both packages.
 
-Ported so far: ``zamba2-2.7b`` (hybrid) and ``qwen3-0.6b`` (dense).
+Ported so far: ``zamba2-2.7b`` (hybrid), ``qwen3-0.6b`` (dense) and
+``rwkv6-1.6b`` (ssm, the rwkv family).
 :func:`get_arch` of another assigned architecture raises a ``KeyError``
 that names the slice of the port it comes with.
 """
@@ -124,7 +125,9 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding included, unpadded vocab)
-        of the families ported so far (dense and hybrid)."""
+        of the families ported so far (dense, rwkv and hybrid): the JAX
+        package's formula, approximate for rwkv (it leaves out ``c_r``
+        and the LoRAs), kept so that the configs stay equal."""
         d, hd = self.d_model, self.resolved_head_dim
         qdim = self.num_heads * hd
         kvdim = self.num_kv_heads * hd
@@ -132,7 +135,10 @@ class ArchConfig:
         if self.qkv_bias:
             attn += qdim + 2 * kvdim
         mlp = 3 * d * self.d_ff  # gate/up/down (SwiGLU)
-        if self.family == "hybrid":
+        if self.family == "ssm" and self.name.startswith("rwkv"):
+            # time-mix: r,k,v,g,o ~ 5 d^2 + decay lora; channel-mix ~ 2*d*ff
+            total = self.num_layers * (5 * d * d + 2 * d * self.d_ff)
+        elif self.family == "hybrid":
             di = self.mamba_d_inner
             mamba_l = d * (2 * di + 2 * self.mamba_ngroups * self.ssm_state
                            + self.mamba_nheads) + di * d
@@ -153,7 +159,6 @@ _REGISTRY: dict[str, "ArchEntry"] = {}
 
 # assigned architectures of the JAX package that later slices bring
 PENDING = {
-    "rwkv6-1.6b": "the RWKV6 slice (kernel K5, models/rwkv6.py)",
     "qwen3-moe-235b-a22b": "the MoE slice (models/moe.py)",
     "granite-moe-1b-a400m": "the MoE slice (models/moe.py)",
     "whisper-small": "the encoder-decoder slice (models/encdec.py)",

@@ -95,6 +95,15 @@ def list_udfs() -> list[str]:
         return sorted(set(_REGISTRY) | set(BUILTIN_UDFS))
 
 
+def unregister_udf(name: str) -> None:
+    """Drop ``name`` from the per-entity, batched and device registries,
+    and with it what its functions hold (a model UDF's parameters on the
+    card).  Unknown names are ignored."""
+    with _LOCK:
+        for registry in (_REGISTRY, _BATCHED, _DEVICE):
+            registry.pop(name, None)
+
+
 def prompt_tokens(img: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """The model UDF's prompt, (C,) int32 on the image's device: the JAX
     package's ``feats_of`` — truncate ``img*255`` to int32, take the

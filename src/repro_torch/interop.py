@@ -36,16 +36,18 @@ def ingest_reference_state(engine, entities: Iterable[tuple]) -> list[str]:
             for eid, kind, data, props in entities]
 
 
-def params_from_jax(tree, cfg, device="cpu") -> dict:
+def params_from_jax(tree, cfg, device="cuda") -> dict:
     """The JAX package's parameter tree of an LM of ``cfg`` — nested
     dicts whose leaves convert with ``np.asarray``, per-layer leaves
-    stacked as ``init_lm`` stacks them (``blocks`` (L, ...); hybrid
-    ``mamba`` (n_app, group, ...) and ``shared`` (num_shared_blocks,
-    ...)) — as the port's parameters on ``device``.  The port keeps the
-    same layout, so leaves carry over one for one; the top-level keys
-    and the stacked axes are checked against ``cfg``."""
+    stacked as ``init_lm`` stacks them (``blocks`` (L, ...), dense and
+    rwkv; hybrid ``mamba`` (n_app, group, ...) and ``shared``
+    (num_shared_blocks, ...)) — as the port's parameters on ``device``
+    (the CUDA card unless the caller asks for the CPU).  The port keeps
+    the same layout, so leaves carry over one for one; the top-level
+    keys and the stacked axes are checked against ``cfg``."""
     import torch
 
+    from repro_torch.core.boundary import resolve_device
     from repro_torch.models.lm import (family_kind, hybrid_shape,
                                       tree_leaves, tree_map)
 
@@ -53,14 +55,20 @@ def params_from_jax(tree, cfg, device="cpu") -> dict:
     want = {"embed", "final_norm"}
     if not cfg.tie_embeddings:
         want.add("lm_head")
-    want |= {"blocks"} if kind == "tblock" else {"mamba", "shared"}
+    if kind == "tblock":
+        want.add("blocks")
+    elif kind == "rwkv":
+        want |= {"blocks", "final_norm_b", "ln0_s", "ln0_b"}
+    else:
+        want |= {"mamba", "shared"}
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: expected top-level keys "
                          f"{sorted(want)}, got {sorted(tree)}")
-    out = tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    dev = resolve_device(device)
+    out = tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree)
     if tuple(out["embed"].shape) != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed is {tuple(out['embed'].shape)}")
-    if kind == "tblock":
+    if kind in ("tblock", "rwkv"):
         lead = {"blocks": (cfg.num_layers,)}
     else:
         lead = {"mamba": hybrid_shape(cfg),

@@ -128,6 +128,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def strided(t, inner: int):
+    """``t`` (B, S, heads, inner) as the kernels read it: unit feature
+    stride and a head stride of ``inner``, batch and sequence strides
+    free (a slice of a packed projection goes in without a copy);
+    otherwise a contiguous copy."""
+    if t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == inner):
+        return t
+    return t.contiguous()
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never
     runs, and a later synchronise would not report it)."""

@@ -29,14 +29,6 @@ _build.declare("mamba2_ssd", "mamba2_ssd.cu", {
     + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]})
 
 
-def _strided(t: torch.Tensor, inner: int) -> torch.Tensor:
-    """``t`` (B, T, heads, inner) as the kernel reads it: unit feature
-    stride and a head stride of ``inner``; batch and time strides free."""
-    if t.stride(3) == 1 and (t.shape[2] == 1 or t.stride(2) == inner):
-        return t
-    return t.contiguous()
-
-
 def mamba2_ssd_cuda(
     x: torch.Tensor,    # (B, T, H, P) float32 | bfloat16, on CUDA
     dt: torch.Tensor,   # (B, T, H)
@@ -91,7 +83,8 @@ def mamba2_ssd_cuda(
              if state is None else state.to(f32).contiguous())
     if T == 0 or batch == 0:
         return torch.empty_like(x), state.clone()
-    x, Bm, Cm = _strided(x, P), _strided(Bm, N), _strided(Cm, N)
+    x = _build.strided(x, P)
+    Bm, Cm = _build.strided(Bm, N), _build.strided(Cm, N)
     dt = dt.to(f32).contiguous()
     A = A.to(f32).contiguous()
     D = None if D is None else D.to(f32).contiguous()

@@ -9,10 +9,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_vjp
 from repro_torch.kernels import preprocess as pp
 from repro_torch.kernels import ref
 from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
 from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
 
 
 def _on_cuda(img: torch.Tensor) -> bool:
@@ -24,17 +26,27 @@ def _on_cuda(img: torch.Tensor) -> bool:
 
 
 # ----------------------------------------------------------------- attn
-def flash_attention(q, k, v, *, causal=True, sm_scale=None, impl="naive",
-                    q_offset=0):
-    """(B,Sq,H,D) x (B,Sk,Hkv,D) -> (B,Sq,H,D); GQA via Hkv | H.  Only
-    the ``naive`` route is ported: plain code on every device, as the
-    JAX package runs it on its serving path."""
-    if impl != "naive":
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet: the flash kernel "
-            "(K3) and its chunked jnp route come with the K3 slice")
-    return ref.naive_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                               q_offset=q_offset)
+def flash_attention(q, k, v, *, causal=True, sm_scale=None, impl="auto",
+                    q_block=512, kv_block=1024, q_offset=0):
+    """(B,Sq,H,D) x (B,Sk,Hkv,D) -> (B,Sq,H,D); GQA via Hkv | H.
+
+    ``impl``: ``"auto"`` launches the flash kernel (K3) for a CUDA
+    tensor and takes the chunked route for a CPU tensor; ``"chunked"``
+    and ``"naive"`` are the explicit plain routes.  ``q_block`` and
+    ``kv_block`` tile the chunked route; the kernel tiles by its own."""
+    if impl == "auto":
+        if _on_cuda(q):
+            return flash_vjp.flash_attention(q, k, v, q_offset, causal,
+                                             sm_scale)
+        impl = "chunked"
+    if impl == "naive":
+        return ref.naive_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   q_offset=q_offset)
+    if impl == "chunked":
+        return ref.flash_attention_chunked(
+            q, k, v, causal=causal, sm_scale=sm_scale, q_block=q_block,
+            kv_block=kv_block, q_offset=q_offset)[0]
+    raise ValueError(f"unknown attention impl {impl!r}")
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, sm_scale=None):
@@ -72,6 +84,17 @@ def fused_preprocess(img, *, resize_h: int, resize_w: int,
     out = pp.fused_resize_crop_normalize_cuda(
         img.reshape((-1,) + tuple(img.shape[-3:])), **kw)
     return out.reshape(lead + out.shape[-3:])
+
+
+# ----------------------------------------------------------------- rwkv
+def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):
+    """Chunked RWKV6 WKV scan: r/k/w (B,T,H,K), v (B,T,H,V) -> (y in r's
+    dtype, final state (B,H,K,V) float32).  A CPU tensor takes the
+    chunked closed form (what the JAX package runs off the TPU), a CUDA
+    tensor the WKV6 kernel (K5)."""
+    if not _on_cuda(r):
+        return ref.rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
+    return rwkv6_scan_cuda(r, k, v, w, u, state, chunk=chunk)
 
 
 # ---------------------------------------------------------------- mamba

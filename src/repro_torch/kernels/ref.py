@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the kernels: the CPU execution path and the
 oracle each CUDA kernel is held against on the card.
 
-Ported so far: attention (naive and grouped single-token decode, both
-plain code on every device, as in the JAX package's serving path), the
-Gaussian blur and the Mamba2 SSD scan (sequential and chunked).
+Every plain version of the JAX package's ``ref.py``: attention (naive,
+chunked online softmax and grouped single-token decode), the Gaussian
+blur, the RWKV6 WKV scan and the Mamba2 SSD scan (each sequential and
+chunked).
 """
 from __future__ import annotations
 
@@ -54,6 +55,71 @@ def naive_attention(
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def flash_attention_chunked(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    q_offset: int = 0,  # absolute position of q[0] (prefill into a cache)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Online-softmax attention, O(q_block * kv_block) logits memory:
+    ``(out (B,Sq,H,D) in q's dtype, lse (B,Sq,H) float32)``.  The JAX
+    package's ``flash_vjp._fwd_impl`` step for step (q heads grouped per
+    kv head, sequences padded to whole blocks, the finite ``-1e30`` mask
+    bias on padded keys, padded rows and keys past ``q_offset + row``);
+    its output is ``flash_attention_jnp``'s.  The one plain flash
+    forward: the CPU route of ``ops.flash_attention`` and of
+    ``flash_vjp.flash_attention``, and the plain version of K3."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    q_block = min(q_block, max(Sq, 1))
+    kv_block = min(kv_block, max(Sk, 1))
+    f32 = torch.float32
+    pq, pk = (-Sq) % q_block, (-Sk) % kv_block
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq)).to(f32)
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk)).to(f32)
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk)).to(f32)
+    nq, nk = qp.shape[1] // q_block, kp.shape[1] // kv_block
+    dev = q.device
+    outs, lses = [], []
+    for qi in range(nq):
+        qb = qp[:, qi * q_block:(qi + 1) * q_block].reshape(
+            B, q_block, Hkv, G, D)
+        qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
+        m_run = torch.full((B, Hkv, G, q_block), -1e30, dtype=f32,
+                           device=dev)
+        l_run = torch.zeros((B, Hkv, G, q_block), dtype=f32, device=dev)
+        acc = torch.zeros((B, Hkv, G, q_block, D), dtype=f32, device=dev)
+        for ki in range(nk):
+            kb = kp[:, ki * kv_block:(ki + 1) * kv_block]
+            vb = vp[:, ki * kv_block:(ki + 1) * kv_block]
+            kpos = ki * kv_block + torch.arange(kv_block, device=dev)
+            valid = (kpos[None, :] < Sk) & (qpos[:, None] < Sq + q_offset)
+            if causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+            s = s + torch.where(valid, 0.0, -1e30).to(f32)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                        p, vb)
+            m_run = m_new
+        o = acc / torch.clamp(l_run[..., None], min=1e-30)
+        lse = m_run + torch.log(torch.clamp(l_run, min=1e-30))
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_block, H, D)
+                    .to(q.dtype))
+        lses.append(lse.permute(0, 3, 1, 2).reshape(B, q_block, H))
+    return torch.cat(outs, dim=1)[:, :Sq], torch.cat(lses, dim=1)[:, :Sq]
 
 
 def decode_attention_ref(
@@ -135,6 +201,88 @@ def gaussian_blur_ref(img: torch.Tensor, ksize: int, sigma_x: float,
     xp = _reflect101_pad(out, pad, axis=-2)
     out = sum(kx[i] * xp.narrow(-2, i, w) for i in range(ksize))
     return out.to(dtype)
+
+
+# ===================================================================
+# RWKV6 WKV scan
+# ===================================================================
+def rwkv6_scan_ref(
+    r: torch.Tensor,  # (B, T, H, K)
+    k: torch.Tensor,  # (B, T, H, K)
+    v: torch.Tensor,  # (B, T, H, V)
+    w: torch.Tensor,  # (B, T, H, K)  decay in (0,1), data-dependent
+    u: torch.Tensor,  # (H, K)        bonus for the current token
+    state: torch.Tensor | None = None,  # (B, H, K, V)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential WKV6: S_t = diag(w_t) S_{t-1} + k_t v_t^T;
+    out_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    rf, kf, vf, wf = (a.to(f32) for a in (r, k, v, w))
+    uf = u.to(f32)
+    outs = []
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]         # (B,H,K,V)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
+                                 s + uf[..., :, None] * kv))
+        s = wf[:, t, :, :, None] * s + kv
+    out = (torch.stack(outs, dim=1) if outs
+           else torch.zeros((B, 0, H, V), dtype=f32, device=r.device))
+    return out.to(r.dtype), s
+
+
+def rwkv6_chunked(
+    r, k, v, w, u, state=None, chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked closed form with log-space cumulative decays, the JAX
+    package's ``rwkv6_chunked_jnp`` step for step: the tail is padded
+    with w = 1 (and r = k = v = 0), which leaves the state as it was;
+    ``log(max(w, 1e-30))`` keeps a zero decay finite.  The plain version
+    of the WKV6 kernel."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    pad = (-T) % chunk
+    if pad:
+        r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+    Tp = T + pad
+    n = Tp // chunk
+    s = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
+         if state is None else state.to(f32))
+    uf = u.to(f32)
+    # (n, B, H, c, K|V)
+    rb, kb, vb, wb = (a.to(f32).reshape(B, n, chunk, H, -1)
+                      .permute(1, 0, 3, 2, 4) for a in (r, k, v, w))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)[None, None, :, :, None]
+    ys = []
+    for i in range(n):
+        rc, kc, vc, wc = rb[i], kb[i], vb[i], wb[i]
+        logw = torch.log(torch.clamp(wc, min=1e-30))
+        lw = torch.cumsum(logw, dim=2)                           # (B,H,c,K)
+        lw_prev = lw - logw                       # sum over strictly earlier
+        # inter-chunk: r_t decayed against the incoming state
+        y = torch.einsum("bhck,bhkv->bhcv", rc * torch.exp(lw_prev), s)
+        # intra-chunk pairwise (per-channel decay: a (c,c,K) cube over K)
+        diff = lw_prev[:, :, :, None, :] - lw[:, :, None, :, :]
+        dec = torch.exp(torch.where(tri, diff, -1e30))
+        att = torch.einsum("bhck,bhcsk,bhsk->bhcs", rc, dec, kc)
+        y = y + torch.einsum("bhcs,bhsv->bhcv", att, vc)
+        # current-token bonus
+        y = y + torch.einsum("bhck,bhck->bhc", rc * uf[None, :, None, :],
+                             kc)[..., None] * vc
+        # state update
+        lw_last = lw[:, :, -1:, :]                               # (B,H,1,K)
+        s = torch.exp(lw_last[:, :, 0, :, None]) * s + torch.einsum(
+            "bhck,bhcv->bhkv", kc * torch.exp(lw_last - lw), vc)
+        ys.append(y)
+    out = (torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, Tp, H, V)[:, :T]
+           if ys else torch.zeros((B, 0, H, V), dtype=f32, device=r.device))
+    return out.to(r.dtype), s
 
 
 # ===================================================================

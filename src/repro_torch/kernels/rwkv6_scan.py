@@ -1,0 +1,104 @@
+"""RWKV6 WKV chunked-scan CUDA kernel (``csrc/rwkv6_scan.cu``).
+
+One CTA per (batch, head) walks the chunks in order with the K x V fp32
+state in registers; per chunk it stages r, k, v and the cumulative
+log-decays in shared memory, builds the causal c x c intra-chunk
+weights (the decay between steps s < t taken as ``exp(lwp_t - lw_s)``,
+never as a product of two exponentials that overflow) with the bonus on
+the diagonal, and writes ``y = (r exp(lwp)) · S + att · v`` before
+updating the state.  r, k, v and w are read through their batch and
+time strides, and the tail chunk stops at T.  The plain version is
+:func:`repro_torch.kernels.ref.rwkv6_chunked`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+launches = _build.LaunchCounter("rwkv6_scan")
+
+MAX_CHUNK = 64      # chunk rows staged per CTA
+MAX_K = 64          # key dim the register tiles hold
+MAX_V = 64          # value dim the register tiles hold
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_build.declare("rwkv6_scan", "rwkv6_scan.cu", {
+    "repro_rwkv6_scan": [ctypes.c_int] + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]})
+
+
+def rwkv6_scan_cuda(
+    r: torch.Tensor,    # (B, T, H, K) float32 | bfloat16, on CUDA
+    k: torch.Tensor,    # (B, T, H, K), r's dtype
+    v: torch.Tensor,    # (B, T, H, V), r's dtype
+    w: torch.Tensor,    # (B, T, H, K) decays in (0, 1), float32
+    u: torch.Tensor,    # (H, K)
+    state: torch.Tensor | None = None,   # (B, H, K, V)
+    *,
+    chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the WKV6 kernel on the current CUDA stream.  Returns ``y``
+    (B, T, H, V) in r's dtype and the final state (B, H, K, V) in
+    float32.  ``w`` and ``u`` are taken in float32 (the model computes
+    the decay in float32 whatever its dtype)."""
+    if not r.is_cuda:
+        raise ValueError("rwkv6_scan_cuda takes CUDA tensors, got r on "
+                         f"{r.device}")
+    for name, t in (("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state)):
+        if t is not None and t.device != r.device:
+            raise ValueError(f"{name} is on {t.device}, r on {r.device}")
+    if r.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 r, got {r.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"k and v must have r's dtype {r.dtype}, got "
+                        f"{k.dtype} and {v.dtype}")
+    if r.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"expected r (B,T,H,K) and v (B,T,H,V), got "
+                         f"{tuple(r.shape)} and {tuple(v.shape)}")
+    batch, T, H, K = r.shape
+    V = v.shape[3]
+    if (tuple(k.shape) != (batch, T, H, K)
+            or tuple(w.shape) != (batch, T, H, K)
+            or tuple(v.shape[:3]) != (batch, T, H)
+            or tuple(u.shape) != (H, K)
+            or (state is not None
+                and tuple(state.shape) != (batch, H, K, V))):
+        raise ValueError("rwkv6_scan_cuda: inconsistent shapes")
+    if K > MAX_K or V > MAX_V:
+        raise ValueError(f"the kernel takes K <= {MAX_K} and V <= {MAX_V}, "
+                         f"got K={K}, V={V}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
+    if batch > 65535:
+        raise ValueError(f"batch {batch} exceeds the grid's 65535")
+    f32 = torch.float32
+    if state is not None:
+        state = state.to(f32).contiguous()
+    if T == 0 or batch == 0:
+        empty = torch.empty((batch, T, H, V), dtype=r.dtype, device=r.device)
+        return empty, (torch.zeros((batch, H, K, V), dtype=f32,
+                                   device=r.device)
+                       if state is None else state.clone())
+    r, k = _build.strided(r, K), _build.strided(k, K)
+    v = _build.strided(v, V)
+    w = _build.strided(w.to(f32), K)
+    u = u.to(f32).contiguous()
+    y = torch.empty((batch, T, H, V), dtype=r.dtype, device=r.device)
+    s_out = torch.empty((batch, H, K, V), dtype=f32, device=r.device)
+    lib = _build.load("rwkv6_scan")
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = lib.repro_rwkv6_scan(
+            _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(),
+            None if state is None else state.data_ptr(), y.data_ptr(),
+            s_out.data_ptr(), batch, T, H, K, V, chunk,
+            r.stride(0), r.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), w.stride(0), w.stride(1), stream)
+    _build.check(err, "rwkv6_scan")
+    launches.add()
+    return y, s_out

@@ -4,9 +4,9 @@ qk_norm, qwen1.5 bias, GQA, zamba2 shared blocks).
 Caches are preallocated ``(B, S_max, Hkv, D)`` tensors written in place
 at ``cache_index`` (the JAX package's ``dynamic_update_slice`` into a
 donated cache computes the same thing).  Attention longer than 1024
-positions takes the JAX package's chunked flash route, which comes with
-the K3 slice: here it raises rather than quietly running the naive
-route at that length.
+positions takes the JAX package's chunked route, ``flash_vjp``: the
+flash-attention kernel (K3) for CUDA tensors, its plain translation on
+the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.flash_vjp import flash_attention as flash_vjp
 from repro_torch.models import common
 from repro_torch.models.rope import apply_rope
 
@@ -111,21 +112,18 @@ def apply_attention(
         else:
             # prefill into cache: with causal masking at offset ``idx`` the
             # not-yet-written cache tail (> idx+S) is never attended.
-            if _pick_impl(kc.shape[1]) != "naive":
-                raise NotImplementedError(
-                    f"prefill into a cache of {kc.shape[1]} slots takes the "
-                    "chunked flash route (flash_vjp), which comes with the "
-                    "K3 slice; the naive route covers caches up to 1024")
-            out = kref.naive_attention(q, kc, vc, causal=causal,
-                                       kv_len=idx + S, q_offset=idx)
+            if _pick_impl(kc.shape[1]) == "naive":
+                out = kref.naive_attention(q, kc, vc, causal=causal,
+                                           kv_len=idx + S, q_offset=idx)
+            else:
+                out = flash_vjp(q, kc, vc, idx, True, None, 512, 1024)
     else:
         impl = _pick_impl(S)
-        if impl != "naive":
-            raise NotImplementedError(
-                f"attention over {S} positions takes the chunked flash "
-                "route (flash_vjp), which comes with the K3 slice; the "
-                "naive route covers sequences up to 1024")
-        out = kops.flash_attention(q, k, v, causal=causal, impl=impl)
+        if impl == "chunked":
+            # flash with a flash backward (O(block^2) memory both passes)
+            out = flash_vjp(q, k, v, 0, causal, None, 512, 1024)
+        else:
+            out = kops.flash_attention(q, k, v, causal=causal, impl=impl)
 
     out = sh(out, "batch", "seq", "act_heads", None)
     out = out.reshape(B, S, cfg.num_heads * hd)

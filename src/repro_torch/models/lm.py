@@ -1,13 +1,15 @@
-"""Unified decoder-only LM for the dense (``tblock``) and hybrid (zamba2)
-families.  Parameters are nested dicts of tensors laid out as the JAX
-package lays them out: per-layer leaves stacked on a leading axis
-(``blocks`` (L, ...); ``mamba`` (n_app, group, ...); ``shared``
-(num_shared_blocks, ...)), so ``repro_torch.interop.params_from_jax``
-carries a JAX tree over leaf for leaf.  The JAX package's ``lax.scan``
+"""Unified decoder-only LM for the dense (``tblock``), ``rwkv`` and
+hybrid (zamba2) families.  Parameters are nested dicts of tensors laid
+out as the JAX package lays them out: per-layer leaves stacked on a
+leading axis (``blocks`` (L, ...), dense and rwkv; ``mamba`` (n_app,
+group, ...); ``shared`` (num_shared_blocks, ...)), so
+``repro_torch.interop.params_from_jax`` carries a JAX tree over leaf
+for leaf.  The JAX package's ``lax.scan``
 over the stack becomes a Python loop over views of the stacked tensors,
 and caches are preallocated stacked tensors written in place (the JAX
 package threads them through the scan and donates them, which computes
-the same thing).  The ``rwkv`` family comes with the K5 slice.
+the same thing).  ``max_seq`` sizes no rwkv cache: its state is O(1)
+in the sequence length, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models import blocks, common
+from repro_torch.models import blocks, common, rwkv6
 from repro_torch.models.mamba2 import conv_dim
 
 
@@ -25,9 +27,7 @@ def family_kind(cfg: ArchConfig) -> str:
     if cfg.family == "hybrid":
         return "hybrid"
     if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the rwkv family is not ported yet: it comes with "
-            "the RWKV6 slice (kernel K5, models/rwkv6.py)")
+        return "rwkv"
     return "tblock"  # dense, vlm, moe
 
 
@@ -91,6 +91,12 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
         p["blocks"] = _stack_init(
             lambda k: blocks.init_tblock(k, cfg, dtype, use_moe=cfg.is_moe),
             kg, cfg.num_layers)
+    elif kind == "rwkv":
+        p["ln0_s"] = common.ones((cfg.d_model,), dtype, dev)
+        p["ln0_b"] = common.zeros((cfg.d_model,), dtype, dev)
+        p["final_norm_b"] = common.zeros((cfg.d_model,), dtype, dev)
+        p["blocks"] = _stack_init(lambda k: rwkv6.init_rwkv6(k, cfg, dtype),
+                                  kg, cfg.num_layers)
     else:  # hybrid (zamba2)
         n_app, group = hybrid_shape(cfg)
         mb = _stack_init(lambda k: blocks.init_mblock(k, cfg, dtype),
@@ -113,6 +119,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         kv = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, hd)
         return {"k": torch.zeros(kv, dtype=dtype, device=device),
                 "v": torch.zeros(kv, dtype=dtype, device=device)}
+    if kind == "rwkv":
+        L, H, K = cfg.num_layers, cfg.rwkv_nheads, cfg.rwkv_head_dim
+        return {
+            "tm_x": torch.zeros((L, batch, cfg.d_model), dtype=dtype,
+                                device=device),
+            "cm_x": torch.zeros((L, batch, cfg.d_model), dtype=dtype,
+                                device=device),
+            "wkv": torch.zeros((L, batch, H, K, K), dtype=torch.float32,
+                               device=device),
+        }
     n_app, group = hybrid_shape(cfg)
     H, P, N = cfg.mamba_nheads, cfg.mamba_head_dim, cfg.ssm_state
     kv = (n_app, batch, max_seq, cfg.num_kv_heads, hd)
@@ -141,7 +157,28 @@ def embed_tokens(p, tokens, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
 
 
 def _final_norm(p, h, cfg):
+    if family_kind(cfg) == "rwkv":
+        return common.layer_norm(h, p["final_norm"], p["final_norm_b"],
+                                 cfg.norm_eps)
     return common.rms_norm(h, p["final_norm"], cfg.norm_eps)
+
+
+def _ln0(p, h, cfg):
+    """The rwkv family's LayerNorm right after the embedding."""
+    return common.layer_norm(h, p["ln0_s"], p["ln0_b"], cfg.norm_eps)
+
+
+def _rwkv_layers(params, h, cfg, sh, cache):
+    """The rwkv stack over ``h``; with a ``cache`` each layer starts from
+    its state there and writes its new state back in place."""
+    for li in range(cfg.num_layers):
+        st = None if cache is None else layer(cache, li)
+        h, new = rwkv6.apply_rwkv6(layer(params["blocks"], li), h, cfg=cfg,
+                                   sh=sh, cache=st)
+        if cache is not None:
+            for key, val in new.items():
+                st[key].copy_(val)
+    return h
 
 
 def lm_head(p, h, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
@@ -164,7 +201,9 @@ def forward(params, tokens, cfg: ArchConfig, sh: ShardingCtx,
     h = embed_tokens(params, tokens, cfg, sh)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind == "tblock":
+    if kind == "rwkv":
+        h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, None)
+    elif kind == "tblock":
         for li in range(cfg.num_layers):
             h, _, a = blocks.apply_tblock(
                 layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
@@ -194,6 +233,12 @@ def prefill(params, tokens, cfg: ArchConfig, sh: ShardingCtx, max_cache: int,
     B, S = h.shape[0], h.shape[1]
     cache_dtype = cache_dtype or h.dtype
     positions = torch.arange(S, device=h.device)
+    if kind == "rwkv":
+        # token-shift states in the activations' dtype, as in the reference
+        cache = init_cache(cfg, B, max_cache, h.dtype, device=h.device)
+        h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, cache)
+        h_last = _final_norm(params, h[:, -1:], cfg)
+        return lm_head(params, h_last, cfg, sh)[:, 0], cache
     cache = init_cache(cfg, B, max_cache, cache_dtype, device=h.device)
 
     if kind == "tblock":
@@ -246,7 +291,9 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
         h = h + (pos - pos0)[None]
     positions = cache_index + torch.arange(1, device=h.device)
 
-    if kind == "tblock":
+    if kind == "rwkv":
+        h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, cache)
+    elif kind == "tblock":
         for li in range(cfg.num_layers):
             kv = {"k": cache["k"][li], "v": cache["v"][li]}
             h, _, _ = blocks.apply_tblock(

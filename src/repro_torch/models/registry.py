@@ -1,9 +1,10 @@
 """ModelAPI: one uniform surface over the ported architectures.
 
 ``get_model(cfg)`` returns callables the serving and launch layers use
-without knowing the family: init / forward / prefill / decode_step /
-init_cache.  ``loss`` comes with the training slice; encoder-decoder
-models and the ``vit_stub`` frontend come with later slices and raise.
+without knowing the family (dense, rwkv or hybrid): init / forward /
+prefill / decode_step / init_cache.  ``loss`` comes with the training
+slice; MoE blocks, encoder-decoder models and the ``vit_stub`` frontend
+come with later slices and raise.
 """
 from __future__ import annotations
 
@@ -41,8 +42,6 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
 
 # ----------------------------------------------------------------- LM
 def _lm_api(cfg: ArchConfig) -> ModelAPI:
-    lm.family_kind(cfg)  # raises for a family not ported yet
-
     def init(generator: torch.Generator, dtype=torch.float32):
         return lm.init_lm(generator, cfg, dtype)
 

@@ -1,0 +1,122 @@
+"""RWKV6 ("Finch") block: token-shift ddlerp mixing, data-dependent decay
+(LoRA), WKV6 linear-attention scan, and squared-ReLU channel mix."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import common
+
+_MIX_SLOTS = 5  # r, k, v, w, g
+
+
+def init_rwkv6(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    L = cfg.rwkv_mix_lora
+    Dl = cfg.rwkv_decay_lora
+    H, K = cfg.rwkv_nheads, cfg.rwkv_head_dim
+    dev = kg.device
+    f32 = torch.float32
+    return {
+        "ln1_s": common.ones((d,), dtype, dev),
+        "ln1_b": common.zeros((d,), dtype, dev),
+        "ln2_s": common.ones((d,), dtype, dev),
+        "ln2_b": common.zeros((d,), dtype, dev),
+        # time mix
+        "mu_base": common.normal(kg(), (d,), dtype, std=0.1),
+        "mu": common.normal(kg(), (_MIX_SLOTS, d), dtype, std=0.1),
+        "mix_w1": common.normal(kg(), (d, _MIX_SLOTS * L), dtype),
+        "mix_w2": common.normal(kg(), (_MIX_SLOTS, L, d), dtype,
+                                std=L ** -0.5),
+        "w_r": common.normal(kg(), (d, d), dtype),
+        "w_k": common.normal(kg(), (d, d), dtype),
+        "w_v": common.normal(kg(), (d, d), dtype),
+        "w_g": common.normal(kg(), (d, d), dtype),
+        "w_o": common.normal(kg(), (d, d), dtype,
+                             std=(d ** -0.5) / max(cfg.num_layers, 1) ** 0.5),
+        "decay_base": torch.full((d,), -4.0, dtype=f32, device=dev),
+        "decay_w1": common.normal(kg(), (d, Dl), dtype),
+        "decay_w2": common.normal(kg(), (Dl, d), dtype, std=Dl ** -0.5),
+        "u": common.normal(kg(), (H, K), f32, std=0.1),
+        "gn_s": common.ones((d,), dtype, dev),
+        "gn_b": common.zeros((d,), dtype, dev),
+        # channel mix
+        "cmu_k": common.normal(kg(), (d,), dtype, std=0.1),
+        "cmu_r": common.normal(kg(), (d,), dtype, std=0.1),
+        "c_k": common.normal(kg(), (d, f), dtype),
+        "c_v": common.normal(kg(), (f, d), dtype,
+                             std=(f ** -0.5) / max(cfg.num_layers, 1) ** 0.5),
+        "c_r": common.normal(kg(), (d, d), dtype),
+    }
+
+
+def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """Token shift: x_{t-1}, with ``prev`` (B, d) as the t=-1 context."""
+    B, S, d = x.shape
+    lead = (torch.zeros((B, 1, d), dtype=x.dtype, device=x.device)
+            if prev is None else prev[:, None].to(x.dtype))
+    return torch.cat([lead, x[:, :-1]], dim=1) if S > 1 else lead
+
+
+def apply_rwkv6(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    cfg: ArchConfig,
+    sh: ShardingCtx,
+    cache: dict | None = None,  # {"tm_x": (B,d), "cm_x": (B,d), "wkv": (B,H,K,V)}
+) -> tuple[torch.Tensor, dict | None]:
+    """Returns (x, the layer's new state or None).  A cached single-token
+    step takes the plain sequential scan (as in the JAX package); every
+    other call the chunked scan, which is the WKV6 kernel on the card."""
+    B, S, d = x.shape
+    H, K = cfg.rwkv_nheads, cfg.rwkv_head_dim
+    caching = cache is not None
+
+    # ---- time mix ------------------------------------------------------
+    xn = common.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
+    prev = cache["tm_x"] if caching else None
+    xx = _shift(xn, prev) - xn
+    xxx = xn + xx * p["mu_base"]
+    L = cfg.rwkv_mix_lora
+    lora = torch.tanh(xxx @ p["mix_w1"]).reshape(B, S, _MIX_SLOTS, L)
+    lora = torch.einsum("bsml,mld->mbsd", lora, p["mix_w2"])  # (5,B,S,d)
+    mixed = xn[None] + xx[None] * (p["mu"][:, None, None] + lora)
+    xr, xk, xv, xw, xg = mixed
+
+    r = (xr @ p["w_r"]).reshape(B, S, H, K)
+    k = (xk @ p["w_k"]).reshape(B, S, H, K)
+    v = (xv @ p["w_v"]).reshape(B, S, H, K)
+    g = F.silu(xg @ p["w_g"])
+    ww = p["decay_base"] + (torch.tanh(xw @ p["decay_w1"])
+                            @ p["decay_w2"]).to(torch.float32)
+    w = torch.exp(-torch.exp(ww)).reshape(B, S, H, K)  # in (0,1)
+
+    state0 = cache["wkv"] if caching else None
+    if caching and S == 1:
+        y, wkv_new = kref.rwkv6_scan_ref(r, k, v, w, p["u"], state0)
+    else:
+        y, wkv_new = kops.rwkv6_scan(r, k, v, w, p["u"], state0)
+    y = y.reshape(B, S, d)
+    y = common.group_norm(y, p["gn_s"], p["gn_b"], H, eps=64e-5)
+    y = sh(y * g, "batch", "seq", "act_heads")
+    x = x + y @ p["w_o"]
+
+    # ---- channel mix ----------------------------------------------------
+    xn2 = common.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
+    prev2 = cache["cm_x"] if caching else None
+    xx2 = _shift(xn2, prev2) - xn2
+    ck_in = xn2 + xx2 * p["cmu_k"]
+    cr_in = xn2 + xx2 * p["cmu_r"]
+    kk = torch.square(F.relu(ck_in @ p["c_k"]))
+    kk = sh(kk, "batch", "seq", "act_ff")
+    x = x + torch.sigmoid(cr_in @ p["c_r"]) * (kk @ p["c_v"])
+
+    new_cache = None
+    if caching:
+        new_cache = {"tm_x": xn[:, -1], "cm_x": xn2[:, -1], "wkv": wkv_new}
+    return x, new_cache

@@ -11,7 +11,13 @@ Mamba2 SSD kernel: 5e-4 in float32 (chunk sums of up to 128 products in
 another order than cuBLAS, on outputs of magnitude up to about 10), and
 in bfloat16 5e-2 plus one bfloat16 rounding step (2^-7 relative), since
 the two versions may round a float32 value on either side of a
-bfloat16 boundary.
+bfloat16 boundary.  WKV6 kernel: the same, 5e-4 in float32 (sums over
+64 decayed steps in another order) and 5e-2 plus one bfloat16 step.
+Flash-attention kernel: 2e-5 in float32 (the JAX package's flash
+tolerance), its log-sum-exp 1e-4; in bfloat16 both versions compute in
+float32 from the same inputs and round the output once, so they may
+land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
+sixth of a typical output (about 0.03 for a row over 4096 keys).
 """
 import hashlib
 
@@ -26,6 +32,9 @@ from repro_torch.kernels import ref
 STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b0"
 SSD_TOL = 5e-4
 SSD_BF16_ATOL, SSD_BF16_RTOL = 5e-2, 2.0 ** -7
+WKV_TOL = 5e-4
+FLASH_TOL, FLASH_LSE_TOL = 2e-5, 1e-4
+FLASH_BF16_ATOL, FLASH_BF16_RTOL = 5e-3, 2.0 ** -7
 
 PREPROCESS_CASES = [
     # (N, H, W), resize (h, w), crop (x, y, w, h), method
@@ -267,3 +276,147 @@ def test_reduced_zamba2_on_the_card_goes_through_the_kernel(cuda):
         for arm in ("batcher", "device"):
             np.testing.assert_array_equal(out[arm][eid],
                                           out["per_entity"][eid])
+
+
+def _wkv_inputs(seed, B, T, H, K, device, dtype=torch.float32, shift=0.0):
+    """r, k ~ 0.5 N, v ~ N, u ~ 0.1 N, s0 ~ 0.1 N, and the model's decay
+    w = exp(-exp(-4 + shift + N(0, 1))), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def n(shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+
+    r, k, v = n((B, T, H, K), 0.5), n((B, T, H, K), 0.5), n((B, T, H, K))
+    w = torch.exp(-torch.exp(-4.0 + shift + n((B, T, H, K))))
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, n((H, K), 0.1),
+            n((B, H, K, K), 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,dtype,shift", [
+    (16, 512, 32, 64, torch.float32, 0.0),     # model_serve's prefill
+    (16, 512, 32, 64, torch.bfloat16, 0.0),
+    (8, 3, 32, 64, torch.float32, 0.0),        # the model UDF's prompts
+    (2, 100, 3, 16, torch.float32, 0.0),       # ragged tail
+    (2, 200, 4, 64, torch.float32, 6.08),      # log w about -8 a step
+])
+def test_wkv_kernel_matches_plain(cuda, B, T, H, K, dtype, shift):
+    from repro_torch.kernels.rwkv6_scan import launches, rwkv6_scan_cuda
+    r, k, v, w, u, s0 = _wkv_inputs(T + K, B, T, H, K, cuda, dtype, shift)
+    before = launches.count
+    y, s = rwkv6_scan_cuda(r, k, v, w, u, s0)
+    plain = ref.rwkv6_scan_ref if shift else ref.rwkv6_chunked
+    y_p, s_p = plain(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    _wkv_close(y, y_p)
+    _wkv_close(s, s_p)
+    # no state, through the public wrapper, and two calls carrying it
+    y, s = ops.rwkv6_scan(r, k, v, w, u)
+    y_p, s_p = plain(r, k, v, w, u)
+    _wkv_close(y, y_p)
+    _wkv_close(s, s_p)
+    half = T // 2 or 1
+    y1, s1 = ops.rwkv6_scan(r[:, :half], k[:, :half], v[:, :half],
+                            w[:, :half], u)
+    y2, s2 = ops.rwkv6_scan(r[:, half:], k[:, half:], v[:, half:],
+                            w[:, half:], u, s1)
+    _wkv_close(torch.cat([y1, y2], 1), y)
+    _wkv_close(s2, s)
+
+
+def _wkv_close(got, want):
+    if got.dtype == torch.float32:
+        assert float((got - want.float()).abs().max()) <= WKV_TOL
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=SSD_BF16_ATOL, rtol=SSD_BF16_RTOL)
+
+
+def _attn(seed, B, Sq, Sk, H, Hkv, D, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device).to(dtype)
+                 for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,q_offset,causal,dtype", [
+    (2, 128, 128, 4, 2, 32, 0, True, torch.float32),     # GQA
+    (2, 64, 192, 6, 2, 32, 0, False, torch.float32),     # not causal
+    (1, 100, 100, 2, 1, 64, 0, True, torch.float32),     # ragged
+    (2, 40, 130, 4, 2, 16, 17, True, torch.float32),     # q_offset
+    (1, 512, 4113, 16, 8, 128, 3584, True, torch.float32),
+    (2, 1100, 1105, 16, 8, 128, 0, True, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, q_offset,
+                                    causal, dtype):
+    from repro_torch.kernels import flash_vjp
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     launches)
+    q, k, v = _attn(Sq + Sk, B, Sq, Sk, H, Hkv, D, cuda, dtype)
+    before = launches.count
+    out, lse = flash_attention_cuda(q, k, v, q_offset=q_offset,
+                                    causal=causal)
+    out_p, lse_p = ref.flash_attention_chunked(q, k, v, causal=causal,
+                                               q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, out_p, atol=FLASH_TOL, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), out_p.float(),
+                                   atol=FLASH_BF16_ATOL, rtol=FLASH_BF16_RTOL)
+    assert float((lse - lse_p).abs().max()) <= FLASH_LSE_TOL
+    # the public routes launch the kernel too
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    assert launches.count == before + 2
+    torch.testing.assert_close(got.float(), out.float(), atol=0, rtol=0)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        flash_vjp.flash_attention(q.float().requires_grad_(), k.float(),
+                                  v.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kernel,S", [("rwkv6-1.6b", "rwkv6_scan", 20),
+                                           ("qwen3-0.6b", "flash_attention",
+                                            1100)])
+def test_reduced_model_on_the_card_goes_through_its_kernel(cuda, arch,
+                                                           kernel, S):
+    """Prefill + decode of a reduced rwkv6 (the WKV6 kernel in every
+    layer) and of a reduced qwen3 beyond 1024 positions (the flash kernel
+    in every layer) on the card agree with the same model on the host,
+    and ``model_serve.run`` on the card launches the kernel."""
+    import importlib
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.launch.model_serve import run
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_map
+    launches = importlib.import_module(f"repro_torch.kernels.{kernel}").launches
+    cfg = get_arch(arch, reduced=True)
+    api = get_model(cfg)
+    host = api.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32))
+    before = launches.count
+    lg, cache = api.prefill(card, {"tokens": toks.to(cuda)}, REPLICATED,
+                            S + 4)
+    assert launches.count - before == cfg.num_layers
+    lg, _ = api.decode_step(card, toks[:, -1:].to(cuda), cache, S,
+                            REPLICATED)
+    lh, hcache = api.prefill(host, {"tokens": toks}, REPLICATED, S + 4)
+    lh, _ = api.decode_step(host, toks[:, -1:], hcache, S, REPLICATED)
+    assert float((lg.cpu() - lh).abs().max()) <= 3e-4
+    full, _ = api.forward(card, {"tokens": toks.to(cuda)}, REPLICATED)
+    fh, _ = api.forward(host, {"tokens": toks}, REPLICATED)
+    assert float((full.cpu() - fh).abs().max()) <= 3e-4
+    before = launches.count
+    out = run(arch, reduced=True, requests=2, prompt_len=S, gen=2)
+    assert launches.count > before
+    assert out["generated"].shape == (2, 2)

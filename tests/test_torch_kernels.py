@@ -17,7 +17,13 @@ Tolerances (absolute, float32 images in [0, 1]):
 - Mamba2 SSD: 2e-4 in float32 (the JAX package's own tolerance for its
   chunked and Pallas paths against the sequential oracle,
   ``tests/test_kernels.py``), 5e-2 in bfloat16 (the same);
-- attention: 1e-5 — the same float32 softmax over the same products.
+- RWKV6 WKV: 2e-4 in float32 and 5e-2 in bfloat16 (the JAX package's
+  own tolerances for its chunked and Pallas paths against the sequential
+  oracle, ``tests/test_kernels.py``); state continuity 1e-4 (the same);
+- attention: 1e-5 — the same float32 softmax over the same products;
+  the flash routes against the Pallas kernel: 2e-5 in float32 and 2e-2
+  (absolute and relative) in bfloat16, the JAX package's tolerances for
+  its flash kernel against the naive oracle.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +33,11 @@ import torch
 from repro.kernels import preprocess as jpp
 from repro.kernels import ref as jref
 from repro.kernels.gaussian_blur import gaussian_blur_pallas
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.flash_vjp import flash_attention as jax_flash_vjp
 from repro.kernels.mamba2_ssd import mamba2_ssd_pallas
+from repro.kernels.rwkv6_scan import rwkv6_scan_pallas
+from repro_torch.kernels import flash_vjp as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import preprocess as tpp
 from repro_torch.kernels import ref as tref
@@ -39,7 +49,11 @@ RESIZE_TOL = 1e-6
 PREPROCESS_TOL = 1e-5
 SSD_TOL = 2e-4
 SSD_BF16_TOL = 5e-2
+WKV_TOL = 2e-4
+WKV_BF16_TOL = 5e-2
 ATTN_TOL = 1e-5
+FLASH_TOL = 2e-5
+FLASH_BF16_TOL = 2e-2
 
 
 def _uniform(seed, shape):
@@ -265,9 +279,165 @@ def test_naive_attention_matches_jax(causal, q_offset, kv_len):
                                torch.from_numpy(v), causal=causal,
                                kv_len=kv_len, q_offset=q_offset)
     np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
-                             torch.from_numpy(v), impl="chunked")
+    # the explicit chunked route gives the JAX package's chunked result
+    want = np.asarray(jref.flash_attention_jnp(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_block=16, kv_block=16, kv_len=jl, q_offset=q_offset))
+    # (the port's chunked route takes no kv_len: the cache tail past the
+    # causal edge, kv_len 29 here, is masked by causality alone)
+    got, _ = tref.flash_attention_chunked(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, q_block=16, kv_block=16, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL, rtol=0)
+    got = tops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal,
+                               impl="chunked", q_offset=q_offset)
+    want = tref.naive_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=causal,
+                                q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATTN_TOL,
+                               rtol=0)
+
+
+ATTN_CASES = [  # tests/test_kernels.py: B, Sq, Sk, H, Hkv, D, causal
+    (2, 128, 128, 4, 2, 32, True),
+    (1, 96, 96, 4, 4, 16, True),
+    (2, 64, 192, 6, 2, 32, False),
+    (1, 100, 100, 2, 1, 64, True),   # non-multiple of block
+]
+
+
+def _attn_inputs(seed, B, Sq, Sk, H, Hkv, D):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_routes_match_pallas(case, dtype):
+    """The port's plain flash routes — ``ops.flash_attention`` on the CPU
+    (the chunked route) and the ``flash_vjp`` forward — against the
+    Pallas kernel in interpret mode."""
+    B, Sq, Sk, H, Hkv, D, causal = case
+    q, k, v = _attn_inputs(sum(case[:6]), B, Sq, Sk, H, Hkv, D)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(flash_attention_pallas(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), causal=causal,
+        block_q=32, block_k=64, interpret=True), np.float32)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    tol = FLASH_BF16_TOL if dtype == "bfloat16" else FLASH_TOL
+    for got in (tops.flash_attention(tq, tk, tv, causal=causal,
+                                     q_block=32, kv_block=64),
+                tflash.flash_attention(tq, tk, tv, 0, causal, None, 32, 64)):
+        assert got.dtype == td and tuple(got.shape) == (B, Sq, H, D)
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(40, 130, 17), (9, 64, 55),
+                                            (64, 64, 0)])
+def test_flash_vjp_forward_with_offset_matches_jax(Sq, Sk, q_offset):
+    """Prefill into a longer cache (``q_offset > 0``, which the Pallas
+    kernel cannot take): the port's ``flash_vjp`` forward and its
+    log-sum-exp against the JAX package's ``flash_vjp``."""
+    from repro.kernels.flash_vjp import _fwd_impl as jax_fwd_impl
+    q, k, v = _attn_inputs(Sq + q_offset, 2, Sq, Sk, 4, 2, 16)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = np.asarray(jax_flash_vjp(jq, jk, jv, q_offset, True, None, 16, 32))
+    _, want_lse = jax_fwd_impl(jq, jk, jv, True, None, 16, 32, q_offset)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = tflash.flash_attention(tq, tk, tv, q_offset, True, None, 16, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_TOL, rtol=0)
+    out, lse = tref.flash_attention_chunked(tq, tk, tv, q_block=16,
+                                            kv_block=32, q_offset=q_offset)
+    np.testing.assert_array_equal(out.numpy(), got.numpy())
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
+                               atol=FLASH_TOL, rtol=0)
+    # the same function as the naive route with the offset
+    naive = tref.naive_attention(tq, tk, tv, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), naive.numpy(), atol=FLASH_TOL,
+                               rtol=0)
+
+
+# ------------------------------------------------------------- RWKV6 WKV
+def _wkv_inputs(seed, B, T, H, K, *, state=True):
+    """The JAX package's test inputs, drawn with numpy: r, k ~ 0.5 N,
+    v ~ N, w = sigmoid(N) / 2 + 0.45, u ~ 0.1 N, s0 ~ 0.1 N."""
+    rng = np.random.default_rng(seed)
+
+    def n(shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    r, k, v = n((B, T, H, K), 0.5), n((B, T, H, K), 0.5), n((B, T, H, K))
+    w = (0.5 / (1 + np.exp(-n((B, T, H, K)))) + 0.45).astype(np.float32)
+    return r, k, v, w, n((H, K), 0.1), n((B, H, K, K), 0.1) if state else None
+
+
+@pytest.mark.parametrize("B,T,H,K,chunk", [(2, 96, 3, 16, 32),
+                                           (1, 50, 2, 8, 16)])
+def test_rwkv6_plain_matches_pallas_and_ref(B, T, H, K, chunk):
+    args = _wkv_inputs(T, B, T, H, K)
+    jargs = [_j(a) for a in args]
+    o_ref, s_ref = jref.rwkv6_scan_ref(*jargs)
+    o_ch, s_ch = jref.rwkv6_chunked_jnp(*jargs, chunk=chunk)
+    o_pl, s_pl = rwkv6_scan_pallas(*jargs, chunk=chunk, interpret=True)
+    targs = [_t(a) for a in args]
+    y, s = tops.rwkv6_scan(*targs, chunk=chunk)
+    assert y.dtype == torch.float32 and s.dtype == torch.float32
+    for got, want in ((y, o_ref), (y, o_ch), (y, o_pl), (s, s_ref),
+                      (s, s_ch), (s, s_pl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=WKV_TOL, rtol=0)
+    # the port's sequential oracle is the JAX package's
+    o_sq, s_sq = tref.rwkv6_scan_ref(*targs)
+    np.testing.assert_allclose(o_sq.numpy(), np.asarray(o_ref), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(s_sq.numpy(), np.asarray(s_ref), atol=1e-5,
+                               rtol=0)
+
+
+def test_rwkv6_plain_matches_pallas_bf16():
+    B, T, H, K = 1, 64, 2, 16
+    r, k, v, w, u, _ = _wkv_inputs(11, B, T, H, K, state=False)
+    bf = jnp.bfloat16
+    jargs = [_j(a, bf) for a in (r, k, v, w)] + [_j(u)]
+    o_ref, s_ref = jref.rwkv6_scan_ref(*jargs)
+    o_pl, s_pl = rwkv6_scan_pallas(*jargs, chunk=32, interpret=True)
+    tb = torch.bfloat16
+    y, s = tops.rwkv6_scan(*[_t(a, tb) for a in (r, k, v, w)], _t(u),
+                           chunk=32)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    for want in (o_ref, o_pl):
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=WKV_BF16_TOL, rtol=0)
+    for want in (s_ref, s_pl):
+        np.testing.assert_allclose(s.numpy(), np.asarray(want),
+                                   atol=WKV_BF16_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("split", [32, 21])
+def test_rwkv6_state_continuity(split):
+    """Scanning [a;b] equals scanning a then b from a's final state, on
+    the chunked route (a split inside a chunk too), as the sequential
+    scan does in the JAX package."""
+    B, T, H, K = 1, 64, 2, 8
+    r, k, v, w, u, _ = (_t(a) for a in _wkv_inputs(5, B, T, H, K,
+                                                    state=False))
+    o_full, s_full = tops.rwkv6_scan(r, k, v, w, u, chunk=16)
+    o1, s1 = tops.rwkv6_scan(r[:, :split], k[:, :split], v[:, :split],
+                             w[:, :split], u, chunk=16)
+    o2, s2 = tops.rwkv6_scan(r[:, split:], k[:, split:], v[:, split:],
+                             w[:, split:], u, s1, chunk=16)
+    np.testing.assert_allclose(torch.cat([o1, o2], 1).numpy(),
+                               o_full.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(s2.numpy(), s_full.numpy(), atol=1e-4, rtol=0)
+    o_j, s_j = jref.rwkv6_scan_ref(*(_j(a.numpy()) for a in (r, k, v, w, u)))
+    np.testing.assert_allclose(o_full.numpy(), np.asarray(o_j), atol=WKV_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(s_full.numpy(), np.asarray(s_j), atol=WKV_TOL,
+                               rtol=0)
 
 
 def test_wrappers_refuse_devices_without_a_path():
@@ -287,3 +457,20 @@ def test_wrappers_refuse_devices_without_a_path():
         mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0)
     with pytest.raises(ValueError, match="meta"):
         tops.mamba2_ssd(x.to("meta"), dt, A, Bm, Cm)
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    r, k, v, w, u, s0 = (_t(a) for a in _wkv_inputs(0, 1, 8, 2, 4))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rwkv6_scan_cuda(r, k, v, w, u, s0)
+    with pytest.raises(ValueError, match="meta"):
+        tops.rwkv6_scan(r.to("meta"), k, v, w, u)
+    q, kk, vv = (torch.from_numpy(a) for a in _attn_inputs(0, 1, 8, 8, 2, 1,
+                                                          16))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_cuda(q, kk, vv)
+    with pytest.raises(ValueError, match="meta"):
+        tops.flash_attention(q.to("meta"), kk, vv)
+    with pytest.raises(ValueError, match="meta"):
+        tflash.flash_attention(q.to("meta"), kk, vv)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tops.flash_attention(q, kk, vv, impl="no-such-route")

@@ -1,6 +1,7 @@
 """The model UDF end to end on the CPU: a port engine running
-``register_model_udf(arch="zamba2-2.7b", reduced=True, device="cpu")``
-on the JAX package's weights answers the JAX engine's stamped images.
+``register_model_udf(arch=..., reduced=True, device="cpu")`` on the JAX
+package's weights answers the JAX engine's stamped images, for the
+hybrid ``zamba2-2.7b`` and the rwkv ``rwkv6-1.6b``.
 
 The JAX engine's ``register_model_udf`` initialises its LM from
 ``PRNGKey(0)``; the same tree, carried by ``params_from_jax``, serves the
@@ -28,20 +29,32 @@ from repro_torch.interop import (engine_state, ingest_reference_state,
 torch.set_num_threads(1)
 
 ARCH = "zamba2-2.7b"
-UDF = "torch_parity_lm"
-QUERY = [{"FindImage": {"constraints": {"category": ["==", "lm"]},
-                        "operations": [{"type": "udf",
-                                        "options": {"id": UDF}}]}}]
-ROUTES = {
-    "per_entity": dict(dispatch="native"),
-    "batcher": dict(dispatch="cost", cost_overrides={
-        UDF: {"batcher": 1e-6, "native": 10.0, "remote": 10.0}}),
-    "device_backend": dict(dispatch="cost", device_backend="cpu",
-                           cost_overrides={UDF: {"device": 1e-6,
-                                                 "native": 10.0,
-                                                 "remote": 10.0,
-                                                 "batcher": 10.0}}),
-}
+RWKV_ARCH = "rwkv6-1.6b"
+ROUTES = ("batcher", "device_backend", "per_entity")
+
+
+def _udf(arch):
+    return f"torch_parity_{arch}"
+
+
+def _query(arch):
+    return [{"FindImage": {"constraints": {"category": ["==", "lm"]},
+                           "operations": [{"type": "udf",
+                                           "options": {"id": _udf(arch)}}]}}]
+
+
+def _route(arch, route):
+    udf = _udf(arch)
+    return {
+        "per_entity": dict(dispatch="native"),
+        "batcher": dict(dispatch="cost", cost_overrides={
+            udf: {"batcher": 1e-6, "native": 10.0, "remote": 10.0}}),
+        "device_backend": dict(dispatch="cost", device_backend="cpu",
+                               cost_overrides={udf: {"device": 1e-6,
+                                                     "native": 10.0,
+                                                     "remote": 10.0,
+                                                     "batcher": 10.0}}),
+    }[route]
 
 
 def _images(n):
@@ -52,36 +65,55 @@ def _images(n):
             for i in range(n)]
 
 
-@pytest.fixture(scope="module")
-def jax_answer():
-    """The JAX engine's response, its state and its model's weights."""
-    jax_register_model_udf(UDF, arch=ARCH, reduced=True)
-    jparams = jax_model(jax_arch(ARCH, reduced=True)).init(
+def _answer(arch):
+    """The arch, the JAX engine's response and its state; the port's UDF
+    registered on the JAX model's weights."""
+    jax_register_model_udf(_udf(arch), arch=arch, reduced=True)
+    jparams = jax_model(jax_arch(arch, reduced=True)).init(
         jax.random.PRNGKey(0))
     eng = JaxEngine(dispatch="native", num_native_workers=2)
     try:
         for i, img in enumerate(_images(4)):
             eng.add_entity("image", img, {"category": "lm", "idx": i})
-        res = eng.execute(QUERY, timeout=600)
+        res = eng.execute(_query(arch), timeout=600)
         state = list(engine_state(eng))
     finally:
         eng.shutdown()
     assert res["stats"]["failed"] == 0
     params = params_from_jax(jax.tree.map(np.asarray, jparams),
-                             get_arch(ARCH, reduced=True))
-    register_model_udf(UDF, arch=ARCH, reduced=True, device="cpu",
+                             get_arch(arch, reduced=True), device="cpu")
+    register_model_udf(_udf(arch), arch=arch, reduced=True, device="cpu",
                        params=params)
-    return res["entities"], state
+    return arch, res["entities"], state
 
 
-@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.fixture(scope="module")
+def jax_answer():
+    return _answer(ARCH)
+
+
+@pytest.fixture(scope="module")
+def jax_rwkv_answer():
+    return _answer(RWKV_ARCH)
+
+
+@pytest.mark.parametrize("route", ROUTES)
 def test_model_udf_route_matches_jax_engine(jax_answer, route):
-    want, state = jax_answer
+    _check_route(jax_answer, route)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_rwkv_model_udf_route_matches_jax_engine(jax_rwkv_answer, route):
+    _check_route(jax_rwkv_answer, route)
+
+
+def _check_route(answer, route):
+    arch, want, state = answer
     eng = VDMSAsyncEngine(device="cpu", num_native_workers=2,
-                          **ROUTES[route])
+                          **_route(arch, route))
     try:
         eids = ingest_reference_state(eng, state)
-        res = eng.execute(QUERY, timeout=600)
+        res = eng.execute(_query(arch), timeout=600)
         stats = eng.dispatch_stats()
     finally:
         eng.shutdown()
@@ -111,3 +143,19 @@ def test_prompt_tokens_equal_jax_feats():
         got = prompt_tokens(torch.from_numpy(img), cfg.vocab_size)
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_unregister_udf_drops_every_route():
+    """``unregister_udf`` removes a model UDF's per-entity, batched and
+    device functions (and the parameters they hold)."""
+    from repro_torch.core import udf
+    register_model_udf("torch_dropped", arch=ARCH, reduced=True,
+                       device="cpu")
+    assert udf.has_batched_udf("torch_dropped")
+    assert udf.has_device_udf("torch_dropped")
+    udf.unregister_udf("torch_dropped")
+    assert not udf.has_batched_udf("torch_dropped")
+    assert not udf.has_device_udf("torch_dropped")
+    with pytest.raises(KeyError, match="not registered"):
+        udf.get_udf("torch_dropped")
+    udf.unregister_udf("torch_dropped")  # unknown names are ignored

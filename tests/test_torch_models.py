@@ -1,8 +1,9 @@
 """The PyTorch port's model path held against the JAX package on the CPU.
 
 Reduced ``zamba2-2.7b`` (hybrid: Mamba2 trunk, the SSD scan, shared
-attention blocks) and ``qwen3-0.6b`` (dense: GQA, qk_norm) are built
-from one JAX parameter tree, carried into the port by
+attention blocks), ``qwen3-0.6b`` (dense: GQA, qk_norm) and
+``rwkv6-1.6b`` (rwkv: token shift, data-dependent decay, the WKV6 scan)
+are built from one JAX parameter tree, carried into the port by
 ``repro_torch.interop.params_from_jax``; the same numpy tokens go
 through both.
 
@@ -39,7 +40,7 @@ from repro_torch.serving.serve_step import greedy_generate
 
 torch.set_num_threads(1)
 
-ARCHS = ["zamba2-2.7b", "qwen3-0.6b"]
+ARCHS = ["zamba2-2.7b", "qwen3-0.6b", "rwkv6-1.6b"]
 LOGIT_TOL = 3e-4
 STATE_TOL = 1e-4
 ELEM_TOL = 1e-6
@@ -58,7 +59,7 @@ def pair(request):
     japi = jax_model(jcfg)
     jparams = japi.init(jax.random.PRNGKey(7))
     cfg = get_arch(arch, reduced=True)
-    params = params_from_jax(_np_tree(jparams), cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
     return arch, japi, jparams, get_model(cfg), params
 
 
@@ -78,8 +79,8 @@ def test_configs_match_the_reference():
         for reduced in (False, True):
             assert get_arch(arch, reduced).__dict__ == \
                 jax_arch(arch, reduced).__dict__
-    assert get_arch("zamba2-2.7b").param_count() == \
-        jax_arch("zamba2-2.7b").param_count()
+    for arch in ARCHS:
+        assert get_arch(arch).param_count() == jax_arch(arch).param_count()
 
 
 def test_forward_matches_jax(pair):
@@ -250,6 +251,81 @@ def test_attention_branches_match_jax(qkv_bias):
         _close(kvc[key], jkv[key], STATE_TOL)
 
 
+@pytest.mark.parametrize("cached", [False, True])
+def test_rwkv6_layer_matches_jax(cached):
+    """One RWKV6 block on 8 tokens, with no cache and with a zero state
+    (the chunked scan), against the JAX package; with a cache, the same
+    tokens one at a time through the cached single-token step (the
+    sequential scan) give the same outputs and states."""
+    from repro.models.rwkv6 import apply_rwkv6 as jax_apply_rwkv6
+    from repro.models.rwkv6 import init_rwkv6 as jax_init_rwkv6
+    from repro_torch.models.rwkv6 import apply_rwkv6
+    jcfg = jax_arch("rwkv6-1.6b", reduced=True)
+    cfg = get_arch("rwkv6-1.6b", reduced=True)
+    jp = jax_init_rwkv6(jcommon.KeyGen(jax.random.PRNGKey(0)), jcfg,
+                        jnp.float32)
+    p = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = (np.random.default_rng(1).standard_normal((2, 8, cfg.d_model))
+         * 0.3).astype(np.float32)
+    H, K = cfg.rwkv_nheads, cfg.rwkv_head_dim
+
+    def zero(mod):
+        return {"tm_x": mod.zeros((2, cfg.d_model)),
+                "cm_x": mod.zeros((2, cfg.d_model)),
+                "wkv": mod.zeros((2, H, K, K))}
+
+    jcache = zero(jnp) if cached else None
+    jy, jst = jax_apply_rwkv6(jp, jnp.asarray(x), cfg=jcfg, sh=JAX_REPLICATED,
+                              cache=jcache)
+    y, st = apply_rwkv6(p, torch.from_numpy(x), cfg=cfg, sh=REPLICATED,
+                        cache=zero(torch) if cached else None)
+    _close(y, jy, STATE_TOL)
+    if not cached:
+        assert st is None and jst is None
+        return
+    for key in jst:
+        _close(st[key], jst[key], STATE_TOL)
+    state, steps = zero(torch), []
+    for t in range(8):
+        yt, state = apply_rwkv6(p, torch.from_numpy(x[:, t:t + 1]), cfg=cfg,
+                                sh=REPLICATED, cache=state)
+        steps.append(yt)
+    _close(torch.cat(steps, dim=1), jy, STATE_TOL)
+    for key in jst:
+        _close(state[key], jst[key], STATE_TOL)
+
+
+def test_long_context_attention_takes_the_flash_route_as_jax():
+    """Reduced qwen3 beyond 1024 positions: the forward over 1100 tokens
+    and a prefill into a 1105-slot cache, then one decode step, take the
+    chunked flash route (``flash_vjp``) in both packages."""
+    jcfg = jax_arch("qwen3-0.6b", reduced=True)
+    japi = jax_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(5))
+    cfg = get_arch("qwen3-0.6b", reduced=True)
+    api = get_model(cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    toks = _tokens(cfg, (1, 1101), 6)
+    want, _ = japi.forward(jparams, {"tokens": jnp.asarray(toks[:, :1100])},
+                           JAX_REPLICATED)
+    got, _ = api.forward(params, {"tokens": torch.from_numpy(toks[:, :1100])},
+                         REPLICATED)
+    _close(got, want, LOGIT_TOL)
+    want, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :1100])},
+                                JAX_REPLICATED, max_cache=1105)
+    got, cache = api.prefill(params, {"tokens": torch.from_numpy(toks[:, :1100])},
+                             REPLICATED, 1105)
+    _close(got, want, LOGIT_TOL)
+    for key in jcache:
+        _close(cache[key], jcache[key], STATE_TOL)
+    step = toks[:, 1100:]
+    want, _ = japi.decode_step(jparams, jnp.asarray(step), jcache,
+                               jnp.int32(1100), JAX_REPLICATED)
+    got, _ = api.decode_step(params, torch.from_numpy(step), cache, 1100,
+                             REPLICATED)
+    _close(got, want, LOGIT_TOL)
+
+
 def test_norms_rope_and_positions_match_jax():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)
@@ -285,7 +361,8 @@ def test_model_serve_run_matches_jax():
         jax.random.PRNGKey(0))
     cfg = get_arch("zamba2-2.7b", reduced=True)
     got = run("zamba2-2.7b", reduced=True, requests=2, prompt_len=8, gen=4,
-              device="cpu", params=params_from_jax(_np_tree(jparams), cfg))
+              device="cpu",
+              params=params_from_jax(_np_tree(jparams), cfg, device="cpu"))
     np.testing.assert_array_equal(got["generated"], want["generated"])
     assert got["tokens_per_s"] > 0 and got["prefill_s"] > 0
 
@@ -310,14 +387,17 @@ def test_group_batcher_matches_sequential_greedy():
 
 # ------------------------------------------------- what is not ported
 def test_unported_paths_raise_instead_of_running_something_else():
-    with pytest.raises(KeyError, match="RWKV6 slice"):
-        get_arch("rwkv6-1.6b")
+    """The slices still to come (MoE, encoder-decoder, the vit_stub
+    frontend, meshes) raise and name their slice."""
+    with pytest.raises(KeyError, match="MoE slice"):
+        get_arch("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError, match="encoder-decoder slice"):
         get_arch("whisper-small")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="RWKV6 slice"):
-        get_model(jax_arch("rwkv6-1.6b", reduced=True))
+    with pytest.raises(NotImplementedError, match="MoE"):
+        get_model(jax_arch("granite-moe-1b-a400m", reduced=True)).init(
+            torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         get_model(jax_arch("whisper-small", reduced=True))
     with pytest.raises(NotImplementedError, match="vit_stub"):
@@ -327,13 +407,7 @@ def test_unported_paths_raise_instead_of_running_something_else():
     from repro_torch.launch.model_serve import run
     with pytest.raises(NotImplementedError, match="distribution slice"):
         run("qwen3-0.6b", model_par=2, device="cpu")
-    # attention beyond 1024 positions is the K3 slice's flash route
     cfg = get_arch("qwen3-0.6b", reduced=True)
-    api = get_model(cfg)
-    params = api.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="K3"):
-        api.prefill(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)},
-                    REPLICATED, 1025)
     with pytest.raises(ValueError, match="top-level keys"):
         params_from_jax({"embed": np.zeros((1, 1))}, cfg)
 
@@ -347,3 +421,8 @@ def test_model_entry_points_refuse_cuda_on_a_host_without_a_card():
         register_model_udf("lm_refused", arch="qwen3-0.6b")  # cuda default
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run("qwen3-0.6b", requests=1, prompt_len=2, gen=1)
+    cfg = get_arch("qwen3-0.6b", reduced=True)
+    tree = get_model(cfg).init(torch.Generator().manual_seed(0))
+    from repro_torch.models.lm import tree_map
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tree_map(lambda a: a.numpy(), tree), cfg)  # cuda
