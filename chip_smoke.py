@@ -16,7 +16,10 @@ Phases (any failed check exits non-zero, before the result line):
    blur pinned onto the device (the fused preprocess kernel, then the
    blur kernel), against the same query run all-native on the card;
 5. each kernel against its plain version on the card at the shapes of
-   the main paths, with times, bounds and a library yardstick;
+   the main paths, with times, bounds (the longest of the bytes at the
+   HBM rate, the matrix products at the tensor-core rate for their type
+   and the other operations at the fp32 rate) and a library yardstick;
+   K3's and K4's rows name their tensor-core route;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
@@ -40,6 +43,14 @@ it (K4, K5 and K3 must have launched on their paths).  Phase 5's
 launches, which only compare kernels with their plain versions, count
 in none.  The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --ab DIR`` instead holds K3 and K4 built from
+an earlier commit's sources in DIR, and the checkout's, against their
+plain versions and times them in turns in one process (old, new, new,
+old), and prints ``{"ab": [...]}``: put
+the parent's ``flash_attention.cu`` and ``mamba2_ssd.cu`` (and any
+header they include) in a git-ignored directory, for example with
+``git archive``.
 """
 from __future__ import annotations
 
@@ -56,12 +67,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b0"
 
-# NVIDIA H100 SXM data sheet (dense rates): HBM3 bandwidth, and the peak
-# operations a second for each operand type: float32 outside the tensor
-# cores (TF32 stays off), bfloat16 on them
+# NVIDIA H100 SXM data sheet (dense rates): HBM3 bandwidth; float32
+# operations outside the tensor cores; and matrix products on the tensor
+# cores for each operand type: bfloat16 at 989 TF/s, float32 kept at
+# float32 accuracy as three TF32 passes (3xTF32) at 495/3 TF/s
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-PEAK_FLOP_S = {"torch.float32": FP32_FLOP_S, "torch.bfloat16": 989e12}
+PRODUCT_FLOP_S = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
 K1_TOL = 1e-5       # blur kernel vs plain, absolute (same tap order)
 K2_TOL = 1e-4       # fused preprocess vs composed ops, absolute
@@ -354,24 +366,23 @@ def ssd_inputs(rng, B, T, H, P, G, N, dtype):
     return x, dt, A, Bm, Cm, n((H,), 0.1).abs(), n((B, H, P, N), 0.1)
 
 
-def ssd_work(B, T, H, P, G, N, chunk, itemsize):
-    """Bytes and operations of one SSD call.  Bytes: x and y in their
-    type, B and C by group (never repeated to heads), dt, A, D and both
-    states in float32, each once.  Operations, per (batch, head) chunk
-    of n steps: the causal half of C Bᵀ (n(n+1)/2 dots of N, then the
-    decay and dt factors), its product with x (n(n+1)/2 * P), the
-    inter-chunk C·h and D skip (n * (2NP + 4P)) and the state update
-    (n * (2NP + 3P) + NP)."""
-    c = min(chunk, max(T, 8))
+def ssd_work(B, T, H, P, G, N, itemsize):
+    """Bytes, matrix-product operations and other operations of one SSD
+    call, counted for the function: the chunked form is exact at any
+    chunk length and its products grow with the length (the causal half
+    of C Bᵀ and its product with x), so they are counted at length 1,
+    the recurrence.  Bytes: x and y in their type, B and C by group
+    (never repeated to heads), dt, A, D and both states in float32, each
+    once.  Products, per (batch, head) step: C_t · B_t and its product
+    with x_t (2N + 2P), the readout C_t · h (2NP) and the state update
+    dt x_t B_tᵀ (2NP).  Other: the step's decay and dt factors (3), the
+    exp(la) scale and D skip (4P), the update's weights (3P) and the
+    state's decay (NP)."""
     nbytes = (2 * B * T * H * P + 2 * B * T * G * N) * itemsize \
         + (B * T * H + 2 * H + 2 * B * H * P * N) * 4
-    flops = 0
-    for t0 in range(0, T, c):
-        n = min(c, T - t0)
-        pairs = n * (n + 1) // 2
-        flops += pairs * (2 * N + 3) + pairs * 2 * P
-        flops += n * (2 * N * P + 4 * P) + n * (2 * N * P + 3 * P) + N * P
-    return nbytes, flops * B * H
+    steps = B * T * H
+    return (nbytes, (2 * N + 2 * P + 4 * N * P) * steps,
+            (3 + 7 * P + N * P) * steps)
 
 
 def wkv_inputs(rng, B, T, H, K, dtype, shift=0.0):
@@ -393,15 +404,18 @@ def wkv_inputs(rng, B, T, H, K, dtype, shift=0.0):
 
 
 def wkv_work(B, T, H, K, V, itemsize):
-    """Bytes and operations of one WKV6 call, counted for the function
-    and not for the chunked algorithm: with w given, the sequential
-    recurrence needs no exponential.  Bytes: r, k, v and y in their
-    type, w in float32, u and both states in float32, each once.
-    Operations, per (batch, head) step: r . S (2KV), the state's decay
-    and update S = w S + k v (3KV), the bonus (r u . k) v (3K + 2V)."""
+    """Bytes, matrix-product operations and other operations of one
+    WKV6 call, counted for the function and not for the chunked
+    algorithm: with w given, the sequential recurrence needs no
+    exponential.  Bytes: r, k, v and y in their type, w in float32, u
+    and both states in float32, each once.  Products, per (batch, head)
+    step, as SSD's: the readout r · S (2KV) and the state update k vᵀ
+    (2KV).  Other: the state's decay w S (KV) and the bonus
+    (r u · k) v (3K + 2V)."""
     nbytes = (3 * B * T * H * K + B * T * H * V) * itemsize \
         + (B * T * H * K + H * K + 2 * B * H * K * V) * 4
-    return nbytes, (5 * K * V + 3 * K + 2 * V) * B * T * H
+    steps = B * T * H
+    return nbytes, 4 * K * V * steps, (K * V + 3 * K + 2 * V) * steps
 
 
 def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
@@ -409,8 +423,10 @@ def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     (query, key) pairs it must visit: every key when not causal, keys
     up to ``q_offset + row`` when causal.  Bytes: q and out in their
     type, the keys and values that some row sees, by kv head, and the
-    float32 log-sum-exp, each once.  Operations: 2D for the logit and
-    2D for its share of P V per visible pair and head."""
+    float32 log-sum-exp, each once.  Products: 2D for the logit and 2D
+    for its share of P V per visible pair and head.  Other: the scale,
+    running max, exponential and sum of each visible pair and head
+    (4)."""
     if causal:
         pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq))
         keys = min(Sk, q_offset + Sq)
@@ -418,17 +434,40 @@ def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
         pairs, keys = Sq * Sk, Sk
     nbytes = (2 * B * Sq * H * D + 2 * B * keys * Hkv * D) * itemsize \
         + B * Sq * H * 4
-    return nbytes, 4 * pairs * D * H * B
+    return nbytes, 4 * pairs * D * H * B, 4 * pairs * H * B
 
 
-def bound(nbytes, flops, dtype):
-    """Least time in ms and what sets it: bytes at the HBM rate, or the
-    operations at the card's peak for the operands' type (``dtype``),
-    whichever is longer."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = flops / PEAK_FLOP_S[str(dtype)]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def blur_work(shape, ksize):
+    """Bytes and operations of one blur call: the image read and written
+    once in float32; a multiply and an add per tap, in each of the two
+    passes, per value (fp32 FMA, no product on the tensor cores)."""
+    n, h, w, c = shape
+    return 2 * n * h * w * c * 4, 4 * ksize * n * h * w * c
+
+
+def preprocess_work(n, size, out_h, out_w, crop_rows, nnz_y, nnz_x, c=3):
+    """Bytes and operations of one fused resize/crop/normalize call: the
+    images, the output and both cropped matrices (``crop_rows`` x
+    ``size`` each) once in float32; the two banded contractions over the
+    matrices' ``nnz_y`` and ``nnz_x`` nonzeros and the affine epilogue
+    (fp32 FMA, no product on the tensor cores)."""
+    nbytes = (n * size * size * c + n * out_h * out_w * c
+              + 2 * crop_rows * size) * 4
+    flops = 2 * n * c * (nnz_y * size + out_h * nnz_x) + 2 * n * out_h * out_w * c
+    return nbytes, flops
+
+
+def bound(nbytes, products, other, dtype):
+    """Least time in ms and what sets it, the longest of three: the bytes
+    at the HBM rate (``"bytes"``), the matrix products at the
+    tensor-core rate for the operands' type ``dtype`` (``"products"``),
+    and the other operations at the float32 rate outside the tensor
+    cores (``"other"``)."""
+    times = {"bytes": nbytes / HBM_BYTES_S,
+             "products": products / PRODUCT_FLOP_S[str(dtype)],
+             "other": other / FP32_FLOP_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def phase_kernels():
@@ -469,10 +508,8 @@ def phase_kernels():
             return F.conv2d(y, wx, groups=c).permute(0, 2, 3, 1)
 
         lib_err = float((library() - want).abs().max())
-        n, h, w, _ = shape
-        nbytes = 2 * n * h * w * c * 4
-        flops = 4 * ksize * n * h * w * c
-        bound_ms, bound_by = bound(nbytes, flops, x.dtype)
+        nbytes, flops = blur_work(shape, ksize)
+        bound_ms, bound_by = bound(nbytes, 0, flops, x.dtype)
         return {
             "shape": list(shape), "ksize": ksize, "sigma": sigma,
             "max_abs_err": err,
@@ -504,12 +541,11 @@ def phase_kernels():
             return torch.einsum("oh,nhwc,pw->nopc", ry_t, x, rx_t)
 
         hc, wc, c = got.shape[1], got.shape[2], 3
-        nbytes = (x.numel() + got.numel() + ry.size + rx.size) * 4
         nnz_y, nnz_x = int((ry != 0).sum()), int((rx != 0).sum())
-        flops = (2 * n * c * (nnz_y * size + hc * nnz_x)
-                 + 2 * n * hc * wc * c)
+        nbytes, flops = preprocess_work(n, size, hc, wc, ry.shape[0],
+                                        nnz_y, nnz_x)
         dense_flops = 2 * n * c * (hc * size * size + hc * wc * size)
-        bound_ms, bound_by = bound(nbytes, flops, x.dtype)
+        bound_ms, bound_by = bound(nbytes, 0, flops, x.dtype)
         return {
             "shape": [n, size, size, 3], "params": kw,
             "max_abs_err": err,
@@ -542,8 +578,10 @@ def phase_kernels():
             check(excess <= K4_BF16_ATOL,
                   f"{what}; beyond {K4_BF16_RTOL:.4g} relative: "
                   f"{excess:.3g} <= {K4_BF16_ATOL}")
-        nbytes, flops = ssd_work(B, T, H, P, G, N, chunk, x.element_size())
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        nbytes, products, other = ssd_work(B, T, H, P, G, N,
+                                           x.element_size())
+        flops = products + other
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
         return {
             "shape": [B, T, H, P], "G": G, "N": N, "chunk": c,
             "dtype": str(dtype), "max_abs_err": err,
@@ -553,7 +591,9 @@ def phase_kernels():
                 x, dt, A, Bm, Cm, D, h0, chunk=c), flush, reps=10),
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes SSD",
-            "bytes": nbytes, "flops": flops,
+            "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
+                      "mma.sync TF32, bf16 operands exact (1-2 passes)"),
+            "bytes": nbytes, "flops": flops, "products": products,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
 
@@ -609,15 +649,16 @@ def phase_kernels():
                "log_w_median": float(torch.log(w.clamp_min(1e-30)).median())}
         if not timed:
             return row
-        nbytes, flops = wkv_work(B, T, H, K, K, r.element_size())
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        nbytes, products, other = wkv_work(B, T, H, K, K, r.element_size())
+        flops = products + other
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
         row.update({
             "ms": time_ms(lambda: rwkv6_scan_cuda(r, k, v, w, u, s0), flush),
             "plain_ms": time_ms(lambda: ref.rwkv6_chunked(r, k, v, w, u, s0),
                                 flush, reps=10),
             "library_ms": None,
             "library_call": "none: no single PyTorch call computes WKV6",
-            "bytes": nbytes, "flops": flops,
+            "bytes": nbytes, "flops": flops, "products": products,
             "bound_ms": bound_ms, "bound_by": bound_by})
         return row
 
@@ -654,9 +695,10 @@ def phase_kernels():
         else:
             err = held(what, (o,), (o_p,), K3_BF16_ATOL, K3_BF16_RTOL)
         lse_err = held(f"{what}: log-sum-exp", (lse,), (lse_p,), K3_LSE_TOL)
-        nbytes, flops = attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal,
-                                  q.element_size())
-        bound_ms, bound_by = bound(nbytes, flops, dtype)
+        nbytes, products, other = attn_work(B, Sq, Sk, H, Hkv, D, q_offset,
+                                            causal, q.element_size())
+        flops = products + other
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
         row = {"kernel": "flash_attention", "shape": [B, Sq, H, D],
                "kv": [Sk, Hkv], "q_offset": q_offset, "causal": causal,
                "dtype": str(dtype), "max_abs_err": err,
@@ -667,7 +709,9 @@ def phase_kernels():
                    q, k, v, causal=causal, q_offset=q_offset), flush, reps=5),
                "library_ms": None,
                "library_call": "none timed at this shape",
-               "bytes": nbytes, "flops": flops,
+               "route": ("mma.sync 3xTF32" if dtype == torch.float32
+                         else "wgmma bf16"),
+               "bytes": nbytes, "flops": flops, "products": products,
                "bound_ms": bound_ms, "bound_by": bound_by}
         if library:  # top-left causal mask: the same function at offset 0
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -725,9 +769,10 @@ def phase_kernels():
     rows.append(attn_case(1, 100, 100, 2, 1, 64))
     rows.append(attn_case(2, 1100, 1105, 4, 2, 16))
     for r in rows:
+        r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
-            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")}), flush=True)
+            "shape", "dtype", "route", "max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}), flush=True)
     rows.append(ssd_model_layout())
     rows.append(wkv_carry(16, 512, 32, 64, 200))
     return entries, rows
@@ -735,7 +780,9 @@ def phase_kernels():
 
 def kernels_line(entries, path_launches):
     """The ``{"kernels": [...]}`` entries: each kernel's phase-5 row at
-    its main shape, with its launches on the path that runs it."""
+    its main shape, with its launches on the path that runs it.  The
+    line's ``bound_by`` has two values, ``bytes`` or ``operations``
+    (products or other); the phase-5 row names which."""
     meta = {
         "gaussian_blur": ("src/repro_torch/kernels/csrc/gaussian_blur.cu",
                           "src/repro/kernels/gaussian_blur.py:44"),
@@ -757,7 +804,9 @@ def kernels_line(entries, path_launches):
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+            "bound_by": "bytes" if e["bound_by"] == "bytes" else "operations",
+            "design": e["route"],
+            "library_ms": e["library_ms"],
             "library_call": e["library_call"], "shape": e["shape"]})
     return kernels
 
@@ -915,6 +964,77 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
     return out
 
 
+def phase_ab(old_csrc):
+    """Old against new kernels in one process on one card: K3 and K4
+    built from ``old_csrc`` (a directory holding an earlier commit's
+    ``flash_attention.cu`` and ``mamba2_ssd.cu``, with any headers they
+    include) and from the checkout, each held against its plain version
+    and timed at the main paths' shapes through the same wrapper (the
+    old library swapped under it), in turns: old, new, new, old.
+    ``scaled_dot_product_attention`` is timed beside K3 as in phase 5."""
+    from pathlib import Path
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+    print(f"A/B: kernels of {old_csrc} against the checkout's", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    names = ("flash_attention", "mamba2_ssd")
+    old = _build.build_all(names, csrc=Path(old_csrc))
+    libs = {n: {"old": _build.open_library(n, old[n]), "new": _build.load(n)}
+            for n in names}
+    rng = np.random.default_rng(0)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def turns(name, fn, plain):
+        """Each build's max |got - plain| over the outputs, then times."""
+        want = plain()
+        row = {"old": [], "new": []}
+        for which in ("old", "new"):
+            with _build.swapped(name, libs[name][which]):
+                got = fn()
+            row[f"{which}_max_abs_err"] = [
+                float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        for which in ("old", "new", "new", "old"):
+            with _build.swapped(name, libs[name][which]):
+                row[which].append(time_ms(fn, flush))
+        return row
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .cuda().to(dtype) for s in ((4, 4096, 16, 128),
+                                               (4, 4113, 8, 128),
+                                               (4, 4113, 8, 128)))
+        row = {"kernel": "flash_attention", "shape": [4, 4096, 16, 128],
+               "kv": [4113, 8], "dtype": str(dtype),
+               **turns("flash_attention",
+                       lambda: flash_attention_cuda(q, k, v),
+                       lambda: ref.flash_attention_chunked(q, k, v))}
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+    for T in (512, 3):
+        x, dt, A, Bm, Cm, D, h0 = ssd_inputs(rng, 16, T, 80, 64, 1, 64,
+                                             torch.float32)
+        rows.append({"kernel": "mamba2_ssd", "shape": [16, T, 80, 64],
+                     "dtype": "torch.float32",
+                     **turns("mamba2_ssd",
+                             lambda: mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0),
+                             lambda: ref.mamba2_ssd_chunked(
+                                 x, dt, A, Bm, Cm, D, h0,
+                                 chunk=min(128, max(T, 8))))})
+    for r in rows:
+        print("  " + json.dumps(r), flush=True)
+    return rows
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -931,6 +1051,12 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        smi = nvidia_smi_line()
+        rows = phase_ab(os.path.abspath(sys.argv[2]))
+        print(smi)
+        print(json.dumps({"ab": rows}))
+        return 0
     t_start = time.monotonic()
     from repro_torch.core.engine import VDMSAsyncEngine
     from repro_torch.core.remote import TransportModel

@@ -1,14 +1,24 @@
-"""FlashAttention forward CUDA kernel (``csrc/flash_attention.cu``).
+"""FlashAttention forward CUDA kernel (``csrc/flash_attention.cu``) on
+Hopper's tensor cores; the operand type picks the route.
 
-One CTA per (64-row q tile, head, batch) walks 64-key tiles of K and V
-up to the causal edge with the running max, sum and output in
-registers: the logits tile is ``Q Kᵀ`` in fp32 FMA, masked with the
-finite ``-1e30`` of the JAX package's ``flash_vjp`` (padded keys, padded
-rows and, when causal, keys past ``q_offset + row``), and folded into
-the output by online softmax.  GQA reads kv head ``h // (H/Hkv)``;
-q, k and v go in through their batch and sequence strides.  The
-kernel also writes the log-sum-exp ``lse`` (B, Sq, H) for the
-recomputing backward.  The plain version is
+- bfloat16: ``wgmma``.  One CTA per (128-row q tile, head, batch): a
+  producer warp keeps 128-key tiles of K and V in flight by TMA, two
+  warpgroups of 64 rows take ``S = Q Kᵀ`` with both operands in shared
+  memory, then ``P`` (rounded to bf16) from registers against V.
+- float32: ``mma.sync`` in 3xTF32 (each operand split into two halves
+  rounded to TF32, about 22 bits of it).  One CTA per (64-row q tile, head, batch),
+  four warps of 16 rows, 64-key tiles (32 at D = 128) staged by
+  ``cp.async``.
+
+Both walk double-buffered key tiles up to the causal edge, with the
+running max, sum and output in registers, masked with the finite
+``-1e30`` of the JAX package's ``flash_vjp`` (padded keys and, when
+causal, keys past
+``q_offset + row``).  GQA reads kv head ``h // (H/Hkv)``; q, k and v go
+in through their batch and sequence strides, which with the base
+pointers must be 16-byte aligned (:func:`_build.strided` copies
+otherwise).  The kernel also writes the log-sum-exp ``lse`` (B, Sq, H)
+for the recomputing backward.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_chunked`.
 """
 from __future__ import annotations
@@ -83,8 +93,8 @@ def flash_attention_cuda(
         err = lib.repro_flash_attention(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), batch, Sq, Sk, H, Hkv, D,
-            q_offset, int(bool(causal)), scale, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1), stream)
+            q_offset, int(bool(causal)), scale, *_build.outer(q),
+            *_build.outer(k), *_build.outer(v), stream)
     _build.check(err, "flash_attention")
     launches.add()
     return out, lse

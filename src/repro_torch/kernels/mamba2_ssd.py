@@ -1,12 +1,17 @@
-"""Mamba2 SSD chunked-scan CUDA kernel (``csrc/mamba2_ssd.cu``).
+"""Mamba2 SSD chunked-scan CUDA kernel (``csrc/mamba2_ssd.cu``) on
+Hopper's tensor cores.
 
-One CTA per (batch, head) walks the chunks in order with the P x N fp32
-state in registers; per chunk it stages x, B and C in shared memory,
-builds the causal score rows ``(C Bᵀ ∘ L ∘ dt)`` 32 at a time, and
-writes ``y = scores · x + exp(la) C·h + D x`` before updating the
-state.  B and C are read by group — never repeated to heads — and x, B
-and C through their batch and time strides, so the model's slices of
-the in-projection go in without a copy.  The plain version is
+One CTA of four warps per (batch, head) walks the sequence in tiles of
+up to 32 steps with the P x N fp32 state in accumulator fragments; per
+tile it stages x, B and C by ``cp.async`` (the next tile in flight),
+and runs the four products ``C Bᵀ`` (causal blocks), ``(C Bᵀ ∘ L ∘
+dt) x``, ``exp(la) C hᵀ`` and the state update ``xᵀ diag(w) B`` as
+``mma.sync`` in 3xTF32 (each float32 operand as two halves rounded to
+TF32, about 22 bits; a bf16 operand is exact in TF32 and skips its
+cross term), then writes ``y = ... + D x``.  B and C
+are read by group — never repeated to heads — and x, B and C through
+their batch and time strides, so the model's slices of the
+in-projection go in without a copy.  The plain version is
 :func:`repro_torch.kernels.ref.mamba2_ssd_chunked`.
 """
 from __future__ import annotations
@@ -98,8 +103,7 @@ def mamba2_ssd_cuda(
             Bm.data_ptr(), Cm.data_ptr(),
             None if D is None else D.data_ptr(), state.data_ptr(),
             y.data_ptr(), h_out.data_ptr(), batch, T, H, P, G, N, chunk,
-            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-            Cm.stride(0), Cm.stride(1), stream)
+            *_build.outer(x), *_build.outer(Bm), *_build.outer(Cm), stream)
     _build.check(err, "mamba2_ssd")
     launches.add()
     return y, h_out

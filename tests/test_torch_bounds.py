@@ -1,0 +1,125 @@
+"""The yardstick of ``chip_smoke.py``: each kernel row's bound (the least
+time an H100 could take for the same work) from its shapes alone.
+
+``chip_smoke.bound`` takes the longest of three times: the bytes at
+3.35 TB/s, the matrix products at the tensor-core rate for the operand
+type (989 TF/s bf16; float32 as 3xTF32 at 495/3 TF/s) and the other
+operations at 67 TF/s outside the tensor cores.  The values pinned here
+are the rows of ``PERF.md`` §6, to the microsecond's thousandth.
+``chip_smoke`` imports only the standard library at its top level, so
+this runs on a host without a card.
+"""
+import pytest
+
+import chip_smoke as cs
+
+F32, BF16 = "torch.float32", "torch.bfloat16"
+
+
+def _attn(B, Sq, Sk, H, Hkv, D, q_offset, itemsize, dtype):
+    return cs.bound(*cs.attn_work(B, Sq, Sk, H, Hkv, D, q_offset, True,
+                                  itemsize), dtype)
+
+
+def _ssd(B, T, H, P, G, N, itemsize, dtype):
+    return cs.bound(*cs.ssd_work(B, T, H, P, G, N, itemsize), dtype)
+
+
+def _blur(shape, ksize):
+    nbytes, flops = cs.blur_work(shape, ksize)
+    return cs.bound(nbytes, 0, flops, F32)
+
+
+def _wkv(B, T, H, K, itemsize, dtype):
+    return cs.bound(*cs.wkv_work(B, T, H, K, K, itemsize), dtype)
+
+
+def _preprocess():
+    """K2 at the device backend's batch: 32 faces of 250x250 resized to
+    256x256 (bilinear) and cropped to 224x224 at (16, 16)."""
+    from repro_torch.kernels import preprocess as pp
+    ry, rx = pp._cropped_matrices(250, 250, 256, 256,
+                                  pp._canonical_method("bilinear"),
+                                  16, 16, 224, 224)
+    nbytes, flops = cs.preprocess_work(32, 250, 224, 224, ry.shape[0],
+                                       int((ry != 0).sum()),
+                                       int((rx != 0).sum()))
+    return cs.bound(nbytes, 0, flops, F32)
+
+
+@pytest.mark.parametrize("row,want_ms,want_by", [
+    # K3 at the long-context prefill: q (4,4096,16,128) against 4113
+    # slots of 8 kv heads, causal; 274.9 GFLOP of products
+    ("K3 f32", 1.666333, "products"),
+    ("K3 f32 at q_offset 3584", 0.390502, "products"),
+    ("K3 bf16", 0.278003, "products"),
+    # K4 at zamba2's prefill (16,512,80,64), G=1, N=64: its 384 MB
+    # outlast the 10.9 GFLOP of products counted at chunk length 1
+    ("K4 f32", 0.114718, "bytes"),
+    ("K4 f32 at G=8", 0.123482, "bytes"),
+    ("K4 bf16", 0.064010, "bytes"),
+    ("K4 f32 at the UDF's 3 tokens", 0.013119, "bytes"),
+    # K1 and K2 run no matrix product, and K5's readout and update (4.3
+    # GFLOP of products) and decay take less than its bytes
+    ("K1 (32,224,224,3) k9", 0.011503, "bytes"),
+    ("K1 (1,250,250,3) k5", 0.000448, "bytes"),
+    ("K1 (1,1080,1920,3) k5", 0.014856, "bytes"),
+    ("K2 (32,250,250,3)", 0.013049, "bytes"),
+    ("K5 f32", 0.105173, "bytes"),
+    ("K5 f32 at the UDF's 3 tokens", 0.002800, "bytes"),
+    ("K5 bf16", 0.065108, "bytes"),
+])
+def test_bound_of_each_kernel_row(row, want_ms, want_by):
+    got = {
+        "K3 f32": lambda: _attn(4, 4096, 4113, 16, 8, 128, 0, 4, F32),
+        "K3 f32 at q_offset 3584": lambda: _attn(4, 512, 4113, 16, 8, 128,
+                                                 3584, 4, F32),
+        "K3 bf16": lambda: _attn(4, 4096, 4113, 16, 8, 128, 0, 2, BF16),
+        "K4 f32": lambda: _ssd(16, 512, 80, 64, 1, 64, 4, F32),
+        "K4 f32 at G=8": lambda: _ssd(16, 512, 80, 64, 8, 64, 4, F32),
+        "K4 bf16": lambda: _ssd(16, 512, 80, 64, 1, 64, 2, BF16),
+        "K4 f32 at the UDF's 3 tokens": lambda: _ssd(16, 3, 80, 64, 1, 64,
+                                                     4, F32),
+        "K1 (32,224,224,3) k9": lambda: _blur((32, 224, 224, 3), 9),
+        "K1 (1,250,250,3) k5": lambda: _blur((1, 250, 250, 3), 5),
+        "K1 (1,1080,1920,3) k5": lambda: _blur((1, 1080, 1920, 3), 5),
+        "K2 (32,250,250,3)": _preprocess,
+        "K5 f32": lambda: _wkv(16, 512, 32, 64, 4, F32),
+        "K5 f32 at the UDF's 3 tokens": lambda: _wkv(8, 3, 32, 64, 4, F32),
+        "K5 bf16": lambda: _wkv(16, 512, 32, 64, 2, BF16),
+    }[row]()
+    assert got[1] == want_by
+    assert got[0] == pytest.approx(want_ms, abs=5e-7)
+
+
+def test_products_are_priced_at_the_tensor_core_rate():
+    """The same work is bound three ways: by bytes, by products at the
+    type's tensor-core rate, by other operations at the fp32 rate."""
+    assert cs.bound(3.35e12, 0, 0, F32) == (1e3, "bytes")
+    assert cs.bound(0, 495e12 / 3, 0, F32) == pytest.approx((1e3, "products"))
+    assert cs.bound(0, 989e12, 0, BF16) == pytest.approx((1e3, "products"))
+    assert cs.bound(0, 0, 67e12, BF16) == pytest.approx((1e3, "other"))
+    # the K3 f32 row's products: 274.9 GFLOP, 4.10 ms at the fp32 FMA rate
+    # of the earlier count, 1.67 ms as 3xTF32
+    _, products, other = cs.attn_work(4, 4096, 4113, 16, 8, 128, 0, True, 4)
+    assert products == pytest.approx(274.9e9, rel=1e-3)
+    assert other < products / 100
+
+
+def test_scans_count_their_products_per_step():
+    """SSD's chunked form is exact at any chunk length and its products
+    grow with it, so they are counted at length 1: per step C·B and its
+    x, the readout and the state update.  WKV6's readout and update are
+    products the same way; its decay is not."""
+    B, T, H, P, N = 16, 512, 80, 64, 64
+    _, products, other = cs.ssd_work(B, T, H, P, 1, N, 4)
+    assert products == (2 * N + 2 * P + 4 * N * P) * B * T * H
+    assert products == pytest.approx(10.905e9, rel=1e-4)
+    # the chunked form at the kernel's 32-step tiles needs more: the
+    # causal half of C Bᵀ and its x over 528 pairs a tile
+    pairs = 32 * 33 // 2
+    tiled = (pairs * 2 * (N + P) + 32 * 4 * N * P) * (T // 32) * B * H
+    assert tiled > products
+    _, products, other = cs.wkv_work(16, 512, 32, 64, 64, 2)
+    assert products == 4 * 64 * 64 * 16 * 512 * 32
+    assert other == (64 * 64 + 3 * 64 + 2 * 64) * 16 * 512 * 32

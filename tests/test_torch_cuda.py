@@ -420,3 +420,131 @@ def test_reduced_model_on_the_card_goes_through_its_kernel(cuda, arch,
     out = run(arch, reduced=True, requests=2, prompt_len=S, gen=2)
     assert launches.count > before
     assert out["generated"].shape == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-mma.sync-3xTF32", "bf16-wgmma"])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,q_offset,causal", [
+    (1, 130, 130, 8, 8, 16, 0, True),      # D 16, group 1, 130 rows
+    (2, 130, 130, 4, 2, 32, 0, True),      # D 32, group 2
+    (1, 130, 130, 8, 1, 64, 0, True),      # D 64, group 8
+    (1, 130, 130, 16, 2, 128, 0, True),    # D 128, group 8
+    (2, 1, 40, 4, 2, 64, 39, True),        # one row at the end of 40 keys
+    (1, 40, 40, 2, 1, 128, 0, True),       # fewer keys than one tile
+    (1, 130, 40, 4, 4, 32, 0, False),      # the same, not causal
+    (2, 77, 200, 8, 4, 128, 123, True),    # q_offset, ragged rows
+])
+def test_flash_kernel_tilings(cuda, dtype, B, Sq, Sk, H, Hkv, D, q_offset,
+                              causal):
+    """Both routes of K3 at every head size, group sizes 1, 2 and 8, row
+    counts that are no multiple of either q tile (64 f32, 128 bf16), key
+    counts shorter than one key tile, and an offset that puts the causal
+    edge inside a tile: the masks work in each accumulator layout."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     launches)
+    q, k, v = _attn(Sq * D + Sk, B, Sq, Sk, H, Hkv, D, cuda, dtype)
+    before = launches.count
+    out, lse = flash_attention_cuda(q, k, v, q_offset=q_offset,
+                                    causal=causal)
+    out_p, lse_p = ref.flash_attention_chunked(q, k, v, causal=causal,
+                                               q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert bool(torch.isfinite(out.float()).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, out_p, atol=FLASH_TOL, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), out_p.float(),
+                                   atol=FLASH_BF16_ATOL, rtol=FLASH_BF16_RTOL)
+    assert float((lse - lse_p).abs().max()) <= FLASH_LSE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_aligned_slices_in_place(cuda):
+    """q, k and v as slices of one packed qkv projection go in uncopied
+    (16-byte aligned strides); a slice one value off is copied first."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    B, S, H, Hkv, D = 2, 150, 8, 2, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        for extra in (0, 1):
+            rng = np.random.default_rng(extra)
+            packed = torch.from_numpy(rng.standard_normal(
+                (B, S, (H + 2 * Hkv) * D + extra)).astype(np.float32)).to(
+                    cuda).to(dtype)
+            q, k, v = torch.split(packed[..., extra:],
+                                  [H * D, Hkv * D, Hkv * D], dim=-1)
+            q, k, v = (q.reshape(B, S, H, D), k.reshape(B, S, Hkv, D),
+                       v.reshape(B, S, Hkv, D))
+            assert (_build.strided(k, D).data_ptr() == k.data_ptr()) \
+                == (extra == 0)
+            out, lse = flash_attention_cuda(q, k, v)
+            out_p, lse_p = ref.flash_attention_chunked(q, k, v)
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, out_p, atol=FLASH_TOL, rtol=0)
+            else:
+                torch.testing.assert_close(out.float(), out_p.float(),
+                                           atol=FLASH_BF16_ATOL,
+                                           rtol=FLASH_BF16_RTOL)
+            assert float((lse - lse_p).abs().max()) <= FLASH_LSE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,G,N,chunk,dtype", [
+    (2, 100, 4, 16, 2, 8, 16, torch.float32),     # chunk 16, ragged tail
+    (1, 77, 3, 40, 3, 24, 32, torch.float32),     # P 40, N 24, chunk 32
+    (2, 150, 8, 64, 8, 64, 64, torch.float32),    # G 8, chunk 64, ragged
+    (2, 300, 16, 64, 4, 64, 128, torch.float32),  # chunk 128, ragged
+    (4, 3, 8, 64, 1, 64, 128, torch.float32),     # T 3
+    (1, 50, 2, 12, 1, 6, 16, torch.float32),      # rows of 24 bytes: no
+                                                  # 16-byte copies
+    (2, 150, 8, 64, 8, 64, 64, torch.bfloat16),
+    (1, 77, 3, 40, 3, 24, 32, torch.bfloat16),
+    (4, 3, 8, 64, 1, 64, 128, torch.bfloat16),
+])
+def test_ssd_kernel_tilings(cuda, B, T, H, P, G, N, chunk, dtype):
+    """K4's tiles of up to 32 steps under every chunk the wrapper takes,
+    grouped B/C, P and N that are no multiple of 16, and bf16 inputs
+    (exact in TF32: C Bᵀ in one pass)."""
+    from repro_torch.kernels.mamba2_ssd import launches, mamba2_ssd_cuda
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(T + P + N, B, T, H, P, G, N, cuda,
+                                          dtype)
+    before = launches.count
+    y, h = mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0, chunk=chunk)
+    y_p, h_p = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, h0,
+                                      chunk=min(chunk, max(T, 8)))
+    torch.cuda.synchronize()
+    assert launches.count == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    if dtype == torch.float32:
+        assert float((y - y_p).abs().max()) <= SSD_TOL
+        assert float((h - h_p).abs().max()) <= SSD_TOL
+    else:
+        torch.testing.assert_close(y.float(), y_p.float(), atol=SSD_BF16_ATOL,
+                                   rtol=SSD_BF16_RTOL)
+        torch.testing.assert_close(h, h_p, atol=SSD_BF16_ATOL,
+                                   rtol=SSD_BF16_RTOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_bf16_strided_slices(cuda):
+    """bf16 x, B and C as slices of one packed in-projection, read in
+    place, against the plain version on the same slices."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+    Bsz, T, H, P, G, N = 2, 130, 8, 64, 1, 64
+    xs, dt, A, Bm, Cm, D, h0 = _ssd_inputs(7, Bsz, T, H, P, G, N, cuda,
+                                           torch.bfloat16)
+    packed = torch.cat([xs.reshape(Bsz, T, H * P), Bm.reshape(Bsz, T, N),
+                        Cm.reshape(Bsz, T, N)], dim=-1)
+    xv, bv, cv = torch.split(packed, [H * P, N, N], dim=-1)
+    xv, bv, cv = (xv.reshape(Bsz, T, H, P), bv.reshape(Bsz, T, G, N),
+                  cv.reshape(Bsz, T, G, N))
+    assert not xv.is_contiguous()
+    assert _build.strided(xv, P).data_ptr() == xv.data_ptr()
+    y, h = mamba2_ssd_cuda(xv, dt, A, bv, cv, D, h0)
+    y_p, h_p = ref.mamba2_ssd_chunked(xs, dt, A, Bm, Cm, D, h0)
+    torch.testing.assert_close(y.float(), y_p.float(), atol=SSD_BF16_ATOL,
+                               rtol=SSD_BF16_RTOL)
+    torch.testing.assert_close(h, h_p, atol=SSD_BF16_ATOL, rtol=SSD_BF16_RTOL)

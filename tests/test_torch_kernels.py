@@ -474,3 +474,65 @@ def test_wrappers_refuse_devices_without_a_path():
         tflash.flash_attention(q.to("meta"), kk, vv)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tops.flash_attention(q, kk, vv, impl="no-such-route")
+
+
+def _packed(width, dtype=torch.float32, B=2, T=9, offset=0):
+    """A packed projection (B, T, width) as the models hand slices of it
+    over, optionally starting ``offset`` values into its storage."""
+    flat = torch.zeros(B * T * width + offset, dtype=dtype)
+    return flat[offset:].view(B, T, width)
+
+
+@pytest.mark.parametrize("case,passes", [
+    # the model's in-projection: x (8 heads of 64) then B and C (64 each),
+    # float32 rows of 2,560 bytes: every slice starts and steps on 16 bytes
+    ("x slice", True), ("B slice", True), ("C slice", True),
+    # a bf16 packing whose rows are 1,288 bytes: steps off 16 bytes
+    ("bf16 rows of 1288 bytes", False),
+    # a slice that starts one float past a 16-byte boundary
+    ("slice at an odd float", False),
+    # a contiguous tensor whose storage starts off 16 bytes: a fresh copy
+    ("contiguous, base off 16 bytes", False),
+    # heads out of order: not the kernels' layout
+    ("heads transposed", False),
+    # size-1 batch and sequence: their strides are never stepped
+    ("one token of one sequence", True),
+])
+def test_strided_passes_aligned_slices_and_copies_the_rest(case, passes):
+    """``_build.strided`` hands a tensor to the K3/K4 kernels uncopied only
+    when their 16-byte ``cp.async`` staging can read it in place: unit
+    feature stride, head stride ``inner``, and a base pointer and batch
+    and sequence strides on 16 bytes (a size-1 dimension's stride is
+    never stepped and passed as 0)."""
+    from repro_torch.kernels import _build
+    H, P, N = 8, 64, 64
+    if case in ("x slice", "B slice", "C slice"):
+        p = _packed(H * P + 2 * N)
+        xv, bv, cv = torch.split(p, [H * P, N, N], dim=-1)
+        t, inner = {"x slice": (xv.reshape(2, 9, H, P), P),
+                    "B slice": (bv.reshape(2, 9, 1, N), N),
+                    "C slice": (cv.reshape(2, 9, 1, N), N)}[case]
+    elif case == "bf16 rows of 1288 bytes":
+        p = _packed(H * P + 2 * N + 4, torch.bfloat16)
+        t, inner = p[..., :H * P].reshape(2, 9, H, P), P
+    elif case == "slice at an odd float":
+        p = _packed(H * P + 2 * N + 4)
+        t, inner = p[..., 1:1 + N].reshape(2, 9, 1, N), N
+    elif case == "contiguous, base off 16 bytes":
+        t, inner = _packed(H * P, offset=1).view(2, 9, H, P), P
+        assert t.is_contiguous()
+    elif case == "heads transposed":
+        t, inner = torch.zeros(2, 9, P, H).transpose(2, 3), P
+    else:
+        t, inner = torch.zeros(1, 1, 4 * P + 1)[..., :H * P // 2].reshape(
+            1, 1, H // 2, P), P
+        t = t.as_strided(t.shape, (7, 3, P, 1))
+    assert t.data_ptr() % 16 == 0 or not passes
+    got = _build.strided(t, inner)
+    assert (got.data_ptr() == t.data_ptr()) == passes
+    assert torch.equal(got, t)
+    assert got.stride(3) == 1 and (got.shape[2] == 1
+                                   or got.stride(2) == inner)
+    assert got.data_ptr() % 16 == 0
+    item = got.element_size()
+    assert all(s * item % 16 == 0 for s in _build.outer(got))
