@@ -19,7 +19,7 @@ Phases (any failed check exits non-zero, before the result line):
    the main paths, with times, bounds (the longest of the bytes at the
    HBM rate, the matrix products at the tensor-core rate for their type
    and the other operations at the fp32 rate) and a library yardstick;
-   K3's and K4's rows name their tensor-core route;
+   K3's, K4's and K5's rows name their tensor-core route;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
@@ -44,13 +44,13 @@ launches, which only compare kernels with their plain versions, count
 in none.  The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --ab DIR`` instead holds K3 and K4 built from
-an earlier commit's sources in DIR, and the checkout's, against their
-plain versions and times them in turns in one process (old, new, new,
-old), and prints ``{"ab": [...]}``: put
-the parent's ``flash_attention.cu`` and ``mamba2_ssd.cu`` (and any
-header they include) in a git-ignored directory, for example with
-``git archive``.
+``python3 chip_smoke.py --ab DIR [KERNEL ...]`` instead holds the named
+kernels (by default every kernel whose sources in DIR differ from the
+checkout's: K1, K3, K4 or K5) built from an earlier commit's sources in
+DIR, and the checkout's, against their plain versions and times them in
+turns in one process (old, new, new, old), and prints ``{"ab": [...]}``:
+put the parent's ``csrc`` files in a git-ignored directory, for example
+with ``git archive``.
 """
 from __future__ import annotations
 
@@ -75,7 +75,8 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 PRODUCT_FLOP_S = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
 
-K1_TOL = 1e-5       # blur kernel vs plain, absolute (same tap order)
+# the blur kernel equals its plain version bit for bit (same taps, same
+# order, products and sums rounded separately)
 K2_TOL = 1e-4       # fused preprocess vs composed ops, absolute
 PIPE_TOL = 1e-4     # whole-pipeline comparisons, absolute
 NATIVE_TOL = 1e-5   # native blur on the card vs plain on the host
@@ -298,12 +299,14 @@ def phase_device(VDMSAsyncEngine, TransportModel, faces, launches,
                           transport=transport, dispatch="native")
     try:
         ingest_faces(eng, faces, "lfw")
+        before = {k: c.count for k, c in launches.items()}
         nat_res, nat_s = run_query(eng, query)
+        nat_rose = {k: c.count - before[k] for k, c in launches.items()}
     finally:
         eng.shutdown()
     dev = stats["device"]
     print(f"  device arm {fmt(dev_s)}; all-native arm {fmt(nat_s)}; "
-          f"launches {rose}; placements "
+          f"launches {rose}, all-native arm {nat_rose}; placements "
           f"{stats.get('placements')}; fused_segments "
           f"{dev['fused_segments']}, groups {dev['groups_run']}, "
           f"compiles {dev['compiles']}", flush=True)
@@ -319,7 +322,8 @@ def phase_device(VDMSAsyncEngine, TransportModel, faces, launches,
     check(err <= PIPE_TOL,
           f"device arm vs all-native on the card: {err:.3g} <= {PIPE_TOL}")
     return {"device_arm": dev_s, "native_arm": nat_s,
-            "launches": rose, "max_abs_err_vs_native": err,
+            "launches": rose, "native_launches": nat_rose,
+            "max_abs_err_vs_native": err,
             "fused_segments": dev["fused_segments"],
             "groups_run": dev["groups_run"], "compiles": dev["compiles"],
             "placements": stats.get("placements")}
@@ -457,6 +461,15 @@ def preprocess_work(n, size, out_h, out_w, crop_rows, nnz_y, nnz_x, c=3):
     return nbytes, flops
 
 
+def offset_mask(Sq, Sk, q_offset, device="cuda"):
+    """The causal mask of a prefill of ``Sq`` rows at ``q_offset`` into a
+    cache of ``Sk`` slots, as ``scaled_dot_product_attention``'s boolean
+    ``attn_mask``: row i sees key j when j <= q_offset + i."""
+    import torch
+    return (torch.arange(Sk, device=device)[None, :]
+            <= q_offset + torch.arange(Sq, device=device)[:, None])
+
+
 def bound(nbytes, products, other, dtype):
     """Least time in ms and what sets it, the longest of three: the bytes
     at the HBM rate (``"bytes"``), the matrix products at the
@@ -494,7 +507,8 @@ def phase_kernels():
         want = gaussian_blur_ref(x, ksize, sigma)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= K1_TOL, f"K1 {shape} k{ksize}: max_abs_err {err:.3g} <= {K1_TOL}")
+        check(torch.equal(got, want),
+              f"K1 {shape} k{ksize}: equal to the plain version (max_abs_err {err:.3g})")
         c = shape[-1]
         taps = torch.from_numpy(gaussian_kernel_1d(ksize, sigma)).cuda()
         wy = taps.view(1, 1, ksize, 1).expand(c, 1, ksize, 1).contiguous()
@@ -645,6 +659,8 @@ def phase_kernels():
             err = held(name, (y, s), (y_p, s_p), K5_BF16_ATOL, K5_BF16_RTOL)
         row = {"kernel": "rwkv6_scan", "shape": [B, T, H, K],
                "dtype": str(dtype), "decay_shift": shift, "max_abs_err": err,
+               "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
+                         "mma.sync 3xTF32, bf16 v exact (2 passes)"),
                # the reference's clamp: strong decays underflow w to 0
                "log_w_median": float(torch.log(w.clamp_min(1e-30)).median())}
         if not timed:
@@ -713,22 +729,30 @@ def phase_kernels():
                          else "wgmma bf16"),
                "bytes": nbytes, "flops": flops, "products": products,
                "bound_ms": bound_ms, "bound_by": bound_by}
-        if library:  # top-left causal mask: the same function at offset 0
+        if library:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            if q_offset:  # is_causal would align its mask top-left
+                kw, call = dict(attn_mask=offset_mask(Sq, Sk, q_offset)), (
+                    f"F.scaled_dot_product_attention(a ({Sq}, {Sk}) boolean "
+                    "attn_mask, enable_gqa) on (B,H,S,D) views")
+            else:  # top-left causal mask: the same function at offset 0
+                kw, call = dict(is_causal=causal), (
+                    "F.scaled_dot_product_attention(is_causal, enable_gqa) "
+                    "on (B,H,S,D) views")
 
             def lib():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True, **kw)
 
             row["library_max_abs_err"] = float(
                 (lib().transpose(1, 2).float() - o_p.float()).abs().max())
             row["library_ms"] = time_ms(lib, flush)
-            row["library_call"] = ("F.scaled_dot_product_attention(is_causal, "
-                                   "enable_gqa) on (B,H,S,D) views")
+            row["library_call"] = call
         return row
 
     entries["gaussian_blur"] = blur_case((32, 224, 224, 3), 9, 2.0)
     rows.append(entries["gaussian_blur"])
+    rows.append(blur_case((1, 224, 224, 3), 9, 2.0))
     rows.append(blur_case((1, 250, 250, 3), 5, 1.5))
     rows.append(blur_case((1, 1080, 1920, 3), 5, 1.5))
     entries["fused_resize_crop_normalize"] = preprocess_case(
@@ -755,6 +779,9 @@ def phase_kernels():
     rows.append(wkv_case(16, 512, 32, 64, shift=STRONG_DECAY_SHIFT,
                          plain=ref.rwkv6_scan_ref, timed=False,
                          what=" strong decay"))
+    # lengths across the kernel's 16-step sub-chunks
+    for T in (16, 17, 33):
+        rows.append(wkv_case(8, T, 32, 64, timed=False))
     # K3 at the long-context prefill (4 x 4096 rows of qwen3's 16 heads of
     # 128 against a 4113-slot cache of 8 kv heads), in bfloat16, a
     # 512-row prefill at q_offset 3584 into that cache, a non-causal case
@@ -764,7 +791,8 @@ def phase_kernels():
     rows.append(entries["flash_attention"])
     rows.append(attn_case(4, 4096, 4113, 16, 8, 128, dtype=torch.bfloat16,
                           library=True))
-    rows.append(attn_case(4, 512, 4113, 16, 8, 128, q_offset=3584))
+    rows.append(attn_case(4, 512, 4113, 16, 8, 128, q_offset=3584,
+                          library=True))
     rows.append(attn_case(2, 64, 192, 6, 2, 32, causal=False))
     rows.append(attn_case(1, 100, 100, 2, 1, 64))
     rows.append(attn_case(2, 1100, 1105, 4, 2, 16))
@@ -964,14 +992,32 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
     return out
 
 
-def phase_ab(old_csrc):
-    """Old against new kernels in one process on one card: K3 and K4
-    built from ``old_csrc`` (a directory holding an earlier commit's
-    ``flash_attention.cu`` and ``mamba2_ssd.cu``, with any headers they
-    include) and from the checkout, each held against its plain version
-    and timed at the main paths' shapes through the same wrapper (the
-    old library swapped under it), in turns: old, new, new, old.
-    ``scaled_dot_product_attention`` is timed beside K3 as in phase 5."""
+def changed_kernels(old_csrc) -> list[str]:
+    """The kernels whose sources in ``old_csrc`` differ from the
+    checkout's: the kernel's ``.cu`` file or a header it includes."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    old, out = Path(old_csrc), []
+    for name, (source, _) in _build._DECLARED.items():
+        files = [source] + re.findall(r'#include "([^"]+)"',
+                                      (_build.CSRC / source).read_text())
+        if any(not (old / f).exists()
+               or (old / f).read_bytes() != (_build.CSRC / f).read_bytes()
+               for f in files):
+            out.append(name)
+    return out
+
+
+def phase_ab(old_csrc, names=None):
+    """Old against new kernels in one process on one card: the kernels
+    ``names`` (by default every kernel whose sources differ, see
+    :func:`changed_kernels`) built from ``old_csrc`` (a directory holding
+    an earlier commit's ``csrc`` files) and from the checkout, each held
+    against its plain version and timed at the main paths' shapes through
+    the same wrapper (the old library swapped under it), in turns: old,
+    new, new, old.  ``scaled_dot_product_attention`` is timed beside K3
+    as in phase 5."""
     from pathlib import Path
     import numpy as np
     import torch
@@ -979,10 +1025,12 @@ def phase_ab(old_csrc):
     from repro_torch.kernels import _build
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
-    print(f"A/B: kernels of {old_csrc} against the checkout's", flush=True)
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    names = list(names) if names else changed_kernels(old_csrc)
+    print(f"A/B: {names} of {old_csrc} against the checkout's", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    names = ("flash_attention", "mamba2_ssd")
     old = _build.build_all(names, csrc=Path(old_csrc))
     libs = {n: {"old": _build.open_library(n, old[n]), "new": _build.load(n)}
             for n in names}
@@ -1004,34 +1052,66 @@ def phase_ab(old_csrc):
                 row[which].append(time_ms(fn, flush))
         return row
 
+    def flash_rows():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.from_numpy(rng.standard_normal(s)
+                                        .astype(np.float32)).cuda().to(dtype)
+                       for s in ((4, 4096, 16, 128), (4, 4113, 8, 128),
+                                 (4, 4113, 8, 128)))
+            row = {"kernel": "flash_attention", "shape": [4, 4096, 16, 128],
+                   "kv": [4113, 8], "dtype": str(dtype),
+                   **turns("flash_attention",
+                           lambda: flash_attention_cuda(q, k, v),
+                           lambda: ref.flash_attention_chunked(q, k, v))}
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+            yield row
+
+    def ssd_rows():
+        for T in (512, 3):
+            x, dt, A, Bm, Cm, D, h0 = ssd_inputs(rng, 16, T, 80, 64, 1, 64,
+                                                 torch.float32)
+            yield {"kernel": "mamba2_ssd", "shape": [16, T, 80, 64],
+                   "dtype": "torch.float32",
+                   **turns("mamba2_ssd",
+                           lambda: mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0),
+                           lambda: ref.mamba2_ssd_chunked(
+                               x, dt, A, Bm, Cm, D, h0,
+                               chunk=min(128, max(T, 8))))}
+
+    def wkv_rows():
+        for B, T, dtype in ((16, 512, torch.float32),
+                            (16, 512, torch.bfloat16), (8, 3, torch.float32)):
+            r, k, v, w, u, s0 = wkv_inputs(rng, B, T, 32, 64, dtype)
+            yield {"kernel": "rwkv6_scan", "shape": [B, T, 32, 64],
+                   "dtype": str(dtype),
+                   **turns("rwkv6_scan",
+                           lambda: rwkv6_scan_cuda(r, k, v, w, u, s0),
+                           lambda: ref.rwkv6_chunked(r, k, v, w, u, s0))}
+
+    def blur_rows():
+        for shape, ksize, sigma in (((32, 224, 224, 3), 9, 2.0),
+                                    ((1, 224, 224, 3), 9, 2.0),
+                                    ((1, 250, 250, 3), 5, 1.5),
+                                    ((1, 1080, 1920, 3), 5, 1.5)):
+            x = torch.from_numpy(rng.uniform(0, 1, shape)
+                                 .astype(np.float32)).cuda()
+            yield {"kernel": "gaussian_blur", "shape": list(shape),
+                   "ksize": ksize,
+                   **turns("gaussian_blur",
+                           lambda: (gaussian_blur_cuda(x, ksize, sigma),),
+                           lambda: (ref.gaussian_blur_ref(x, ksize, sigma),))}
+
+    cases = {"flash_attention": flash_rows, "mamba2_ssd": ssd_rows,
+             "rwkv6_scan": wkv_rows, "gaussian_blur": blur_rows}
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-                   .cuda().to(dtype) for s in ((4, 4096, 16, 128),
-                                               (4, 4113, 8, 128),
-                                               (4, 4113, 8, 128)))
-        row = {"kernel": "flash_attention", "shape": [4, 4096, 16, 128],
-               "kv": [4113, 8], "dtype": str(dtype),
-               **turns("flash_attention",
-                       lambda: flash_attention_cuda(q, k, v),
-                       lambda: ref.flash_attention_chunked(q, k, v))}
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-        rows.append(row)
-        del q, k, v, qt, kt, vt
-    for T in (512, 3):
-        x, dt, A, Bm, Cm, D, h0 = ssd_inputs(rng, 16, T, 80, 64, 1, 64,
-                                             torch.float32)
-        rows.append({"kernel": "mamba2_ssd", "shape": [16, T, 80, 64],
-                     "dtype": "torch.float32",
-                     **turns("mamba2_ssd",
-                             lambda: mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, h0),
-                             lambda: ref.mamba2_ssd_chunked(
-                                 x, dt, A, Bm, Cm, D, h0,
-                                 chunk=min(128, max(T, 8))))})
-    for r in rows:
-        print("  " + json.dumps(r), flush=True)
+    for name in names:
+        if name not in cases:
+            raise SmokeFailure(f"--ab has no cases for {name}")
+        for row in cases[name]():
+            print("  " + json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 
@@ -1051,9 +1131,9 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+    if len(sys.argv) >= 3 and sys.argv[1] == "--ab":
         smi = nvidia_smi_line()
-        rows = phase_ab(os.path.abspath(sys.argv[2]))
+        rows = phase_ab(os.path.abspath(sys.argv[2]), sys.argv[3:])
         print(smi)
         print(json.dumps({"ab": rows}))
         return 0

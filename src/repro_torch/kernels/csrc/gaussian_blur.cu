@@ -6,105 +6,192 @@
 // reflect-padded copies of the image before one program per (image, row
 // band) blurs a band plus the next one.
 //
-// What bounds it on an H100: memory.  Each output value costs 2*ksize
-// flops per pass and 8 bytes of traffic (one read, one write), far below
-// the card's ~20 flop/byte balance point for fp32, so the floor is reading
-// the image once and writing it once at 3.35 TB/s.
+// What bounds it on an H100: memory for a batch, latency for one image.
+// Each output value costs 2*ksize flops per pass and 8 bytes of traffic
+// (one read, one write), far below the card's ~20 flop/byte balance
+// point for fp32, so a batch's floor is reading the images once and
+// writing them once at 3.35 TB/s (11.5 us at (32,224,224,3)).  The engine
+// blurs most images one at a time (IQ3 and the all-native arm: one
+// 250x250 or 224x224 image a launch), where the bytes take under half a
+// microsecond and what counts is how many SMs work and how long each
+// waits on its loads.
 //
-// What the design does about it: the reflect-101 indexing happens while a
-// CTA loads its tile, so the image is read straight from the caller's
-// tensor and no padded copy is written.  One CTA owns one
-// TILE_H x TILE_W output tile of one image; it stages the tile plus its
-// ksize-1 halo in shared memory, runs the vertical taps into a second shared
-// buffer, then the horizontal taps from there, so every input value is
-// read from device memory about (1 + (ksize-1)/TILE)^2 times (1.27 times
-// at ksize 5) and every output value written once.  Tiling the width too
-// keeps the shared footprint independent of the image width (a 1080p row
-// of C=3 floats alone is 23 KB).  The block is 32 x 8 threads: a warp walks
-// one tile row, so loads and stores are coalesced, and the reflected
-// source row and column offsets are computed once per tile into shared
-// memory, so the inner loops do no integer division.  Taps ride in the
-// parameter block.  Products and sums are rounded separately
-// (__fmul_rn/__fadd_rn, no contraction to FMA) in tap order, so the result
-// matches the plain PyTorch version bit for bit.
+// What the design does about it: a CTA owns one strip of SH output rows
+// by one segment of the row (a run of W*C floats, channels interleaved),
+// and the host sizes both by the image: segments narrow and strips
+// shorten until one image launches at least 132 CTAs (a 224x224 image at
+// k9: 3 segments x 56 strips), while a batch keeps 8-row strips.  Each
+// thread owns one float column of the segment or of its halo of pad*C
+// floats a side, walks down the strip and keeps the vertical window of
+// ksize input rows in registers, rolling it by one row a step, with the
+// next ROWS rows' loads in flight a whole group ahead; so each input row
+// is read from device memory once per strip (plus the ksize-1 halo rows),
+// in loads that are coalesced across the warp.  Reflect-101 is computed
+// in the kernel, once per row for the row index and once per thread for
+// a column past a left or right edge (the same in every row); no padded
+// copy is written and the inner loops do no division.  Every ROWS
+// vertical results go into a double-buffered shared row buffer with
+// their halo, one barrier per group, and the horizontal taps read from
+// there.  Wider units measured slower on an H100 (700 W): 4 floats a
+// thread (16-byte loads where the row allows) took 0.074 ms at
+// (32,224,224,3) k9 and 2 floats 0.052, one float 0.050 (more threads, a
+// quarter of the registers); 8-row strips took 0.038 there against 16
+// rows' 0.040.  The window is indexed statically: ksize 3..15 odd have their own
+// instantiation, other sizes up to 15 and 16..63 take a bucket with the
+// tap count at run time.  Products and sums are rounded separately
+// (__fmul_rn/__fadd_rn, no contraction to FMA), vertical pass first,
+// taps in order, so the result equals the plain PyTorch version bit for
+// bit.  Taps ride in the parameter block.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 32;
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
 constexpr int MAX_K = 63;
+constexpr int THREADS = 256;       // one float column of a segment each
+constexpr int ROWS = 4;            // vertical rows per barrier, loaded ahead
+constexpr int BATCH_ROWS = 8;      // a strip's rows where the launch fills the card
+constexpr int TARGET_CTAS = 132;   // one image should fill every SM
 
 struct Taps {
   float v[MAX_K];
 };
 
+struct Geometry {
+  int H, W, C, K, pad;
+  int rowf;   // W * C floats
+  int hp;     // halo a side in floats: pad * C
+  int segw;   // output floats per segment
+  int nq;     // columns of a segment with its halo: segw + 2 * hp
+  int sh;     // output rows per strip
+};
+
+// reflect-101 of index i into [0, n), repeated as numpy.pad does
 __device__ __forceinline__ int reflect101(int i, int n) {
+  if (i >= 0 && i < n) return i;
   if (n == 1) return 0;
   const int period = 2 * (n - 1);
   i = abs(i) % period;
   return i < n ? i : period - i;
 }
 
-__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y)
+// KMAX: the window's static size; EXACT: ksize == KMAX (else g.K <= KMAX
+// taps, the rest predicated off)
+template <int KMAX, bool EXACT>
+__global__ void __launch_bounds__(THREADS)
 blur_kernel(const float* __restrict__ in, float* __restrict__ out,
-            int H, int W, int C, Taps ky, Taps kx, int K) {
-  extern __shared__ float smem[];
-  const int pad = K / 2;
-  const int x0 = blockIdx.x * TILE_W;
-  const int y0 = blockIdx.y * TILE_H;
-  const int n = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * BLOCK_X + tx;
-  const int tile_rows = TILE_H + K - 1;
-  const int row_len = (TILE_W + K - 1) * C;  // tile row, halo included
-  float* tile = smem;                         // tile_rows x row_len
-  float* vert = tile + tile_rows * row_len;   // TILE_H x row_len
-  int* src_row = reinterpret_cast<int*>(vert + TILE_H * row_len);
-  int* src_col = src_row + tile_rows;
-  const size_t img_len = (size_t)H * W * C;
-  const float* img = in + n * img_len;
+            Geometry g, Taps ky, Taps kx) {
+  __shared__ float vbuf[2][ROWS][THREADS];
+  const int K = EXACT ? KMAX : g.K;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int x0f = blockIdx.x * g.segw;             // first output float
+  const int y0 = blockIdx.y * g.sh;
+  const size_t img_len = (size_t)g.H * g.rowf;
+  const float* img = in + blockIdx.z * img_len;
+  float* dst = out + blockIdx.z * img_len + x0f;
+  const int rows_out = min(g.sh, g.H - y0);
+  const int seg_out = min(g.segw, g.rowf - x0f);
+  const bool owner = tid < g.nq;
 
-  for (int r = tid; r < tile_rows; r += BLOCK_X * BLOCK_Y)
-    src_row[r] = reflect101(y0 + r - pad, H) * W * C;
-  for (int k = tid; k < row_len; k += BLOCK_X * BLOCK_Y) {
-    const int col = k / C;
-    src_col[k] = reflect101(x0 + col - pad, W) * C + (k - col * C);
+  // this thread's source column, the same in every row: reflected per
+  // pixel (channel kept) only where it lies past a left or right edge
+  int col = x0f - g.hp + tid;
+  if (col < 0 || col >= g.rowf) {
+    const int x = col >= 0 ? col / g.C : -((-col + g.C - 1) / g.C);
+    col = reflect101(x, g.W) * g.C + (col - x * g.C);
   }
-  __syncthreads();
+  auto at = [&](int i) {  // input row i of the strip (i = 0: y0 - pad)
+    return __ldg(img + (size_t)reflect101(y0 - g.pad + i, g.H) * g.rowf + col);
+  };
 
-  for (int r = ty; r < tile_rows; r += BLOCK_Y) {
-    const float* row = img + src_row[r];
-    for (int k = tx; k < row_len; k += BLOCK_X)
-      tile[r * row_len + k] = row[src_col[k]];
+  // win holds input rows r .. r+K-1 of output row r; pf the next ROWS
+  // rows, each loaded a whole group ahead of its use
+  float win[KMAX], pf[ROWS];
+  if (owner) {
+#pragma unroll
+    for (int j = 1; j < KMAX; ++j)
+      if (j < K) win[j] = at(j - 1);
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr)
+      if (rr < rows_out) pf[rr] = at(K - 1 + rr);
   }
-  __syncthreads();
 
-  const int rows_out = min(TILE_H, H - y0);
-  for (int r = ty; r < rows_out; r += BLOCK_Y) {
-    for (int k = tx; k < row_len; k += BLOCK_X) {
-      const float* src = tile + r * row_len + k;
-      float acc = __fmul_rn(ky.v[0], src[0]);
-      for (int t = 1; t < K; ++t)
-        acc = __fadd_rn(acc, __fmul_rn(ky.v[t], src[t * row_len]));
-      vert[r * row_len + k] = acc;
+  for (int r0 = 0; r0 < rows_out; r0 += ROWS) {
+    float* vb = &vbuf[(r0 / ROWS) & 1][0][0];
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const int r = r0 + rr;
+      if (owner && r < rows_out) {
+#pragma unroll
+        for (int j = 0; j + 1 < KMAX; ++j)
+          if (j + 1 < K) win[j] = win[j + 1];
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j == K - 1) win[j] = pf[rr];
+        if (r + ROWS < rows_out) pf[rr] = at(r + ROWS + K - 1);
+        float acc = __fmul_rn(ky.v[0], win[0]);
+#pragma unroll
+        for (int t = 1; t < KMAX; ++t)
+          if (t < K) acc = __fadd_rn(acc, __fmul_rn(ky.v[t], win[t]));
+        vb[rr * THREADS + tid] = acc;
+      }
+    }
+    __syncthreads();  // this group's vertical rows are in vb
+    // horizontal taps: output float f of the segment reads vb at
+    // f + t*C (vb's column 0 is the segment's first float less its halo)
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const int r = r0 + rr;
+      if (r >= rows_out) break;
+      const float* src = vb + rr * THREADS;
+      float* o = dst + (size_t)(y0 + r) * g.rowf;
+      for (int f = tid; f < seg_out; f += nt) {
+        float acc = __fmul_rn(kx.v[0], src[f]);
+#pragma unroll
+        for (int t = 1; t < KMAX; ++t)
+          if (t < K) acc = __fadd_rn(acc, __fmul_rn(kx.v[t], src[f + t * g.C]));
+        o[f] = acc;
+      }
+    }
+    // the next group writes the other buffer; the one after it this
+    // buffer, only once every thread has passed the next barrier
+  }
+}
+
+template <int KMAX, bool EXACT>
+int launch(const float* in, float* out, const Geometry& g, int n,
+           const Taps& ky, const Taps& kx, cudaStream_t stream) {
+  const int nt = (g.nq + 31) / 32 * 32;
+  dim3 grid((g.rowf + g.segw - 1) / g.segw, (g.H + g.sh - 1) / g.sh, n);
+  blur_kernel<KMAX, EXACT><<<grid, nt, 0, stream>>>(in, out, g, ky, kx);
+  return (int)cudaGetLastError();
+}
+
+// Segments and strips sized by the image: a batch keeps 8-row strips;
+// while the launch has fewer than TARGET_CTAS CTAs, strips shorten to 4
+// rows, then segments halve down to about 96 floats.
+bool plan(Geometry& g, int n) {
+  g.hp = g.pad * g.C;
+  const int maxseg = THREADS - 2 * g.hp;
+  if (maxseg < 1) return false;
+  int nseg = (g.rowf + maxseg - 1) / maxseg;
+  auto width = [&](int ns) { return (g.rowf + ns - 1) / ns; };
+  g.segw = width(nseg);
+  g.sh = BATCH_ROWS;
+  for (;;) {
+    const long long ctas = (long long)n * ((g.rowf + g.segw - 1) / g.segw) *
+                           ((g.H + g.sh - 1) / g.sh);
+    if (ctas >= TARGET_CTAS) break;
+    if (g.sh > 4) {
+      g.sh /= 2;
+    } else if (g.segw > 96) {
+      nseg *= 2;
+      g.segw = width(nseg);
+    } else {
+      break;
     }
   }
-  __syncthreads();
-
-  const int out_len = min(TILE_W, W - x0) * C;
-  float* dst = out + n * img_len + ((size_t)y0 * W + x0) * C;
-  for (int r = ty; r < rows_out; r += BLOCK_Y) {
-    for (int k = tx; k < out_len; k += BLOCK_X) {  // k = column * C + channel
-      const float* src = vert + r * row_len + k;
-      float acc = __fmul_rn(kx.v[0], src[0]);
-      for (int t = 1; t < K; ++t)
-        acc = __fadd_rn(acc, __fmul_rn(kx.v[t], src[t * C]));
-      dst[(size_t)r * W * C + k] = acc;
-    }
-  }
+  g.nq = g.segw + 2 * g.hp;
+  return (g.H + g.sh - 1) / g.sh <= 65535;
 }
 
 }  // namespace
@@ -114,24 +201,27 @@ extern "C" int repro_gaussian_blur_f32(const float* in, float* out, int n,
                                        int h, int w, int c, const float* ky,
                                        const float* kx, int ksize,
                                        void* stream) {
-  if (ksize < 1 || ksize > MAX_K || n > 65535 || (size_t)h * w * c >= (1u << 31))
+  if (ksize < 1 || ksize > MAX_K || n > 65535 || h < 1 || w < 1 || c < 1 ||
+      (size_t)h * w * c >= (1u << 31))
     return (int)cudaErrorInvalidValue;
   Taps tky = {}, tkx = {};
   for (int t = 0; t < ksize; ++t) {
     tky.v[t] = ky[t];
     tkx.v[t] = kx[t];
   }
-  const size_t tile_rows = TILE_H + ksize - 1;
-  const size_t row_len = (size_t)(TILE_W + ksize - 1) * c;
-  const size_t smem = (tile_rows + TILE_H) * row_len * sizeof(float) +
-                      (tile_rows + row_len) * sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        blur_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  Geometry g{h, w, c, ksize, ksize / 2, w * c, 0, 0, 0, 0};
+  if (!plan(g, n)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ksize) {
+    case 3: return launch<3, true>(in, out, g, n, tky, tkx, s);
+    case 5: return launch<5, true>(in, out, g, n, tky, tkx, s);
+    case 7: return launch<7, true>(in, out, g, n, tky, tkx, s);
+    case 9: return launch<9, true>(in, out, g, n, tky, tkx, s);
+    case 11: return launch<11, true>(in, out, g, n, tky, tkx, s);
+    case 13: return launch<13, true>(in, out, g, n, tky, tkx, s);
+    case 15: return launch<15, true>(in, out, g, n, tky, tkx, s);
+    default:
+      return ksize <= 15 ? launch<15, false>(in, out, g, n, tky, tkx, s)
+                         : launch<MAX_K, false>(in, out, g, n, tky, tkx, s);
   }
-  dim3 grid((w + TILE_W - 1) / TILE_W, (h + TILE_H - 1) / TILE_H, n);
-  blur_kernel<<<grid, dim3(BLOCK_X, BLOCK_Y), smem, (cudaStream_t)stream>>>(
-      in, out, h, w, c, tky, tkx, ksize);
-  return (int)cudaGetLastError();
 }

@@ -1,13 +1,21 @@
-"""Separable Gaussian blur CUDA kernel (``csrc/gaussian_blur.cu``).
+"""Separable Gaussian blur CUDA kernel (``csrc/gaussian_blur.cu``), the
+counterpart of the Pallas kernel ``gaussian_blur_pallas``
+(``_blur_kernel``) in ``src/repro/kernels/gaussian_blur.py``.
 
 The kernel reads the image once, reflect-101 indexing the borders
-itself, so no padded copy of the image is ever written: one CTA blurs
-one (image, row tile, column tile) output tile, staging the tile and
-its ``ksize - 1`` halo in shared memory, running the vertical taps into
-a second shared buffer and the horizontal taps from there.  Taps come
-from :func:`repro_torch.kernels.ref.gaussian_kernel_1d` and are summed
-in the order of :func:`repro_torch.kernels.ref.gaussian_blur_ref`, with
-separately rounded multiplies and adds, so the two agree to the bit.
+itself (only where a load crosses an edge), so no padded copy of the
+image is ever written.  One CTA blurs one strip of rows of one segment
+of a row of one image, sized by the image so that a single 224x224 or
+250x250 image (the engine blurs most images one a launch, where latency
+and not bytes bound it) still launches at least 132 CTAs; a batch keeps
+taller strips, where the bytes bound it.  Each thread walks down one
+float column keeping the vertical window of ``ksize`` rows in registers,
+its loads a group of rows ahead, and each group of vertical rows goes
+through a shared row buffer to the horizontal taps.  Taps come from
+:func:`repro_torch.kernels.ref.gaussian_kernel_1d` and are summed in the
+order of :func:`repro_torch.kernels.ref.gaussian_blur_ref`, vertical
+pass first, with separately rounded multiplies and adds, so the two
+agree to the bit.
 """
 from __future__ import annotations
 
@@ -26,6 +34,13 @@ _build.declare("gaussian_blur", "gaussian_blur.cu", {
     "repro_gaussian_blur_f32": [ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_int, ctypes.c_void_p]})
+
+
+def halo_fits(ksize: int, c: int) -> bool:
+    """Whether a row segment of the kernel (256 threads, one float column
+    each) holds its halo of (ksize // 2) * C floats a side and at least
+    one output float."""
+    return 256 - 2 * (ksize // 2) * c >= 1
 
 
 def gaussian_blur_cuda(
@@ -51,6 +66,9 @@ def gaussian_blur_cuda(
         raise ValueError(f"expected (N,H,W,C) or (H,W,C), got {tuple(img.shape)}")
     img = img.contiguous()
     n, h, w, c = img.shape
+    if not halo_fits(ksize, c):
+        raise ValueError(f"the kernel takes (ksize // 2) * C floats of halo "
+                         f"within its segment, not ksize {ksize} at C={c}")
     out = torch.empty_like(img)
     if out.numel():
         ky = (ctypes.c_float * ksize)(

@@ -1,14 +1,22 @@
-"""RWKV6 WKV chunked-scan CUDA kernel (``csrc/rwkv6_scan.cu``).
+"""RWKV6 WKV scan CUDA kernel (``csrc/rwkv6_scan.cu``), the counterpart
+of the Pallas kernel ``rwkv6_scan_pallas`` (``_wkv_kernel``) in
+``src/repro/kernels/rwkv6_scan.py``.
 
-One CTA per (batch, head) walks the chunks in order with the K x V fp32
-state in registers; per chunk it stages r, k, v and the cumulative
-log-decays in shared memory, builds the causal c x c intra-chunk
-weights (the decay between steps s < t taken as ``exp(lwp_t - lw_s)``,
-never as a product of two exponentials that overflow) with the bonus on
-the diagonal, and writes ``y = (r exp(lwp)) · S + att · v`` before
-updating the state.  r, k, v and w are read through their batch and
-time strides, and the tail chunk stops at T.  The plain version is
-:func:`repro_torch.kernels.ref.rwkv6_chunked`.
+The chunked form is exact at any chunk length, so the kernel tiles by
+its own 16-step sub-chunks, as the flash kernel tiles by its own
+blocks: ``chunk`` is checked and shapes only the plain version.  One
+CTA of four warps per (batch, head) walks the sub-chunks with the
+transposed K x V state in tensor-core accumulator fragments.  Per
+sub-chunk the readout ``(r o exp(lwp)) · S``, the causal 16 x 16 block
+``att · v`` and the state update ``(k o exp(lw_b - lw))ᵀ v`` run on
+3xTF32 ``mma.sync`` (``csrc/tc.cuh``); only the diagonal block
+exponentiates the decay cube, as ``exp(lwp_t - lw_s)``.  Every exponent
+is a sum of log-decays over a span of steps, so it is <= 0: no factor
+can overflow, and where one underflows the true product is smaller
+still.  The cumulative log-decays are a warp scan, the next sub-chunk
+is staged by ``cp.async`` while this one computes, and the tail stops
+at T (a 3-token call does one sub-chunk).  What bounds it on an H100 is
+its bytes.  The plain version is :func:`repro_torch.kernels.ref.rwkv6_chunked`.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ from repro_torch.kernels import _build
 
 launches = _build.LaunchCounter("rwkv6_scan")
 
-MAX_CHUNK = 64      # chunk rows staged per CTA
+MAX_CHUNK = 64      # the chunk lengths accepted (the kernel tiles by 16)
 MAX_K = 64          # key dim the register tiles hold
 MAX_V = 64          # value dim the register tiles hold
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

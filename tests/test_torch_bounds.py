@@ -62,6 +62,7 @@ def _preprocess():
     # K1 and K2 run no matrix product, and K5's readout and update (4.3
     # GFLOP of products) and decay take less than its bytes
     ("K1 (32,224,224,3) k9", 0.011503, "bytes"),
+    ("K1 (1,224,224,3) k9", 0.000359, "bytes"),
     ("K1 (1,250,250,3) k5", 0.000448, "bytes"),
     ("K1 (1,1080,1920,3) k5", 0.014856, "bytes"),
     ("K2 (32,250,250,3)", 0.013049, "bytes"),
@@ -81,6 +82,7 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
         "K4 f32 at the UDF's 3 tokens": lambda: _ssd(16, 3, 80, 64, 1, 64,
                                                      4, F32),
         "K1 (32,224,224,3) k9": lambda: _blur((32, 224, 224, 3), 9),
+        "K1 (1,224,224,3) k9": lambda: _blur((1, 224, 224, 3), 9),
         "K1 (1,250,250,3) k5": lambda: _blur((1, 250, 250, 3), 5),
         "K1 (1,1080,1920,3) k5": lambda: _blur((1, 1080, 1920, 3), 5),
         "K2 (32,250,250,3)": _preprocess,
@@ -90,6 +92,14 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
     }[row]()
     assert got[1] == want_by
     assert got[0] == pytest.approx(want_ms, abs=5e-7)
+
+
+def test_blur_bound_of_one_engine_image():
+    """The all-native arm blurs one 224x224x3 image a launch: its bytes,
+    read once and written once in float32."""
+    nbytes, flops = cs.blur_work((1, 224, 224, 3), 9)
+    assert nbytes == 1_204_224
+    assert flops == 4 * 9 * 224 * 224 * 3
 
 
 def test_products_are_priced_at_the_tensor_core_rate():

@@ -4,7 +4,7 @@ test here is marked ``cuda`` and skips on a host without a card; on a
 card's host run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it needs only the port).
 
-Tolerances (absolute, float32 images in [0, 1]): blur kernel 1e-5 (the
+Tolerances (absolute, float32 images in [0, 1]): blur kernel exact (the
 same taps in the same order, rounded separately), fused preprocess
 kernel 1e-4 (band sums in another order than the composed products).
 Mamba2 SSD kernel: 5e-4 in float32 (chunk sums of up to 128 products in
@@ -63,7 +63,16 @@ def _uniform(seed, shape, device):
 @pytest.mark.parametrize("shape,ksize,sigma", [
     ((3, 37, 45, 3), 5, 1.5), ((2, 70, 33, 1), 9, 2.0),
     ((1, 5, 4, 4), 31, 0.0), ((2, 224, 224, 3), 9, 2.0),
-    ((1, 1080, 1920, 3), 5, 1.5), ((1, 9, 11, 3), 4, 1.0)])
+    ((1, 1080, 1920, 3), 5, 1.5), ((1, 9, 11, 3), 4, 1.0),
+    # the engine's per-entity images: a 224-wide row of 3 floats is 2,688
+    # bytes, a multiple of 16, a 250-wide row 3,000 bytes, which is not
+    ((1, 224, 224, 3), 9, 2.0), ((1, 250, 250, 3), 5, 1.5),
+    ((1, 224, 224, 4), 9, 2.0), ((1, 251, 250, 3), 9, 2.0),
+    # every window: odd sizes with their own, an even size and a size past
+    # 15 with the tap count at run time; a 1-row image
+    ((2, 61, 37, 3), 3, 0.0), ((1, 40, 70, 3), 15, 3.0),
+    ((1, 33, 29, 2), 6, 1.2), ((1, 90, 64, 3), 21, 4.0),
+    ((1, 1, 17, 3), 5, 1.5)])
 def test_blur_kernel_matches_plain(cuda, shape, ksize, sigma):
     from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda, launches
     x = _uniform(ksize, shape, cuda)
@@ -72,7 +81,11 @@ def test_blur_kernel_matches_plain(cuda, shape, ksize, sigma):
     want = ref.gaussian_blur_ref(x, ksize, sigma)
     torch.cuda.synchronize()
     assert launches.count == before + 1
-    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, want)
+    # one image of a batch, read at an offset from the allocation
+    batch = _uniform(sum(shape), (3,) + shape[1:], cuda)
+    assert torch.equal(gaussian_blur_cuda(batch[1], ksize, sigma),
+                       ref.gaussian_blur_ref(batch[1], ksize, sigma))
 
 
 @pytest.mark.cuda
@@ -293,6 +306,14 @@ def _wkv_inputs(seed, B, T, H, K, device, dtype=torch.float32, shift=0.0):
             n((B, H, K, K), 0.1))
 
 
+# lengths on both sides of the kernel's 16-step sub-chunks, at the model's
+# decays and at log w about -8 a step (against the sequential scan, where
+# a factored decay that overflows would show), in float32 and bfloat16
+_EDGES = [(2, T, 4, 64, dtype, shift) for T in (1, 16, 17, 31, 33, 65)
+          for dtype, shift in ((torch.float32, 0.0), (torch.float32, 6.08),
+                               (torch.bfloat16, 0.0))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,K,dtype,shift", [
     (16, 512, 32, 64, torch.float32, 0.0),     # model_serve's prefill
@@ -300,7 +321,9 @@ def _wkv_inputs(seed, B, T, H, K, device, dtype=torch.float32, shift=0.0):
     (8, 3, 32, 64, torch.float32, 0.0),        # the model UDF's prompts
     (2, 100, 3, 16, torch.float32, 0.0),       # ragged tail
     (2, 200, 4, 64, torch.float32, 6.08),      # log w about -8 a step
-])
+    (16, 40, 66, 64, torch.float32, 0.0),      # 1,056 CTAs: over one wave
+    (3, 37, 5, 40, torch.float32, 0.0),        # K = V = 40: partial tiles
+] + _EDGES)
 def test_wkv_kernel_matches_plain(cuda, B, T, H, K, dtype, shift):
     from repro_torch.kernels.rwkv6_scan import launches, rwkv6_scan_cuda
     r, k, v, w, u, s0 = _wkv_inputs(T + K, B, T, H, K, cuda, dtype, shift)

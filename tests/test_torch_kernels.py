@@ -440,6 +440,94 @@ def test_rwkv6_state_continuity(split):
                                rtol=0)
 
 
+def _wkv_sub_chunks(r, k, v, w, u, s0, tile=16, sub=16):
+    """The WKV6 kernel's arithmetic in float64 torch: tiles of ``tile``
+    steps carry the state; inside a tile, sub-chunks of ``sub`` steps.
+    A diagonal sub x sub block takes the exact cube, exp(lwp_t - lw_s) for
+    s < t; an off-diagonal block (sub-chunk i after j) the product
+    (r_i o exp(lwp_i - lw_b)) (k_j o exp(lw_b - lw_j))^T with b the last
+    step of j, both exponents <= 0.  Across tiles the readout takes the
+    tile's start and the update its end as reference points.  At
+    ``tile == sub`` every off-diagonal block goes through the state, as
+    the CUDA kernel computes it."""
+    B, T, H, K = r.shape
+    f = torch.float64
+    rf, kf, vf = (a.to(f) for a in (r, k, v))
+    logw = torch.log(torch.clamp(w.to(f), min=1e-30))
+    S = s0.to(f).clone()
+    uf = u.to(f)
+    ys = []
+    for t0 in range(0, T, tile):
+        sl = slice(t0, min(T, t0 + tile))
+        rc, kc, vc, lc = (a[:, sl].transpose(1, 2) for a in (rf, kf, vf, logw))
+        n = rc.shape[2]
+        lw = torch.cumsum(lc, dim=2)
+        lwp = torch.nn.functional.pad(lw, (0, 0, 1, 0))[:, :, :-1]  # lw_{t-1}
+        y = torch.einsum("bhtk,bhkv->bhtv", rc * torch.exp(lwp), S)
+        att = torch.zeros(B, H, n, n, dtype=f)
+        for i0 in range(0, n, sub):
+            ti = slice(i0, min(n, i0 + sub))
+            for j0 in range(0, i0 + 1, sub):
+                sj = slice(j0, min(n, j0 + sub))
+                if j0 == i0:
+                    d = lwp[:, :, ti, None, :] - lw[:, :, None, sj, :]
+                    m = ti.stop - ti.start
+                    tri = torch.tril(torch.ones(m, m, dtype=torch.bool), -1)
+                    assert bool((d[..., tri, :] <= 0).all())
+                    cube = torch.where(tri[..., None], torch.exp(d), 0.0)
+                    blk = torch.einsum("bhtk,bhtsk,bhsk->bhts", rc[:, :, ti],
+                                       cube, kc[:, :, sj])
+                    blk = blk + torch.diag_embed(torch.einsum(
+                        "bhtk,bhtk->bht", rc[:, :, ti] * uf[None, :, None],
+                        kc[:, :, ti]))
+                else:
+                    lb = lw[:, :, sj.stop - 1:sj.stop]
+                    ea, eb = lwp[:, :, ti] - lb, lb - lw[:, :, sj]
+                    assert bool((ea <= 0).all() and (eb <= 0).all())
+                    blk = torch.einsum("bhtk,bhsk->bhts",
+                                       rc[:, :, ti] * torch.exp(ea),
+                                       kc[:, :, sj] * torch.exp(eb))
+                att[:, :, ti, sj] = blk
+        y = y + att @ vc
+        lb = lw[:, :, -1:]
+        S = torch.exp(lb[:, :, 0, :, None]) * S + torch.einsum(
+            "bhsk,bhsv->bhkv", kc * torch.exp(lb - lw), vc)
+        ys.append(y.transpose(1, 2))
+    return torch.cat(ys, 1).float(), S.float()
+
+
+@pytest.mark.parametrize("T,shift", [(37, 0.0), (50, 0.0),
+                                     (37, np.log(8.0) + 4.0),
+                                     (64, np.log(8.0) + 4.0)])
+@pytest.mark.parametrize("tile", [16, 64])
+def test_rwkv6_sub_chunk_factorisation_matches_ref_and_pallas(T, shift, tile):
+    """The kernel's design on the host: 16-step sub-chunks with reference
+    points at their ends, held against the sequential scan of both
+    packages and the Pallas kernel in interpret mode, at the model's
+    decays (w = exp(-exp(-4 + N))) and at log w about -8 a step, with T no
+    multiple of 16."""
+    B, H, K = 2, 3, 16
+    rng = np.random.default_rng(T)
+
+    def n(shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    r, k, v = n((B, T, H, K), 0.5), n((B, T, H, K), 0.5), n((B, T, H, K))
+    w = np.exp(-np.exp(-4.0 + shift + n((B, T, H, K)))).astype(np.float32)
+    u, s0 = n((H, K), 0.1), n((B, H, K, K), 0.1)
+    args = (r, k, v, w, u, s0)
+    y, s = _wkv_sub_chunks(*(_t(a) for a in args), tile=tile)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    y_t, s_t = tref.rwkv6_scan_ref(*(_t(a) for a in args))
+    o_ref, s_ref = jref.rwkv6_scan_ref(*(_j(a) for a in args))
+    o_pl, s_pl = rwkv6_scan_pallas(*(_j(a) for a in args), chunk=16,
+                                   interpret=True)
+    for got, want in ((y, y_t), (y, o_ref), (y, o_pl), (s, s_t), (s, s_ref),
+                      (s, s_pl)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=WKV_TOL, rtol=0)
+
+
 def test_wrappers_refuse_devices_without_a_path():
     with pytest.raises(ValueError, match="CUDA tensor"):
         from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
