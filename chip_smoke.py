@@ -19,14 +19,19 @@ Phases (any failed check exits non-zero, before the result line):
    the main paths, with times, bounds (the longest of the bytes at the
    HBM rate, the matrix products at the tensor-core rate for their type
    and the other operations at the fp32 rate) and a library yardstick;
-   K3's, K4's and K5's rows name their tensor-core route;
+   K3's, K4's and K5's rows name their tensor-core route; besides the
+   main shapes, K3 at zamba2's head dim 80 (float32 and bfloat16), K1's
+   general route (ksize 99, and ksize 5 over 64 channels), and K2 at one
+   image, at a 1080p lanczos3 downsample and at 8 channels;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
-   against the no-cache forward; and one engine query over 16 images
-   whose only op is a ``register_model_udf`` model UDF, through the
-   per-entity, batcher and device-backend arms, which must stamp
-   identical labels;
+   against the no-cache forward; the same past 1024 cache slots (2
+   requests of 1,536 tokens + 16 generated, on the same weights), where
+   every attention layer of a prefill or forward runs K3 at head dim 80;
+   and one engine query over 16 images whose only op is a
+   ``register_model_udf`` model UDF, through the per-entity, batcher and
+   device-backend arms, which must stamp identical labels;
 7. the same at the full width of rwkv6-1.6b (24 layers, d_model 2048):
    every prefill runs the WKV6 kernel K5;
 8. the long-context path at the full width of qwen3-0.6b (28 layers,
@@ -39,18 +44,20 @@ Phases (any failed check exits non-zero, before the result line):
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
 zeroed again just before each of phases 6, 7 and 8 and read just after
-it (K4, K5 and K3 must have launched on their paths).  Phase 5's
+it (phase 6 must have launched K4, and K3 past 1024 slots; phase 7 K5;
+phase 8 K3).  Phase 5's
 launches, which only compare kernels with their plain versions, count
 in none.  The last lines are the card's name and power limit, one
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab DIR [KERNEL ...]`` instead holds the named
 kernels (by default every kernel whose sources in DIR differ from the
-checkout's: K1, K3, K4 or K5) built from an earlier commit's sources in
-DIR, and the checkout's, against their plain versions and times them in
-turns in one process (old, new, new, old), and prints ``{"ab": [...]}``:
-put the parent's ``csrc`` files in a git-ignored directory, for example
-with ``git archive``.
+checkout's) built from an earlier commit's sources in DIR, and the
+checkout's, against their plain versions and times them in turns in one
+process (old, new, new, old), and prints ``{"ab": [...]}``: put the
+parent's ``csrc`` files in a git-ignored directory, for example with
+``git archive``.  A case the old build refuses is recorded as refused
+and timed on the new build alone.
 """
 from __future__ import annotations
 
@@ -449,16 +456,34 @@ def blur_work(shape, ksize):
     return 2 * n * h * w * c * 4, 4 * ksize * n * h * w * c
 
 
-def preprocess_work(n, size, out_h, out_w, crop_rows, nnz_y, nnz_x, c=3):
-    """Bytes and operations of one fused resize/crop/normalize call: the
-    images, the output and both cropped matrices (``crop_rows`` x
-    ``size`` each) once in float32; the two banded contractions over the
+def preprocess_work(n, h, w, c, hc, wc, py, px, nnz_y, nnz_x):
+    """Bytes and operations of one fused resize/crop/normalize call of
+    ``n`` images of ``h`` x ``w`` x ``c`` to ``hc`` x ``wc``: the images
+    and the output once in float32, and the tap tables that stand for the
+    cropped matrices (per output row and column a 4-byte first index and
+    ``py`` or ``px`` float32 taps); the two banded contractions over the
     matrices' ``nnz_y`` and ``nnz_x`` nonzeros and the affine epilogue
     (fp32 FMA, no product on the tensor cores)."""
-    nbytes = (n * size * size * c + n * out_h * out_w * c
-              + 2 * crop_rows * size) * 4
-    flops = 2 * n * c * (nnz_y * size + out_h * nnz_x) + 2 * n * out_h * out_w * c
+    nbytes = (n * h * w * c + n * hc * wc * c
+              + hc * (py + 1) + wc * (px + 1)) * 4
+    flops = 2 * n * c * (nnz_y * w + hc * nnz_x) + 2 * n * hc * wc * c
     return nbytes, flops
+
+
+# the device backend's preprocess (DEVICE_PIPE), and a 1080p frame
+# downsampled to a model's input with lanczos3 (the wide-window route)
+K2_MAIN = dict(resize_h=256, resize_w=256, method="bilinear", crop_x=16,
+               crop_y=16, crop_w=224, crop_h=224, mean=0.45, std=0.22)
+K2_1080P = dict(resize_h=224, resize_w=224, method="lanczos3", crop_x=0,
+                crop_y=0, crop_w=224, crop_h=224, mean=0.45, std=0.22)
+# the 1080p frame to 8 x 8: windows of 1,440 columns (the wide route)
+K2_WIDE = dict(K2_1080P, resize_h=8, resize_w=8, crop_w=8, crop_h=8)
+K2_ROUTES = {"direct": "fp32 FMA over tap tables: direct, a thread per "
+                       "output float (2 x 2 taps)",
+             "tiled": "fp32 FMA over tap tables: tiled, streamed vertical "
+                      "pass into a shared tile",
+             "wide": "fp32 FMA over tap tables: wide, two passes through "
+                     "a scratch image"}
 
 
 def offset_mask(Sq, Sk, q_offset, device="cuda"):
@@ -489,7 +514,7 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels import preprocess as pp
     from repro_torch.kernels import ref
-    from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
+    from repro_torch.kernels.gaussian_blur import fast_route, gaussian_blur_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
     from repro_torch.kernels.ref import gaussian_blur_ref, gaussian_kernel_1d
@@ -526,6 +551,8 @@ def phase_kernels():
         bound_ms, bound_by = bound(nbytes, 0, flops, x.dtype)
         return {
             "shape": list(shape), "ksize": ksize, "sigma": sigma,
+            "route": ("fp32, window in registers" if fast_route(ksize, c)
+                      else "fp32, general route (two passes)"),
             "max_abs_err": err,
             "ms": time_ms(lambda: gaussian_blur_cuda(x, ksize, sigma), flush),
             "plain_ms": time_ms(lambda: gaussian_blur_ref(x, ksize, sigma), flush),
@@ -537,31 +564,35 @@ def phase_kernels():
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
 
-    def preprocess_case(n, size, kw):
+    def preprocess_case(shape, kw):
+        n, h, w, c = shape
         x = torch.from_numpy(
-            rng.uniform(0, 1, (n, size, size, 3)).astype(np.float32)).cuda()
+            rng.uniform(0, 1, shape).astype(np.float32)).cuda()
         got = pp.fused_resize_crop_normalize_cuda(x, **kw)
         want = pp.fused_resize_crop_normalize_ref(x, **kw)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        check(err <= K2_TOL, f"K2 {tuple(x.shape)}: max_abs_err {err:.3g} <= {K2_TOL}")
-        ry, rx = pp._cropped_matrices(
-            size, size, kw["resize_h"], kw["resize_w"],
-            pp._canonical_method(kw["method"]), kw["crop_x"], kw["crop_y"],
-            kw["crop_w"], kw["crop_h"])
+        check(err <= K2_TOL, f"K2 {tuple(x.shape)} {kw['method']}: "
+              f"max_abs_err {err:.3g} <= {K2_TOL}")
+        geometry = (h, w, kw["resize_h"], kw["resize_w"],
+                    pp._canonical_method(kw["method"]), kw["crop_x"],
+                    kw["crop_y"], kw["crop_w"], kw["crop_h"])
+        ry, rx = pp._cropped_matrices(*geometry)
         ry_t, rx_t = torch.from_numpy(ry.copy()).cuda(), torch.from_numpy(rx.copy()).cuda()
 
         def library():  # one einsum: the cropped resize
             return torch.einsum("oh,nhwc,pw->nopc", ry_t, x, rx_t)
 
-        hc, wc, c = got.shape[1], got.shape[2], 3
+        hc, wc = got.shape[1], got.shape[2]
         nnz_y, nnz_x = int((ry != 0).sum()), int((rx != 0).sum())
-        nbytes, flops = preprocess_work(n, size, hc, wc, ry.shape[0],
-                                        nnz_y, nnz_x)
-        dense_flops = 2 * n * c * (hc * size * size + hc * wc * size)
+        (_, yt), (_, xt) = pp._tables(*geometry)
+        nbytes, flops = preprocess_work(n, h, w, c, hc, wc, yt.shape[1],
+                                        xt.shape[1], nnz_y, nnz_x)
+        dense_flops = 2 * n * c * (hc * h * w + hc * wc * w)
         bound_ms, bound_by = bound(nbytes, 0, flops, x.dtype)
         return {
-            "shape": [n, size, size, 3], "params": kw,
+            "shape": list(shape), "params": kw,
+            "route": K2_ROUTES[pp._plan(geometry, n, c)["route"]],
             "max_abs_err": err,
             "ms": time_ms(lambda: pp.fused_resize_crop_normalize_cuda(x, **kw), flush),
             "plain_ms": time_ms(
@@ -755,11 +786,21 @@ def phase_kernels():
     rows.append(blur_case((1, 224, 224, 3), 9, 2.0))
     rows.append(blur_case((1, 250, 250, 3), 5, 1.5))
     rows.append(blur_case((1, 1080, 1920, 3), 5, 1.5))
+    # K1's general route: a window past 63 taps, and a halo of 2 x 64
+    # floats a side (ksize 5 over a 64-channel feature map)
+    rows.append(blur_case((1, 250, 250, 3), 99, 0.0))
+    rows.append(blur_case((1, 224, 224, 64), 5, 1.5))
+    # K2 at the device backend's batch of 32, at one image (the pow-2
+    # padded partial batch), a 1080p frame to 224 with lanczos3 (29 and 52
+    # taps a window), 8 channels, and the 1080p frame to 8 x 8 (windows of
+    # 1,440 columns: the wide route)
     entries["fused_resize_crop_normalize"] = preprocess_case(
-        32, 250, dict(resize_h=256, resize_w=256, method="bilinear",
-                      crop_x=16, crop_y=16, crop_w=224, crop_h=224,
-                      mean=0.45, std=0.22))
+        (32, 250, 250, 3), K2_MAIN)
     rows.append(entries["fused_resize_crop_normalize"])
+    rows.append(preprocess_case((1, 250, 250, 3), K2_MAIN))
+    rows.append(preprocess_case((1, 1080, 1920, 3), K2_1080P))
+    rows.append(preprocess_case((4, 250, 250, 8), K2_MAIN))
+    rows.append(preprocess_case((1, 1080, 1920, 3), K2_WIDE))
     # K4 at launch.model_serve's prefill shape (16 x 512 tokens, zamba2's
     # 80 heads of 64, state 64, one group), the model UDF's 3-token
     # prompts, grouped B/C, and bfloat16
@@ -796,6 +837,12 @@ def phase_kernels():
     rows.append(attn_case(2, 64, 192, 6, 2, 32, causal=False))
     rows.append(attn_case(1, 100, 100, 2, 1, 64))
     rows.append(attn_case(2, 1100, 1105, 4, 2, 16))
+    # K3 at zamba2-2.7b's attention past 1024 slots (phase 6): a prefill
+    # of 2 x 1,536 rows of 32 heads of 80 into a 1,553-slot cache, in
+    # float32 (the model's route) and bfloat16 (tiles padded to 128)
+    rows.append(attn_case(2, 1536, 1553, 32, 32, 80, library=True))
+    rows.append(attn_case(2, 1536, 1553, 32, 32, 80, dtype=torch.bfloat16,
+                          library=True))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -839,20 +886,69 @@ def kernels_line(entries, path_launches):
     return kernels
 
 
+def consistency_check(api, params, cfg, shape, device):
+    """Prefill + decode logits against the no-cache forward over
+    ``shape`` = (batch, prompt, decode steps), held to MODEL_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import REPLICATED
+    batch, S, extra = shape
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, S + extra)).astype(np.int32)).to(device)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
+        lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
+                                S + extra + 1)
+        errs = [float((lg - full[:, S - 1]).abs().max())]
+        for i in range(extra):
+            lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1],
+                                        cache, S + i, REPLICATED)
+            errs.append(float((lg - full[:, S + i]).abs().max()))
+    finite = bool(torch.isfinite(full).all())
+    out = {"shape": list(shape), "max_abs_err": max(errs), "per_step": errs,
+           "logit_absmax": float(full.abs().max())}
+    print(f"  prefill of {batch} x {S} + {extra} decode steps vs forward: "
+          f"max_abs_err {max(errs):.3g} (logits up to "
+          f"{float(full.abs().max()):.3g})", flush=True)
+    check(finite and full.shape == (batch, S + extra, cfg.padded_vocab),
+          f"forward logits finite, shape ({batch}, {S + extra}, padded vocab)")
+    check(max(errs) <= MODEL_TOL,
+          f"prefill/decode logits vs forward: {max(errs):.3g} <= {MODEL_TOL}")
+    return out
+
+
+def serve_once(arch, reduced, requests, prompt_len, gen, device, vocab,
+               params=None):
+    """``model_serve.run`` once; its walls in ms and whether its tokens
+    have the expected shape and lie inside the vocabulary."""
+    from repro_torch.launch import model_serve
+    r = model_serve.run(arch, reduced=reduced, requests=requests,
+                        prompt_len=prompt_len, gen=gen, device=device,
+                        params=params)
+    gen_toks = r.pop("generated")
+    r["generated_ok"] = bool(gen_toks.shape == (requests, gen)
+                             and (gen_toks >= 0).all()
+                             and (gen_toks < vocab).all())
+    r["prefill_ms"], r["decode_ms"] = r["prefill_s"] * 1e3, r["decode_s"] * 1e3
+    check(r["generated_ok"], f"generated tokens: shape ({requests}, {gen}), "
+          "inside the vocabulary")
+    return r
+
+
 def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
                 device="cuda", reduced=False, requests=16, prompt_len=512,
-                gen=16, consistency=(2, 16, 4), n_images=16):
+                gen=16, consistency=(2, 16, 4), n_images=16, beyond=None):
     """A model path: ``launch.model_serve.run`` (cold, then warm), prefill
     + decode against the no-cache forward over ``consistency`` = (batch,
     prompt, decode steps), and, when ``n_images`` is not 0, the model UDF
     through the engine's three arms, counting ``kernel``'s launches in
-    each.  ``device`` and ``reduced`` let a host without a card rehearse
-    it."""
-    import numpy as np
+    each.  ``beyond`` = (batch, prompt, decode steps), with prompt + steps
+    past 1024 cache slots, serves and checks that much on the same
+    weights, where attention takes the flash route (K3), and counts K3's
+    and ``kernel``'s launches there.  ``device`` and ``reduced`` let a
+    host without a card rehearse it."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.distributed.sharding import REPLICATED
-    from repro_torch.launch import model_serve
     from repro_torch.models import get_model
     from repro_torch.models.lm import tree_leaves
     cfg = get_arch(arch, reduced=reduced)
@@ -868,14 +964,8 @@ def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
     serve = []
     for run_i in range(2):
         before = launches[kernel].count
-        r = model_serve.run(arch, reduced=reduced, requests=requests,
-                            prompt_len=prompt_len, gen=gen, device=device)
-        gen_toks = r.pop("generated")
-        r["generated_ok"] = bool(gen_toks.shape == (requests, gen)
-                                 and (gen_toks >= 0).all()
-                                 and (gen_toks < cfg.vocab_size).all())
-        r["prefill_ms"], r["decode_ms"] = r["prefill_s"] * 1e3, \
-            r["decode_s"] * 1e3
+        r = serve_once(arch, reduced, requests, prompt_len, gen, device,
+                       cfg.vocab_size)
         r["kernel_launches"] = launches[kernel].count - before
         serve.append(r)
         print(f"  model_serve {'cold' if run_i == 0 else 'warm'}: "
@@ -883,8 +973,6 @@ def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
               f"{r['prefill_ms']:.3f} ms, {gen} decode steps "
               f"{r['decode_ms']:.3f} ms, {r['tokens_per_s']:.3f} tokens/s, "
               f"{kernel} launches {r['kernel_launches']}", flush=True)
-        check(r["generated_ok"], f"generated tokens: shape ({requests}, "
-              f"{gen}), inside the vocabulary")
     out["serve"] = serve
 
     # -- prefill + decode against the no-cache forward
@@ -893,30 +981,28 @@ def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
     out["tree_params"] = sum(t.numel() for t in tree_leaves(params))
     print(f"  the parameter tree holds {out['tree_params']} values "
           f"({cfg.param_count()} by the configs' formula)", flush=True)
-    batch, S, extra = consistency
-    toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (batch, S + extra)).astype(np.int32)).to(device)
-    with torch.no_grad():
-        full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
-        lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
-                                S + extra + 1)
-        errs = [float((lg - full[:, S - 1]).abs().max())]
-        for i in range(extra):
-            lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1],
-                                        cache, S + i, REPLICATED)
-            errs.append(float((lg - full[:, S + i]).abs().max()))
-    finite = bool(torch.isfinite(full).all())
-    out["forward_consistency"] = {"shape": list(consistency),
-                                  "max_abs_err": max(errs), "per_step": errs,
-                                  "logit_absmax": float(full.abs().max())}
-    print(f"  prefill of {batch} x {S} + {extra} decode steps vs forward: "
-          f"max_abs_err {max(errs):.3g} (logits up to "
-          f"{float(full.abs().max()):.3g})", flush=True)
-    check(finite and full.shape == (batch, S + extra, cfg.padded_vocab),
-          f"forward logits finite, shape ({batch}, {S + extra}, padded vocab)")
-    check(max(errs) <= MODEL_TOL,
-          f"prefill/decode logits vs forward: {max(errs):.3g} <= {MODEL_TOL}")
-    del params, full, cache, lg
+    out["forward_consistency"] = consistency_check(api, params, cfg,
+                                                   consistency, device)
+    if beyond:
+        batch, S, extra = beyond
+        print(f"  past 1024 slots: {batch} x {S} tokens + {extra} "
+              f"({S + extra + 1} slots), the same weights", flush=True)
+        before = {k: c.count for k, c in launches.items()}
+        r = serve_once(arch, reduced, batch, S, extra, device,
+                       cfg.vocab_size, params=params)
+        print(f"  model_serve: prefill {r['prefill_ms']:.3f} ms, {extra} "
+              f"decode steps {r['decode_ms']:.3f} ms, "
+              f"{r['tokens_per_s']:.3f} tokens/s", flush=True)
+        r["forward_consistency"] = consistency_check(api, params, cfg,
+                                                     beyond, device)
+        r["launches"] = {k: c.count - before[k] for k, c in launches.items()}
+        print(f"  launches past 1024 slots: {r['launches']}", flush=True)
+        for name in ("flash_attention", kernel):
+            check(not on_card or r["launches"][name] > 0,
+                  f"{name} launched past 1024 slots "
+                  f"({r['launches'][name]})")
+        out["beyond_1024"] = r
+    del params
 
     if n_images:
         out.update(_model_udf_arms(launches, arch, kernel, device, reduced,
@@ -1017,12 +1103,15 @@ def phase_ab(old_csrc, names=None):
     against its plain version and timed at the main paths' shapes through
     the same wrapper (the old library swapped under it), in turns: old,
     new, new, old.  ``scaled_dot_product_attention`` is timed beside K3
-    as in phase 5."""
+    as in phase 5.  A case the old build refuses (a head dim, window or
+    route it lacks) is recorded as refused and timed on the new build
+    alone."""
     from pathlib import Path
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
+    from repro_torch.kernels import preprocess as pp
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
@@ -1041,32 +1130,47 @@ def phase_ab(old_csrc, names=None):
         """Each build's max |got - plain| over the outputs, then times."""
         want = plain()
         row = {"old": [], "new": []}
-        for which in ("old", "new"):
+
+        def call(which, f=None):
             with _build.swapped(name, libs[name][which]):
-                got = fn()
+                return fn() if f is None else f(fn)
+
+        order = ("old", "new", "new", "old")
+        for which in ("old", "new"):
+            try:
+                got = call(which)
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as e:
+                if which == "new":
+                    raise
+                row["old_refused"] = f"{type(e).__name__}: {e}"
+                order = ("new", "new")
+                continue
             row[f"{which}_max_abs_err"] = [
                 float((g.float() - w.float()).abs().max())
                 for g, w in zip(got, want)]
-        for which in ("old", "new", "new", "old"):
-            with _build.swapped(name, libs[name][which]):
-                row[which].append(time_ms(fn, flush))
+        for which in order:
+            row[which].append(call(which, lambda f: time_ms(f, flush)))
         return row
 
     def flash_rows():
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.from_numpy(rng.standard_normal(s)
-                                        .astype(np.float32)).cuda().to(dtype)
-                       for s in ((4, 4096, 16, 128), (4, 4113, 8, 128),
-                                 (4, 4113, 8, 128)))
-            row = {"kernel": "flash_attention", "shape": [4, 4096, 16, 128],
-                   "kv": [4113, 8], "dtype": str(dtype),
-                   **turns("flash_attention",
-                           lambda: flash_attention_cuda(q, k, v),
-                           lambda: ref.flash_attention_chunked(q, k, v))}
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush)
-            yield row
+        # qwen3's long prefill (D 128) and zamba2's past 1024 slots (D 80)
+        for (B, Sq, H, D), (Sk, Hkv) in (((4, 4096, 16, 128), (4113, 8)),
+                                         ((2, 1536, 32, 80), (1553, 32))):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+                    np.float32)).cuda().to(dtype)
+                    for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)))
+                row = {"kernel": "flash_attention", "shape": [B, Sq, H, D],
+                       "kv": [Sk, Hkv], "dtype": str(dtype),
+                       **turns("flash_attention",
+                               lambda: flash_attention_cuda(q, k, v),
+                               lambda: ref.flash_attention_chunked(q, k, v))}
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), flush)
+                yield row
 
     def ssd_rows():
         for T in (512, 3):
@@ -1094,7 +1198,9 @@ def phase_ab(old_csrc, names=None):
         for shape, ksize, sigma in (((32, 224, 224, 3), 9, 2.0),
                                     ((1, 224, 224, 3), 9, 2.0),
                                     ((1, 250, 250, 3), 5, 1.5),
-                                    ((1, 1080, 1920, 3), 5, 1.5)):
+                                    ((1, 1080, 1920, 3), 5, 1.5),
+                                    ((1, 250, 250, 3), 99, 0.0),
+                                    ((1, 224, 224, 64), 5, 1.5)):
             x = torch.from_numpy(rng.uniform(0, 1, shape)
                                  .astype(np.float32)).cuda()
             yield {"kernel": "gaussian_blur", "shape": list(shape),
@@ -1103,8 +1209,25 @@ def phase_ab(old_csrc, names=None):
                            lambda: (gaussian_blur_cuda(x, ksize, sigma),),
                            lambda: (ref.gaussian_blur_ref(x, ksize, sigma),))}
 
+    def preprocess_rows():
+        for shape, kw in (((32, 250, 250, 3), K2_MAIN),
+                          ((1, 250, 250, 3), K2_MAIN),
+                          ((1, 1080, 1920, 3), K2_1080P),
+                          ((1, 1080, 1920, 3), K2_WIDE)):
+            x = torch.from_numpy(rng.uniform(0, 1, shape)
+                                 .astype(np.float32)).cuda()
+            yield {"kernel": "fused_resize_crop_normalize", "shape": list(shape),
+                   "resize": [kw["resize_h"], kw["resize_w"]],
+                   "method": kw["method"],
+                   **turns("preprocess",
+                           lambda: (pp.fused_resize_crop_normalize_cuda(
+                               x, **kw),),
+                           lambda: (pp.fused_resize_crop_normalize_ref(
+                               x, **kw),))}
+
     cases = {"flash_attention": flash_rows, "mamba2_ssd": ssd_rows,
-             "rwkv6_scan": wkv_rows, "gaussian_blur": blur_rows}
+             "rwkv6_scan": wkv_rows, "gaussian_blur": blur_rows,
+             "preprocess": preprocess_rows}
     rows = []
     for name in names:
         if name not in cases:
@@ -1193,7 +1316,8 @@ def main() -> int:
     # before each, read just after it
     path_launches = dict(main_launches)
     model_paths = [
-        ("model", 6, dict(arch=ARCH, kernel="mamba2_ssd")),
+        ("model", 6, dict(arch=ARCH, kernel="mamba2_ssd",
+                          beyond=(2, 1536, 16))),
         ("rwkv", 7, dict(arch=RWKV_ARCH, kernel="rwkv6_scan")),
         ("long_context", 8, dict(arch=LONG_ARCH, kernel="flash_attention",
                                  requests=4, prompt_len=4096, gen=16,

@@ -42,6 +42,24 @@
 // register A operand of an RS wgmma against V read MN-major.  l sums the
 // unrounded P.  About 161 KB of shared memory at D = 128: one CTA an SM.
 //
+// Head dim 80 (zamba2-2.7b's attention, which runs float32 and so takes
+// the mma.sync route beyond 1024 slots).  float32: 80 columns are 20
+// 16-byte chunks and 10 output slices of 8, so the template takes it as
+// it is: 64-key tiles, (64 + 4 * 64) rows of 84 floats = 107,520 bytes,
+// still two CTAs an SM; a row pitch of 84 floats (20 banks mod 32) keeps
+// every fragment load free of bank conflicts, as 68 and 132 do.  bf16:
+// 80 columns are not a whole number of 64-column 128-byte-swizzled
+// boxes, so the tiles are padded to 128 columns (DP), two boxes a row:
+// the tensor maps keep D = 80, and TMA fills the columns past 80 with
+// zeros (the bytes still count toward the mbarrier's transaction).  Q K^T
+// runs only the 5 k16 steps that hold data (exact); P V runs at N = 128
+// against the zero columns, and the epilogue writes the first 80.  The
+// padding costs 60% more P V products and the shared memory of D = 128
+// (one CTA an SM), and keeps one layout, one descriptor rule and one
+// product shape (m64n128k16) for both head sizes; an m64n80 product
+// would read 80 columns across the boundary of two swizzle atoms, which
+// no other route here exercises.
+//
 // float32 route, on 3xTF32 mma.sync (m16n8k8): four warps of 16 q rows
 // (BQ = 64), 64-key tiles (32 at D = 128, so two CTAs fit on an SM),
 // staged by 16-byte cp.async.  Rows are padded by 4 floats, so every
@@ -285,11 +303,12 @@ struct Bf16Cfg {
   static constexpr int BQ = 128;
   static constexpr int BK = 128;
   static constexpr int STAGES = 2;
-  static constexpr int TILE = BK * D * 2;  // bytes of one K or V tile
   static constexpr int SW = D >= 64 ? 128 : 2 * D;  // swizzled row, bytes
   static constexpr int COLS = SW / 2;               // columns of one box
+  static constexpr int DP = (D + COLS - 1) / COLS * COLS;  // padded columns
+  static constexpr int TILE = BK * DP * 2;  // bytes of one K or V tile
   // tiles, barriers, and room to align the tiles to 1024 bytes
-  static constexpr size_t SMEM = (size_t)BQ * D * 2 +
+  static constexpr size_t SMEM = (size_t)BQ * DP * 2 +
                                  (size_t)STAGES * 2 * TILE +
                                  8 * (1 + 2 * STAGES) + 1024;
 };
@@ -303,15 +322,16 @@ __global__ void __launch_bounds__(288, 1)
     fa_bf16(const __grid_constant__ Maps maps, Args a) {
   using Cfg = Bf16Cfg<D>;
   constexpr int BQ = Cfg::BQ, BK = Cfg::BK, ST = Cfg::STAGES;
-  constexpr int SW = Cfg::SW, COLS = Cfg::COLS, NB = D / COLS;
+  constexpr int SW = Cfg::SW, COLS = Cfg::COLS, DP = Cfg::DP;
+  constexpr int NB = DP / COLS;
   constexpr int NS = BK / 2;  // score accumulators a thread holds
-  constexpr int NO = D / 2;   // output accumulators
+  constexpr int NO = DP / 2;  // output accumulators (padded columns too)
   extern __shared__ __align__(128) unsigned char bsm[];
   // a tile of R rows is NB boxes of R rows x SW bytes (columns
   // COLS b .. COLS b + COLS - 1), each as TMA writes it with the SW-byte
   // swizzle, box b at byte b * R * SW; every tile starts on 1024 bytes
   unsigned char* Qs = bsm + ((1024 - (tc::smem_u32(bsm) & 1023)) & 1023);
-  unsigned char* Ks = Qs + BQ * D * 2;             // ST tiles of BK rows
+  unsigned char* Ks = Qs + BQ * DP * 2;            // ST tiles of BK rows
   unsigned char* Vs = Ks + ST * Cfg::TILE;         // ST tiles of BK rows
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * Cfg::TILE);
   uint64_t* full = q_full + 1;                     // K and V of a stage landed
@@ -337,7 +357,7 @@ __global__ void __launch_bounds__(288, 1)
 
   if (warp == 8) {  // ---- producer: one thread issues every TMA copy
     if (lane != 0) return;
-    tc::mbar_expect_tx(q_full, BQ * D * 2);
+    tc::mbar_expect_tx(q_full, BQ * DP * 2);
     for (int c = 0; c < NB; ++c)
       tc::tma_load_4d(Qs + c * BQ * SW, &maps.q, q_full, c * COLS, q0, h, b);
     for (int it = 0; it < ntiles; ++it) {
@@ -377,7 +397,8 @@ __global__ void __launch_bounds__(288, 1)
     if (live) {
       float sc[NS];
       tc::wgmma_fence();
-      // k16 step kk: box kk / (SW/32), 32 bytes into its rows
+      // k16 step kk: box kk / (SW/32), 32 bytes into its rows; only the
+      // steps over the D real columns
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int box = kk / (SW / 32), off = (kk % (SW / 32)) * 32;
@@ -442,10 +463,10 @@ __global__ void __launch_bounds__(288, 1)
         // V MN-major: 16 keys a step (two atoms), boxes BK * SW apart
         const uint64_t dv =
             tc::desc(v_addr + kk * 16 * SW, BK * SW, 8 * SW, SW);
-        if constexpr (D == 16) tc::wgmma_rs_m64n16k16(o, p[kk], dv);
-        if constexpr (D == 32) tc::wgmma_rs_m64n32k16(o, p[kk], dv);
-        if constexpr (D == 64) tc::wgmma_rs_m64n64k16(o, p[kk], dv);
-        if constexpr (D == 128) tc::wgmma_rs_m64n128k16(o, p[kk], dv);
+        if constexpr (DP == 16) tc::wgmma_rs_m64n16k16(o, p[kk], dv);
+        if constexpr (DP == 32) tc::wgmma_rs_m64n32k16(o, p[kk], dv);
+        if constexpr (DP == 64) tc::wgmma_rs_m64n64k16(o, p[kk], dv);
+        if constexpr (DP == 128) tc::wgmma_rs_m64n128k16(o, p[kk], dv);
       }
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
@@ -465,7 +486,7 @@ __global__ void __launch_bounds__(288, 1)
     const float lsafe = fmaxf(half ? l1 : l0, 1e-30f);
     const float inv = 1.f / lsafe;
 #pragma unroll
-    for (int i = 0; i < NO / 4; ++i)
+    for (int i = 0; i < D / 8; ++i)  // the real columns only
       *reinterpret_cast<uint32_t*>(out + row * D + i * 8 + 2 * t) =
           tc::pack_bf16(o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
     if (t == 0) a.lse[row] = (half ? m1 : m0) * LN2 + logf(lsafe);
@@ -474,7 +495,8 @@ __global__ void __launch_bounds__(288, 1)
 
 // bf16 (D, rows, heads, batch) with element strides sr, D, sb; boxes of
 // sw / 2 columns by box_rows rows, written with the sw-byte swizzle;
-// rows past the end read as zeros.  A dimension of size 1 is never
+// rows past the end, and columns past D in a box that crosses it, read
+// as zeros.  A dimension of size 1 is never
 // stepped: its stride is taken as packed.
 bool make_map(CUtensorMap* map, const void* base, int D, int rows, int heads,
               int batch, long long sr, long long sb, int box_rows, int sw) {
@@ -560,6 +582,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
     case 16: return launch<16>(dtype, a, batch, s);
     case 32: return launch<32>(dtype, a, batch, s);
     case 64: return launch<64>(dtype, a, batch, s);
+    case 80: return launch<80>(dtype, a, batch, s);
     case 128: return launch<128>(dtype, a, batch, s);
   }
   return (int)cudaErrorInvalidValue;

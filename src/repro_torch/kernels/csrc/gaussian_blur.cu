@@ -42,6 +42,21 @@
 // (__fmul_rn/__fadd_rn, no contraction to FMA), vertical pass first,
 // taps in order, so the result equals the plain PyTorch version bit for
 // bit.  Taps ride in the parameter block.
+//
+// Every other window (ksize > 63, or a halo of (ksize / 2) * C floats a
+// side that leaves a 256-thread segment no output float, as ksize 5 over
+// 64 channels does) takes the general route, repro_gaussian_blur_any_f32:
+// the same sums in the same order, rounded the same way, in two plain
+// passes through a scratch image that the caller allocates.  The vertical
+// pass gives one thread one float of one row and walks the ksize rows of
+// its window from global memory (neighbouring threads read neighbouring
+// floats; rows shared by the window of the next output row hit L1/L2);
+// the horizontal pass does the same along the row, reading the scratch
+// image.  Taps are read from device memory, any number of them.
+// Reflect-101 repeats as numpy.pad's does, so a pad as large as the image
+// or larger indexes as the plain version does.  It reads and writes the
+// image twice, not once; it serves windows the engine's queries do not
+// send on their main paths.
 #include <cuda_runtime.h>
 
 namespace {
@@ -194,7 +209,73 @@ bool plan(Geometry& g, int n) {
   return (g.H + g.sh - 1) / g.sh <= 65535;
 }
 
+// ------------------------------------------------------------ any window
+// vertical pass:
+//   tmp[z, y, f] = sum_t taps[t] * in[z, reflect(y - pad + t), f]
+__global__ void __launch_bounds__(THREADS)
+blur_any_vertical(const float* __restrict__ in, float* __restrict__ tmp,
+                  const float* __restrict__ taps, int H, int rowf, int K) {
+  const int f = blockIdx.x * THREADS + threadIdx.x;
+  if (f >= rowf) return;
+  const size_t img_len = (size_t)H * rowf;
+  const float* src = in + blockIdx.z * img_len + f;
+  float* dst = tmp + blockIdx.z * img_len + f;
+  const int pad = K / 2;
+  for (int y = blockIdx.y; y < H; y += gridDim.y) {
+    auto row = [&](int t) {  // input row t of output row y's window
+      return __ldg(src + (size_t)reflect101(y - pad + t, H) * rowf);
+    };
+    float acc = __fmul_rn(__ldg(taps), row(0));
+    for (int t = 1; t < K; ++t)
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(taps + t), row(t)));
+    dst[(size_t)y * rowf] = acc;
+  }
+}
+
+// horizontal pass:
+//   out[z, y, x*C + c] = sum_t taps[t] * tmp[z, y, reflect(x - pad + t)*C + c]
+__global__ void __launch_bounds__(THREADS)
+blur_any_horizontal(const float* __restrict__ tmp, float* __restrict__ out,
+                    const float* __restrict__ taps, int H, int W, int C,
+                    int K) {
+  const int rowf = W * C;
+  const int f = blockIdx.x * THREADS + threadIdx.x;
+  if (f >= rowf) return;
+  const int x = f / C, c = f - x * C;
+  const int pad = K / 2;
+  const size_t img_len = (size_t)H * rowf;
+  for (int y = blockIdx.y; y < H; y += gridDim.y) {
+    const float* src = tmp + blockIdx.z * img_len + (size_t)y * rowf + c;
+    float acc = __fmul_rn(__ldg(taps), src[reflect101(x - pad, W) * C]);
+    for (int t = 1; t < K; ++t)
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(taps + t),
+                                     src[reflect101(x - pad + t, W) * C]));
+    out[blockIdx.z * img_len + (size_t)y * rowf + f] = acc;
+  }
+}
+
 }  // namespace
+
+// Any ksize >= 1 and any C: taps (2, ksize) on the device, vertical then
+// horizontal; tmp is scratch of the image's size.  Returns the
+// cudaError_t of the launches (0 on success).
+extern "C" int repro_gaussian_blur_any_f32(const float* in, float* tmp,
+                                           float* out, int n, int h, int w,
+                                           int c, const float* taps,
+                                           int ksize, void* stream) {
+  if (ksize < 1 || n < 1 || n > 65535 || h < 1 || w < 1 || c < 1 ||
+      (size_t)w * c >= (1u << 31))
+    return (int)cudaErrorInvalidValue;
+  const int rowf = w * c;
+  dim3 grid((rowf + THREADS - 1) / THREADS, h < 65535 ? h : 65535, n);
+  cudaStream_t s = (cudaStream_t)stream;
+  blur_any_vertical<<<grid, THREADS, 0, s>>>(in, tmp, taps, h, rowf, ksize);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  blur_any_horizontal<<<grid, THREADS, 0, s>>>(tmp, out, taps + ksize, h, w,
+                                               c, ksize);
+  return (int)cudaGetLastError();
+}
 
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_gaussian_blur_f32(const float* in, float* out, int n,

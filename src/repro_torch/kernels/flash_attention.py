@@ -4,7 +4,9 @@ Hopper's tensor cores; the operand type picks the route.
 - bfloat16: ``wgmma``.  One CTA per (128-row q tile, head, batch): a
   producer warp keeps 128-key tiles of K and V in flight by TMA, two
   warpgroups of 64 rows take ``S = Q Kᵀ`` with both operands in shared
-  memory, then ``P`` (rounded to bf16) from registers against V.
+  memory, then ``P`` (rounded to bf16) from registers against V.  At
+  head dim 80 the tiles are padded to 128 columns, which TMA fills with
+  zeros past column 80.
 - float32: ``mma.sync`` in 3xTF32 (each operand split into two halves
   rounded to TF32, about 22 bits of it).  One CTA per (64-row q tile, head, batch),
   four warps of 16 rows, 64-key tiles (32 at D = 128) staged by
@@ -31,7 +33,7 @@ from repro_torch.kernels import _build
 
 launches = _build.LaunchCounter("flash_attention")
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head sizes
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's compiled head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _build.declare("flash_attention", "flash_attention.cu", {

@@ -16,11 +16,20 @@ through a shared row buffer to the horizontal taps.  Taps come from
 order of :func:`repro_torch.kernels.ref.gaussian_blur_ref`, vertical
 pass first, with separately rounded multiplies and adds, so the two
 agree to the bit.
+
+That route holds up to ``MAX_KSIZE`` taps in its parameter block and
+needs a 256-float row segment to hold its halo of ``(ksize // 2) * C``
+floats a side (:func:`halo_fits`).  Every other window and channel
+count takes the kernel's general route, also on the card and also
+bit-exact: a vertical and a horizontal pass through a scratch image,
+one float a thread, the taps in device memory.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -28,12 +37,14 @@ from repro_torch.kernels.ref import gaussian_kernel_1d
 
 launches = _build.LaunchCounter("gaussian_blur")
 
-MAX_KSIZE = 63      # taps held in the kernel's parameter block
+MAX_KSIZE = 63      # taps the fast route holds in its parameter block
 
 _build.declare("gaussian_blur", "gaussian_blur.cu", {
     "repro_gaussian_blur_f32": [ctypes.c_void_p, ctypes.c_void_p]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_void_p]})
+                            ctypes.c_int, ctypes.c_void_p],
+    "repro_gaussian_blur_any_f32": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]})
 
 
 def halo_fits(ksize: int, c: int) -> bool:
@@ -41,6 +52,21 @@ def halo_fits(ksize: int, c: int) -> bool:
     each) holds its halo of (ksize // 2) * C floats a side and at least
     one output float."""
     return 256 - 2 * (ksize // 2) * c >= 1
+
+
+def fast_route(ksize: int, c: int) -> bool:
+    """Whether a blur takes the kernel's fast route (taps in the
+    parameter block, window in registers) rather than its general one."""
+    return ksize <= MAX_KSIZE and halo_fits(ksize, c)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(ksize: int, sigma_y: float, sigma_x: float, device: str):
+    """(2, ksize) float32 taps, vertical then horizontal, on ``device``
+    (one host-to-device copy per distinct window)."""
+    return torch.from_numpy(np.stack([gaussian_kernel_1d(ksize, sigma_y),
+                                      gaussian_kernel_1d(ksize, sigma_x)])
+                            ).to(device)
 
 
 def gaussian_blur_cuda(
@@ -55,8 +81,9 @@ def gaussian_blur_cuda(
                          f"on {img.device}")
     if img.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 images, got {img.dtype}")
-    if not 1 <= ksize <= MAX_KSIZE:
-        raise ValueError(f"ksize must be in 1..{MAX_KSIZE}, got {ksize}")
+    ksize = int(ksize)
+    if ksize < 1:
+        raise ValueError(f"ksize must be >= 1, got {ksize}")
     if sigma_y is None:
         sigma_y = sigma_x
     squeeze = img.ndim == 3
@@ -66,22 +93,30 @@ def gaussian_blur_cuda(
         raise ValueError(f"expected (N,H,W,C) or (H,W,C), got {tuple(img.shape)}")
     img = img.contiguous()
     n, h, w, c = img.shape
-    if not halo_fits(ksize, c):
-        raise ValueError(f"the kernel takes (ksize // 2) * C floats of halo "
-                         f"within its segment, not ksize {ksize} at C={c}")
     out = torch.empty_like(img)
-    if out.numel():
+    if not out.numel():
+        return out[0] if squeeze else out
+    lib = _build.load("gaussian_blur")
+    if fast_route(ksize, c):
         ky = (ctypes.c_float * ksize)(
             *map(float, gaussian_kernel_1d(ksize, sigma_y)))
         kx = (ctypes.c_float * ksize)(
             *map(float, gaussian_kernel_1d(ksize, sigma_x)))
-        lib = _build.load("gaussian_blur")
         with torch.cuda.device(img.device):
             stream = torch.cuda.current_stream(img.device).cuda_stream
             err = lib.repro_gaussian_blur_f32(
                 img.data_ptr(), out.data_ptr(), n, h, w, c,
                 ctypes.cast(ky, ctypes.c_void_p),
                 ctypes.cast(kx, ctypes.c_void_p), ksize, stream)
-        _build.check(err, "gaussian_blur")
-        launches.add()
+    else:
+        taps = _device_taps(ksize, float(sigma_y), float(sigma_x),
+                            str(img.device))
+        tmp = torch.empty_like(img)
+        with torch.cuda.device(img.device):
+            stream = torch.cuda.current_stream(img.device).cuda_stream
+            err = lib.repro_gaussian_blur_any_f32(
+                img.data_ptr(), tmp.data_ptr(), out.data_ptr(), n, h, w, c,
+                taps.data_ptr(), ksize, stream)
+    _build.check(err, "gaussian_blur")
+    launches.add()
     return out[0] if squeeze else out

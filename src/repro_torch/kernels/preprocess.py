@@ -15,10 +15,12 @@ the image, and normalize folds into a trailing affine:
 The CUDA kernel (``csrc/preprocess.cu``) computes that per image and
 channel in one launch; the cropped rows of the resize are never
 computed and no intermediate image reaches device memory.  Both
-matrices are banded (a few taps per output pixel), so the wrapper also
-hands the kernel each row's first and last nonzero column, and the
-kernel sums only inside those bands — the same sums as the dense
-products, minus the exact zeros.
+matrices are banded (a few taps per output pixel), so the wrapper hands
+the kernel each one as a tap table (:func:`tap_table`): per output row
+(or column) the first input index and ``P`` weights, ``P`` the widest
+band, padded with exact zeros — the same sums as the dense products,
+minus the exact zeros.  :func:`launch_plan` sizes the kernel's tiles
+from the tables and the batch.
 
 :func:`fused_resize_crop_normalize_ref` is the plain version: the three
 native-table ops composed, as in the JAX package.
@@ -152,24 +154,124 @@ def band_limits(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return lo.astype(np.int32), hi.astype(np.int32)
 
 
+def tap_table(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``m`` (rows, n_in) as ``(start, taps)``: row i equals ``taps[i]``
+    (float32, ``P`` wide, ``P`` the widest band of ``m``) at columns
+    ``start[i] .. start[i] + P - 1`` and zero elsewhere.  Starts never
+    decrease and every window lies inside ``[0, n_in)``, so a row whose
+    band runs into the last column starts early, its taps shifted, and
+    an all-zero row starts where the row before it did."""
+    lo, hi = band_limits(m)
+    rows, n_in = m.shape
+    p = max(1, int((hi - lo + 1).max(initial=0)))
+    start = np.maximum.accumulate(np.where(hi >= lo, lo, 0))
+    start = np.minimum(start, n_in - p).astype(np.int32)
+    taps = np.ascontiguousarray(
+        m[np.arange(rows)[:, None], start[:, None] + np.arange(p)])
+    # the windows must hold every nonzero (bands that step backwards
+    # would break this; the kernel's shared tiles rely on it)
+    if not np.array_equal(dense_from_taps(start, taps, n_in), m):
+        raise ValueError("interpolation matrix bands are not monotone")
+    return start, taps
+
+
+def dense_from_taps(start: np.ndarray, taps: np.ndarray,
+                    n_in: int) -> np.ndarray:
+    """The (rows, n_in) matrix a tap table stands for."""
+    out = np.zeros((taps.shape[0], n_in), np.float32)
+    out[np.arange(taps.shape[0])[:, None],
+        start[:, None] + np.arange(taps.shape[1])] = taps
+    return out
+
+
 # ------------------------------------------------------------ the kernel
 launches = _build.LaunchCounter("fused_resize_crop_normalize")
 
-_MAX_C = 4          # per-thread accumulators of csrc/preprocess.cu
+THREADS = 256                 # a CTA of csrc/preprocess.cu
+DIRECT_ROWS = 4               # output rows a thread of the direct route sums
+MAX_ROWS = 8                  # output rows a strip holds at most
+TILE_FLOATS = 4 * THREADS     # floats a tile row holds at most: 4 a thread
+TARGET_CTAS = 2 * 132         # two CTAs an SM of an H100 (the kernel's
+#                               occupancy), at the least
+
+
+@functools.lru_cache(maxsize=64)
+def _tables(h_in: int, w_in: int, h_res: int, w_res: int, method: str,
+            cx: int, cy: int, cw: int, ch: int):
+    """Both tap tables of a geometry: ``(y_start, y_taps), (x_start,
+    x_taps)``."""
+    ry, rx = _cropped_matrices(h_in, w_in, h_res, w_res, method,
+                               cx, cy, cw, ch)
+    return tap_table(ry), tap_table(rx)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_operands(h_in: int, w_in: int, h_res: int, w_res: int,
                      method: str, cx: int, cy: int, cw: int, ch: int,
                      device: str):
-    """The cropped matrices and their band limits, on ``device`` (one
-    host→device copy per distinct geometry)."""
-    ry, rx = _cropped_matrices(h_in, w_in, h_res, w_res, method,
-                               cx, cy, cw, ch)
-    ry_lo, ry_hi = band_limits(ry)
-    rx_lo, rx_hi = band_limits(rx)
-    return tuple(torch.tensor(a, device=device)
-                 for a in (ry, rx, ry_lo, ry_hi, rx_lo, rx_hi))
+    """Both tap tables on ``device`` (one host→device copy per distinct
+    geometry): y starts, y taps, x starts, x taps."""
+    (ys, yt), (xs, xt) = _tables(h_in, w_in, h_res, w_res, method,
+                                 cx, cy, cw, ch)
+    return tuple(torch.from_numpy(a).to(device) for a in (ys, yt, xs, xt))
+
+
+def launch_plan(n: int, hc: int, wc: int, c: int, x_start: np.ndarray,
+                py: int, px: int) -> dict:
+    """How the kernel runs.  Two taps on both axes (every bilinear
+    upsample) take the direct route: a thread per output float of a row,
+    ``DIRECT_ROWS`` rows each.  A window over ``TILE_FLOATS`` taps on
+    either axis takes the wide route (below).  Any other taps take the
+    tiled route: a CTA owns ``rows`` output rows by ``cols`` output
+    columns of ``cb`` channels of one image; a row of its tile holds
+    ``ld`` floats (the widest ``span`` of input columns a segment reads,
+    times ``cb``).  Strips start at 8 rows and segments at the whole
+    width; a tile row over ``TILE_FLOATS`` narrows the segments, then the
+    channel groups; a launch of fewer than ``TARGET_CTAS`` CTAs shortens
+    strips to 4 rows, then narrows segments to about 64 floats, then
+    shortens strips to 1 row.  The wide route runs two plain passes
+    through a scratch image of the input columns ``xlo .. x1 - 1`` that
+    the windows cover."""
+    if py == 2 and px == 2:
+        return {"route": "direct",
+                "grid": (-(-wc * c // THREADS), -(-hc // DIRECT_ROWS), n)}
+
+    def span(cols):   # widest run of input columns a segment reads
+        j0 = np.arange(0, wc, cols)
+        j1 = np.minimum(j0 + cols, wc) - 1
+        return int((x_start[j1] + px - x_start[j0]).max())
+
+    def ctas(rows, cols, cb):
+        return n * -(-hc // rows) * -(-wc // cols) * -(-c // cb)
+
+    if px > TILE_FLOATS or py > TILE_FLOATS:
+        return {"route": "wide", "xlo": int(x_start[0]),
+                "x1": int(x_start[-1]) + px}
+    rows, cols, cb = min(MAX_ROWS, hc), wc, c
+    while span(cols) * cb > TILE_FLOATS:
+        if cols > 1:
+            cols = -(-cols // 2)
+        else:
+            cb = -(-cb // 2)
+    while ctas(rows, cols, cb) < TARGET_CTAS:
+        if rows > 4:
+            rows //= 2
+        elif cols * cb > 64 and cols > 1:
+            cols = -(-cols // 2)
+        elif rows > 1:
+            rows //= 2
+        else:
+            break
+    return {"route": "tiled", "rows": rows, "cols": cols, "cb": cb,
+            "ld": span(cols) * cb,
+            "grid": (-(-wc // cols), -(-hc // rows), n * -(-c // cb))}
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(geometry: tuple, n: int, c: int) -> dict:
+    (_, yt), (xs, xt) = _tables(*geometry)
+    return launch_plan(n, yt.shape[0], xt.shape[0], c, xs, yt.shape[1],
+                       xt.shape[1])
 
 
 def fused_resize_crop_normalize_cuda(
@@ -191,30 +293,46 @@ def fused_resize_crop_normalize_cuda(
     if img.ndim != 4:
         raise ValueError(f"expected (N,H,W,C) or (H,W,C), got {tuple(img.shape)}")
     n, hi, wi, c = img.shape
-    if not 1 <= c <= _MAX_C:
-        raise ValueError(f"the kernel takes 1..{_MAX_C} channels, got {c}")
     img = img.contiguous()
-    ry, rx, ry_lo, ry_hi, rx_lo, rx_hi = _device_operands(
-        hi, wi, resize_h, resize_w, _canonical_method(method),
-        crop_x, crop_y, crop_w, crop_h, str(img.device))
-    hc, wc = ry.shape[0], rx.shape[0]
+    geometry = (hi, wi, resize_h, resize_w, _canonical_method(method),
+                crop_x, crop_y, crop_w, crop_h)
+    (_, yt), (xs, xt) = _tables(*geometry)
+    hc, wc = yt.shape[0], xt.shape[0]
     out = torch.empty((n, hc, wc, c), dtype=torch.float32, device=img.device)
-    if out.numel():
-        lib = _build.load("preprocess")
-        with torch.cuda.device(img.device):
-            stream = torch.cuda.current_stream(img.device).cuda_stream
-            err = lib.repro_preprocess_f32(
-                img.data_ptr(), ry.data_ptr(), rx.data_ptr(),
-                ry_lo.data_ptr(), ry_hi.data_ptr(),
-                rx_lo.data_ptr(), rx_hi.data_ptr(), out.data_ptr(),
-                n, hi, wi, c, hc, wc, float(mean), float(std), stream)
-        _build.check(err, "fused_resize_crop_normalize")
-        launches.add()
+    if not out.numel():
+        return out[0] if squeeze else out
+    plan = _plan(geometry, n, c)
+    y_start, y_taps, x_start, x_taps = _device_operands(
+        *geometry, str(img.device))
+    lib = _build.load("preprocess")
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        if plan["route"] == "wide":
+            tmp = torch.empty(n * hc * (plan["x1"] - plan["xlo"]) * c,
+                              dtype=torch.float32, device=img.device)
+            err = lib.repro_preprocess_wide_f32(
+                img.data_ptr(), tmp.data_ptr(), out.data_ptr(),
+                y_start.data_ptr(), y_taps.data_ptr(), x_start.data_ptr(),
+                x_taps.data_ptr(), n, hi, wi, c, hc, wc, yt.shape[1],
+                xt.shape[1], plan["xlo"], plan["x1"], float(mean),
+                float(std), stream)
+        else:
+            err = lib.repro_preprocess_taps_f32(
+                img.data_ptr(), out.data_ptr(), y_start.data_ptr(),
+                y_taps.data_ptr(), x_start.data_ptr(), x_taps.data_ptr(),
+                n, hi, wi, c, hc, wc, yt.shape[1], xt.shape[1],
+                int(plan["route"] == "direct"),
+                *(plan.get(k, 0) for k in ("rows", "cols", "cb", "ld")),
+                float(mean), float(std), stream)
+    _build.check(err, "fused_resize_crop_normalize")
+    launches.add()
     return out[0] if squeeze else out
 
 
 _build.declare("preprocess", "preprocess.cu", {
-    "repro_preprocess_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    "repro_preprocess_taps_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "repro_preprocess_wide_f32": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]})
 
 

@@ -34,15 +34,20 @@ def _wkv(B, T, H, K, itemsize, dtype):
     return cs.bound(*cs.wkv_work(B, T, H, K, K, itemsize), dtype)
 
 
-def _preprocess():
-    """K2 at the device backend's batch: 32 faces of 250x250 resized to
-    256x256 (bilinear) and cropped to 224x224 at (16, 16)."""
+def _preprocess(shape=(32, 250, 250, 3), kw=None):
+    """K2, by default at the device backend's batch: 32 faces of 250x250
+    resized to 256x256 (bilinear) and cropped to 224x224 at (16, 16)."""
     from repro_torch.kernels import preprocess as pp
-    ry, rx = pp._cropped_matrices(250, 250, 256, 256,
-                                  pp._canonical_method("bilinear"),
-                                  16, 16, 224, 224)
-    nbytes, flops = cs.preprocess_work(32, 250, 224, 224, ry.shape[0],
-                                       int((ry != 0).sum()),
+    kw = kw or cs.K2_MAIN
+    n, h, w, c = shape
+    geometry = (h, w, kw["resize_h"], kw["resize_w"],
+                pp._canonical_method(kw["method"]), kw["crop_x"],
+                kw["crop_y"], kw["crop_w"], kw["crop_h"])
+    ry, rx = pp._cropped_matrices(*geometry)
+    (_, yt), (_, xt) = pp._tables(*geometry)
+    nbytes, flops = cs.preprocess_work(n, h, w, c, yt.shape[0],
+                                       xt.shape[0], yt.shape[1],
+                                       xt.shape[1], int((ry != 0).sum()),
                                        int((rx != 0).sum()))
     return cs.bound(nbytes, 0, flops, F32)
 
@@ -65,10 +70,24 @@ def _preprocess():
     ("K1 (1,224,224,3) k9", 0.000359, "bytes"),
     ("K1 (1,250,250,3) k5", 0.000448, "bytes"),
     ("K1 (1,1080,1920,3) k5", 0.014856, "bytes"),
-    ("K2 (32,250,250,3)", 0.013049, "bytes"),
+    ("K2 (32,250,250,3)", 0.012917, "bytes"),
     ("K5 f32", 0.105173, "bytes"),
     ("K5 f32 at the UDF's 3 tokens", 0.002800, "bytes"),
     ("K5 bf16", 0.065108, "bytes"),
+    # K3 at zamba2's attention past 1024 slots: q (2,1536,32,80) against
+    # 1553 slots, causal
+    ("K3 f32 at head dim 80", 0.146515, "products"),
+    ("K3 bf16 at head dim 80", 0.024444, "products"),
+    # K1's general route: 99 taps a pass outlast the image's bytes; a
+    # 64-channel map at 5 taps does not
+    ("K1 (1,250,250,3) k99", 0.001108, "other"),
+    ("K1 (1,224,224,64) k5", 0.007669, "bytes"),
+    # K2 at one image, a 1080p frame to 224 (lanczos3), 8 channels, and
+    # the 1080p frame to 8 x 8 (lanczos3, windows of 1,440 columns)
+    ("K2 (1,250,250,3)", 0.000405, "bytes"),
+    ("K2 (1,1080,1920,3) lanczos3", 0.007630, "bytes"),
+    ("K2 (4,250,250,8)", 0.004307, "bytes"),
+    ("K2 (1,1080,1920,3) lanczos3 to 8x8", 0.007450, "bytes"),
 ])
 def test_bound_of_each_kernel_row(row, want_ms, want_by):
     got = {
@@ -89,6 +108,18 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
         "K5 f32": lambda: _wkv(16, 512, 32, 64, 4, F32),
         "K5 f32 at the UDF's 3 tokens": lambda: _wkv(8, 3, 32, 64, 4, F32),
         "K5 bf16": lambda: _wkv(16, 512, 32, 64, 2, BF16),
+        "K3 f32 at head dim 80": lambda: _attn(2, 1536, 1553, 32, 32, 80, 0,
+                                               4, F32),
+        "K3 bf16 at head dim 80": lambda: _attn(2, 1536, 1553, 32, 32, 80,
+                                                0, 2, BF16),
+        "K1 (1,250,250,3) k99": lambda: _blur((1, 250, 250, 3), 99),
+        "K1 (1,224,224,64) k5": lambda: _blur((1, 224, 224, 64), 5),
+        "K2 (1,250,250,3)": lambda: _preprocess((1, 250, 250, 3)),
+        "K2 (1,1080,1920,3) lanczos3": lambda: _preprocess(
+            (1, 1080, 1920, 3), cs.K2_1080P),
+        "K2 (4,250,250,8)": lambda: _preprocess((4, 250, 250, 8)),
+        "K2 (1,1080,1920,3) lanczos3 to 8x8": lambda: _preprocess(
+            (1, 1080, 1920, 3), cs.K2_WIDE),
     }[row]()
     assert got[1] == want_by
     assert got[0] == pytest.approx(want_ms, abs=5e-7)

@@ -4,9 +4,10 @@ test here is marked ``cuda`` and skips on a host without a card; on a
 card's host run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``
 (this file imports no JAX, so it needs only the port).
 
-Tolerances (absolute, float32 images in [0, 1]): blur kernel exact (the
-same taps in the same order, rounded separately), fused preprocess
-kernel 1e-4 (band sums in another order than the composed products).
+Tolerances (absolute, float32 images in [0, 1]): blur kernel exact on
+both of its routes (the same taps in the same order, rounded
+separately), fused preprocess kernel 1e-4 (tap-table sums in another
+order than the composed products).
 Mamba2 SSD kernel: 5e-4 in float32 (chunk sums of up to 128 products in
 another order than cuBLAS, on outputs of magnitude up to about 10), and
 in bfloat16 5e-2 plus one bfloat16 rounding step (2^-7 relative), since
@@ -44,6 +45,11 @@ PREPROCESS_CASES = [
     ((1, 20, 20), (33, 27), (-4, 50, 8, 9), "cubic"),        # start clamps
     ((3, 250, 250), (256, 256), (16, 16, 224, 224), "bilinear"),
     ((1, 1080, 1920), (224, 224), (0, 0, 224, 224), "lanczos3"),
+    ((1, 250, 250), (256, 256), (16, 16, 224, 224), "bilinear"),
+    ((32, 250, 250), (256, 256), (16, 16, 224, 224), "bilinear"),
+    # the wide route: windows of 1,440 columns, of 1,650 rows
+    ((1, 1080, 1920), (8, 8), (0, 0, 8, 8), "lanczos3"),
+    ((2, 2200, 6), (2, 6), (0, 0, 6, 2), "linear"),
 ]
 
 
@@ -72,7 +78,15 @@ def _uniform(seed, shape, device):
     # 15 with the tap count at run time; a 1-row image
     ((2, 61, 37, 3), 3, 0.0), ((1, 40, 70, 3), 15, 3.0),
     ((1, 33, 29, 2), 6, 1.2), ((1, 90, 64, 3), 21, 4.0),
-    ((1, 1, 17, 3), 5, 1.5)])
+    ((1, 1, 17, 3), 5, 1.5),
+    # the general route: windows past 63 taps, halos of (ksize // 2) * C
+    # > 127 floats, pads as large as the image or larger
+    ((1, 40, 70, 3), 64, 0.0), ((2, 37, 45, 3), 65, 10.0),
+    ((1, 250, 250, 3), 99, 0.0), ((1, 30, 20, 2), 127, 20.0),
+    ((1, 224, 224, 64), 5, 1.5), ((2, 12, 10, 8), 33, 0.0),
+    ((1, 1, 1, 3), 65, 0.0),
+    # the fast route with a pad past H and W
+    ((1, 3, 4, 3), 11, 2.0), ((1, 2, 3, 1), 9, 0.0)])
 def test_blur_kernel_matches_plain(cuda, shape, ksize, sigma):
     from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda, launches
     x = _uniform(ksize, shape, cuda)
@@ -102,6 +116,85 @@ def test_preprocess_kernel_matches_plain(cuda, shape, res, crop, method):
     assert pp.launches.count == before + 1
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("shape,res,crop,method", [
+    ((2, 250, 250), (256, 256), (16, 16, 224, 224), "bilinear"),
+    ((1, 64, 50), (16, 12), (0, 0, 16, 12), "linear"),
+    ((1, 40, 48), (24, 20), (10, 12, 30, 30), "lanczos3"),
+])
+def test_preprocess_kernel_takes_any_channel_count(cuda, c, shape, res, crop,
+                                                   method):
+    """K2 at 1-8 channels (the dense-matrix kernel before the tap
+    tables took at most 4), also on an image read at an offset from its
+    allocation."""
+    kw = dict(resize_h=res[0], resize_w=res[1], method=method,
+              crop_x=crop[0], crop_y=crop[1], crop_w=crop[2],
+              crop_h=crop[3], mean=0.45, std=0.22)
+    x = _uniform(c + sum(shape), shape + (c,), cuda)
+    for img in (x, x[-1]):
+        before = pp.launches.count
+        got = pp.fused_resize_crop_normalize_cuda(img, **kw)
+        want = pp.fused_resize_crop_normalize_ref(img, **kw)
+        torch.cuda.synchronize()
+        assert pp.launches.count == before + 1
+        assert got.shape == want.shape and got.shape[-1] == c
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,res,crop,method", [
+    ((1, 8, 2100, 1), (4, 2), (0, 0, 2, 4), "lanczos3"),
+    ((2, 2200, 6, 300), (2, 6), (0, 0, 6, 2), "linear"),
+    ((1, 1500, 40, 3), (3, 40), (0, 0, 40, 3), "cubic"),
+    ((8, 1080, 1920, 1), (64, 8), (0, 0, 8, 64), "lanczos3"),
+])
+def test_preprocess_kernel_takes_any_window(cuda, shape, res, crop, method):
+    """K2's wide route, for windows of over 1,024 columns or rows: one
+    channel, 300 channels, a tall window beside a short one, and a batch
+    of 8 to 64 x 8."""
+    kw = dict(resize_h=res[0], resize_w=res[1], method=method,
+              crop_x=crop[0], crop_y=crop[1], crop_w=crop[2],
+              crop_h=crop[3], mean=0.45, std=0.22)
+    geometry = (shape[1], shape[2], res[0], res[1],
+                pp._canonical_method(method), *crop)
+    assert pp._plan(geometry, shape[0], shape[3])["route"] == "wide"
+    x = _uniform(sum(shape), shape, cuda)
+    before = pp.launches.count
+    got = pp.fused_resize_crop_normalize_cuda(x, **kw)
+    want = pp.fused_resize_crop_normalize_ref(x, **kw)
+    torch.cuda.synchronize()
+    assert pp.launches.count == before + 1
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_their_kernels_cannot_take(cuda):
+    """No wrapper falls back to its plain version on the card: what its
+    kernel cannot take raises."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
+    q = torch.zeros(1, 8, 2, 96, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), q.half(), q.half())
+    img = torch.zeros(1, 8, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="ksize"):
+        gaussian_blur_cuda(img, 0, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        gaussian_blur_cuda(img.double(), 5, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        pp.fused_resize_crop_normalize_cuda(
+            img.double(), resize_h=4, resize_w=4, crop_x=0, crop_y=0,
+            crop_w=4, crop_h=4)
+    with pytest.raises(ValueError, match="expected"):
+        pp.fused_resize_crop_normalize_cuda(
+            img[0, 0], resize_h=4, resize_w=4, crop_x=0, crop_y=0,
+            crop_w=4, crop_h=4)
 
 
 @pytest.mark.cuda
@@ -446,6 +539,36 @@ def test_reduced_model_on_the_card_goes_through_its_kernel(cuda, arch,
 
 
 @pytest.mark.cuda
+def test_reduced_zamba2_at_head_dim_80_beyond_1024_slots_on_the_card(cuda):
+    """Reduced zamba2 with the full model's attention head dim (80):
+    prefill into a cache of more than 1024 slots and a decode step on
+    the card go through K3 at D = 80 (by launch count) and agree with
+    the same model on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_map
+    cfg = get_arch("zamba2-2.7b", reduced=True).replace(head_dim=80)
+    api = get_model(cfg)
+    host = api.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda), host)
+    S = 1100
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32))
+    before = fa.launches.count, ssd.launches.count
+    lg, cache = api.prefill(card, {"tokens": toks.to(cuda)}, REPLICATED,
+                            S + 4)
+    assert fa.launches.count > before[0] and ssd.launches.count > before[1]
+    lg, _ = api.decode_step(card, toks[:, -1:].to(cuda), cache, S,
+                            REPLICATED)
+    lh, hcache = api.prefill(host, {"tokens": toks}, REPLICATED, S + 4)
+    lh, _ = api.decode_step(host, toks[:, -1:], hcache, S, REPLICATED)
+    assert float((lg.cpu() - lh).abs().max()) <= 3e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32-mma.sync-3xTF32", "bf16-wgmma"])
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,q_offset,causal", [
@@ -457,6 +580,10 @@ def test_reduced_model_on_the_card_goes_through_its_kernel(cuda, arch,
     (1, 40, 40, 2, 1, 128, 0, True),       # fewer keys than one tile
     (1, 130, 40, 4, 4, 32, 0, False),      # the same, not causal
     (2, 77, 200, 8, 4, 128, 123, True),    # q_offset, ragged rows
+    (1, 130, 130, 8, 2, 80, 0, True),      # D 80 (zamba2), group 4
+    (2, 77, 200, 8, 4, 80, 123, True),     # D 80, q_offset, ragged rows
+    (1, 130, 40, 4, 4, 80, 0, False),      # D 80, not causal
+    (1, 1100, 1105, 4, 2, 80, 0, True),    # D 80 beyond 1024 positions
 ])
 def test_flash_kernel_tilings(cuda, dtype, B, Sq, Sk, H, Hkv, D, q_offset,
                               causal):

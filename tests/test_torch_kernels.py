@@ -25,6 +25,7 @@ Tolerances (absolute, float32 images in [0, 1]):
   (absolute and relative) in bfloat16, the JAX package's tolerances for
   its flash kernel against the naive oracle.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +93,26 @@ def test_blur_preserves_mean_and_batches():
     np.testing.assert_array_equal(out[1].numpy(), one.numpy())
 
 
+@pytest.mark.parametrize("shape,ksize,sigma", [
+    ((1, 30, 140, 2), 65, 0.0),    # past the fast route's 63 taps
+    ((1, 20, 23, 1), 99, 12.0),
+    ((1, 12, 9, 3), 127, 0.0),     # pad 63: past H and W, repeated
+    ((2, 16, 18, 64), 5, 1.5),     # (ksize // 2) * C = 128 floats of halo
+    ((1, 3, 4, 3), 11, 2.0),       # pad 5 >= H and >= W
+    ((1, 1, 5, 2), 64, 0.0),       # one row, an even window
+])
+def test_blur_plain_matches_jax_at_any_window(shape, ksize, sigma):
+    """The windows and channel counts that the CUDA kernel's general
+    route serves: the plain version against the JAX package's
+    reference (under ``jit``: one compile, where run op by op every
+    slice of the window compiles apart)."""
+    img = _uniform(ksize, shape)
+    blur = jax.jit(jref.gaussian_blur_ref, static_argnums=(1, 2))
+    want = np.asarray(blur(jnp.asarray(img), ksize, sigma))
+    got = tops.gaussian_blur(torch.from_numpy(img), ksize, sigma).numpy()
+    np.testing.assert_allclose(got, want, atol=BLUR_TOL, rtol=0)
+
+
 # --------------------------------------------------------------- resize
 METHODS = ["nearest", "linear", "bilinear", "cubic", "lanczos3", "lanczos5"]
 
@@ -150,6 +171,257 @@ def test_fused_preprocess_plain_matches_pallas(shape, res, crop, method):
                         rx.astype(np.float64)) - np.float32(0.45)) \
         / np.float32(0.22)
     np.testing.assert_allclose(got, folded, atol=PREPROCESS_TOL, rtol=0)
+
+
+def _k2_mirror(img, tables, plan, mean, std):
+    """The CUDA kernel's order in float64, CTA by CTA with its index
+    arithmetic (``csrc/preprocess.cu``): on the tiled route each tile's
+    vertical pass over the tap table's windows into a shared tile, then
+    its horizontal pass and the affine; on the direct route each
+    thread's 2 x 2 windows; on the wide route its two passes.  Checks
+    that every read lies inside the image and the tile, and that every
+    output is written once."""
+    (ys, yt), (xs, xt) = tables
+    n, hi, wi, c = img.shape
+    hc, py = yt.shape
+    wc, px = xt.shape
+    if plan["route"] == "direct":
+        return _k2_direct_mirror(img, tables, plan, mean, std)
+    if plan["route"] == "wide":
+        return _k2_wide_mirror(img, tables, plan, mean, std)
+    rows_, cols_, cb_, ld = (plan[k] for k in ("rows", "cols", "cb", "ld"))
+    ncg = -(-c // cb_)
+    assert plan["grid"] == (-(-wc // cols_), -(-hc // rows_), n * ncg)
+    flat = img.astype(np.float64).reshape(-1)
+    out = np.zeros(n * hc * wc * c)
+    written = np.zeros(out.size, np.int64)
+    rowf, orow = wi * c, wc * c
+    for bz in range(n * ncg):
+        nn = bz // ncg
+        c0 = (bz - nn * ncg) * cb_
+        cb = min(cb_, c - c0)
+        packed = cb == c
+        for by in range(plan["grid"][1]):
+            i0 = by * rows_
+            rows = min(rows_, hc - i0)
+            for bx in range(plan["grid"][0]):
+                j0 = bx * cols_
+                cols = min(cols_, wc - j0)
+                xlo = xs[j0]
+                width = (xs[j0 + cols - 1] + px - xlo) * cb
+                assert width <= ld
+                g = np.arange(width)
+                off = g if packed else (g // cb) * c + g % cb
+                base = nn * hi * rowf + xlo * c + c0
+                tile = np.zeros((rows, ld))
+                for r in range(rows):
+                    i = i0 + r
+                    idx = [base + off + (ys[i] + p) * rowf for p in range(py)]
+                    assert min(a.min() for a in idx) >= 0
+                    assert max(a.max() for a in idx) < flat.size
+                    tile[r, :width] = sum(np.float64(yt[i, p]) * flat[idx[p]]
+                                          for p in range(py))
+                f = np.arange(cols * cb)
+                jj, cc = f // cb, f % cb
+                j = j0 + jj
+                t = (xs[j] - xlo) * cb + cc
+                assert t.min() >= 0 and (t + (px - 1) * cb).max() < width
+                o = (nn * hc + i0) * orow + j0 * c + c0 \
+                    + (f if packed else jj * c + cc)
+                for r in range(rows):
+                    acc = sum(xt[j, p].astype(np.float64) * tile[r, t + p * cb]
+                              for p in range(px))
+                    out[o + r * orow] = (acc - np.float32(mean)) \
+                        / np.float32(std)
+                    written[o + r * orow] += 1
+    assert np.all(written == 1)
+    return out.reshape(n, hc, wc, c)
+
+
+def _k2_wide_mirror(img, tables, plan, mean, std):
+    """The wide route: a vertical pass over the scratch image's columns
+    ``xlo .. x1 - 1``, a thread per scratch float, then a horizontal pass
+    and the affine, a thread per output float."""
+    (ys, yt), (xs, xt) = tables
+    n, hi, wi, c = img.shape
+    hc, py = yt.shape
+    wc, px = xt.shape
+    xlo, x1 = plan["xlo"], plan["x1"]
+    assert 0 <= xlo and x1 <= wi and x1 - xlo >= px
+    rowt, rowf = (x1 - xlo) * c, wi * c
+    flat = img.astype(np.float64).reshape(-1)
+    tmp = np.zeros((n, hc, rowt))
+    f = np.arange(rowt)
+    for nn in range(n):
+        for i in range(hc):
+            idx = (nn * hi + ys[i]) * rowf + xlo * c + f
+            assert idx.min() >= 0 and idx.max() + (py - 1) * rowf < flat.size
+            tmp[nn, i] = sum(np.float64(yt[i, p]) * flat[idx + p * rowf]
+                             for p in range(py))
+    f = np.arange(wc * c)
+    j, cc = f // c, f % c
+    t = (xs[j] - xlo) * c + cc
+    assert t.min() >= 0 and (t + (px - 1) * c).max() < rowt
+    acc = sum(xt[j, p].astype(np.float64) * tmp[:, :, t + p * c]
+              for p in range(px))
+    out = (acc - np.float32(mean)) / np.float32(std)
+    return out.reshape(n, hc, wc, c)
+
+
+def _k2_direct_mirror(img, tables, plan, mean, std):
+    (ys, yt), (xs, xt) = tables
+    n, hi, wi, c = img.shape
+    hc, wc = yt.shape[0], xt.shape[0]
+    assert yt.shape[1] == xt.shape[1] == 2
+    rows, rowc, rowf = tpp.DIRECT_ROWS, wc * c, wi * c
+    assert plan["grid"] == (-(-rowc // tpp.THREADS), -(-hc // rows), n)
+    flat = img.astype(np.float64).reshape(-1)
+    out = np.zeros(n * hc * rowc)
+    written = np.zeros(out.size, np.int64)
+    f = np.arange(plan["grid"][0] * tpp.THREADS)
+    f = f[f < rowc]
+    j, cc = f // c, f % c
+    for nn in range(n):
+        for by in range(plan["grid"][1]):
+            i0 = by * rows
+            base = nn * hi * rowf + xs[j] * c + cc
+            for r in range(rows):
+                i = min(i0 + r, hc - 1)
+                s0 = base + ys[i] * rowf
+                assert s0.min() >= 0 and (s0 + rowf + c).max() < flat.size
+                t0 = yt[i, 0] * flat[s0] + yt[i, 1] * flat[s0 + rowf]
+                t1 = yt[i, 0] * flat[s0 + c] + yt[i, 1] * flat[s0 + rowf + c]
+                v = xt[j, 0] * t0 + xt[j, 1] * t1
+                if i0 + r < hc:
+                    o = (nn * hc + i0 + r) * rowc + f
+                    out[o] = (v - np.float32(mean)) / np.float32(std)
+                    written[o] += 1
+    assert np.all(written == 1)
+    return out.reshape(n, hc, wc, c)
+
+
+TAP_GEOMETRIES = [
+    # (H, W), resize (h, w), crop (x, y, w, h)
+    ((250, 250), (256, 256), (16, 16, 224, 224)),    # the device backend's
+    ((64, 50), (16, 12), (0, 0, 16, 12)),            # antialiased downsample
+    ((40, 48), (24, 20), (10, 12, 30, 30)),          # clamped crop
+    ((20, 20), (33, 27), (-4, 50, 8, 9)),            # start clamps
+    ((31, 29), (40, 36), (3, 5, 20, 24)),            # odd sizes
+    ((9, 9), (9, 5), (0, 0, 9, 5)),                  # one axis unchanged
+]
+
+
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("geometry", TAP_GEOMETRIES)
+def test_tap_tables_rebuild_the_cropped_matrices(method, geometry):
+    """K2's tap tables stand for exactly the cropped interpolation
+    matrices: rebuilt dense, they equal them bit for bit; the windows are
+    monotone and lie inside the image."""
+    (h, w), (rh, rw), (cx, cy, cw, ch) = geometry
+    m = tpp._canonical_method(method)
+    dense = tpp._cropped_matrices(h, w, rh, rw, m, cx, cy, cw, ch)
+    for mat, (start, taps), n_in in zip(
+            dense, tpp._tables(h, w, rh, rw, m, cx, cy, cw, ch), (h, w)):
+        np.testing.assert_array_equal(
+            tpp.dense_from_taps(start, taps, n_in), mat)
+        assert taps.dtype == np.float32 and start.dtype == np.int32
+        assert np.all(np.diff(start) >= 0)
+        assert start.min() >= 0 and start.max() + taps.shape[1] <= n_in
+        lo, hi = tpp.band_limits(mat)
+        assert taps.shape[1] == max(1, int((hi - lo + 1).max()))
+
+
+K2_MIRROR_CASES = [(shape + (3,), res, crop, method, None)
+                   for shape, res, crop, method in PREPROCESS_CASES] + [
+    # any channel count
+    ((2, 31, 29, 1), (40, 36), (3, 5, 20, 24), "bilinear", None),
+    ((1, 40, 48, 5), (24, 20), (10, 12, 30, 30), "lanczos3", None),
+    ((2, 64, 50, 8), (16, 12), (0, 0, 16, 12), "linear", None),
+    # tiles the kernel takes elsewhere: strips, segments, channel groups
+    ((2, 31, 29, 5), (40, 36), (3, 5, 20, 24), "bilinear",
+     dict(rows=3, cols=7, cb=2)),
+    ((1, 40, 48, 8), (24, 20), (10, 12, 30, 30), "cubic",
+     dict(rows=1, cols=1, cb=3)),
+    # the wide route: a window over 1,024 columns, one over 1,024 rows,
+    # and a small geometry sent through it
+    ((1, 8, 2100, 1), (4, 2), (0, 0, 2, 4), "lanczos3", None),
+    ((1, 2200, 6, 2), (2, 6), (0, 0, 6, 2), "linear", None),
+    ((1, 40, 48, 5), (24, 20), (10, 12, 30, 30), "lanczos3",
+     dict(route="wide")),
+]
+
+
+@pytest.mark.parametrize("shape,res,crop,method,tiles", K2_MIRROR_CASES)
+def test_k2_tiled_order_matches_pallas(shape, res, crop, method, tiles):
+    """The fused kernel's order and tiling, mirrored in float64 on the
+    host, against the Pallas kernel in interpret mode, at any channel
+    count and under the kernel's launch plan (or the tiles given, on the
+    tiled route)."""
+    img = _uniform(sum(shape), shape)
+    kw = dict(resize_h=res[0], resize_w=res[1], method=method,
+              crop_x=crop[0], crop_y=crop[1], crop_w=crop[2],
+              crop_h=crop[3], mean=0.45, std=0.22)
+    want = np.asarray(jpp.fused_resize_crop_normalize_pallas(
+        jnp.asarray(img), interpret=True, **kw))
+    tables = tpp._tables(shape[1], shape[2], res[0], res[1],
+                         tpp._canonical_method(method), *crop)
+    (_, yt), (xs, xt) = tables
+    n, c = shape[0], shape[3]
+    plan = tpp.launch_plan(n, yt.shape[0], xt.shape[0], c, xs, yt.shape[1],
+                           xt.shape[1])
+    if tiles and tiles.get("route") == "wide":
+        plan = {"route": "wide", "xlo": int(xs[0]),
+                "x1": int(xs[-1]) + xt.shape[1]}
+    elif tiles:
+        rows, cols, cb = tiles["rows"], tiles["cols"], tiles["cb"]
+        span = max(xs[min(j + cols, xt.shape[0]) - 1] + xt.shape[1] - xs[j]
+                   for j in range(0, xt.shape[0], cols))
+        plan = {**tiles, "route": "tiled", "ld": int(span) * cb,
+                "grid": (-(-xt.shape[0] // cols), -(-yt.shape[0] // rows),
+                         n * -(-c // cb))}
+    got = _k2_mirror(img, tables, plan, 0.45, 0.22)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=PREPROCESS_TOL, rtol=0)
+    # the plain version, at the same channel count
+    plain = tops.fused_preprocess(torch.from_numpy(img), **kw).numpy()
+    np.testing.assert_allclose(plain, want, atol=PREPROCESS_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("n,size,res,crop,method,c", [
+    (32, (250, 250), (256, 256), (16, 16, 224, 224), "bilinear", 3),
+    (1, (250, 250), (256, 256), (16, 16, 224, 224), "bilinear", 3),
+    (1, (1080, 1920), (224, 224), (0, 0, 224, 224), "lanczos3", 3),
+    (4, (250, 250), (256, 256), (16, 16, 224, 224), "bilinear", 8),
+    (2, (1080, 1920), (224, 224), (0, 0, 224, 224), "lanczos3", 64),
+    (1, (250, 250), (224, 224), (0, 0, 224, 224), "linear", 3),
+    (32, (250, 250), (256, 256), (16, 16, 224, 224), "cubic", 3),
+    (1, (1080, 1920), (8, 8), (0, 0, 8, 8), "lanczos3", 3),
+    (2, (2200, 6), (2, 6), (0, 0, 6, 2), "linear", 300),
+])
+def test_k2_launch_plan_picks_the_route_and_fits_its_tile(n, size, res,
+                                                          crop, method, c):
+    """A bilinear upsample (two taps a window) takes the direct route, a
+    thread per output float of 4 rows; a window over 1,024 taps on either
+    axis the wide route, two passes through a scratch image of the input
+    columns the windows cover; other windows the tiled route, whose
+    launch fills two CTAs an SM even for one image and whose tile rows
+    fit the kernel's 4 floats a thread."""
+    (_, yt), (xs, xt) = tpp._tables(*size, *res, method, *crop)
+    plan = tpp.launch_plan(n, yt.shape[0], xt.shape[0], c, xs, yt.shape[1],
+                           xt.shape[1])
+    if method == "bilinear":
+        assert plan["route"] == "direct"
+        assert plan["grid"] == (-(-224 * c // 256), 56, n)
+    elif max(yt.shape[1], xt.shape[1]) > tpp.TILE_FLOATS:
+        assert plan == {"route": "wide", "xlo": int(xs.min()),
+                        "x1": int((xs + xt.shape[1]).max())}
+        assert 0 <= plan["xlo"] and plan["x1"] <= size[1]
+    else:
+        assert plan["route"] == "tiled"
+        gx, gy, gz = plan["grid"]
+        assert gx * gy * gz >= tpp.TARGET_CTAS
+        assert plan["rows"] <= tpp.MAX_ROWS
+        assert plan["ld"] <= tpp.TILE_FLOATS
 
 
 # ---------------------------------------------------------- mamba2 SSD
@@ -358,6 +630,20 @@ def test_flash_vjp_forward_with_offset_matches_jax(Sq, Sk, q_offset):
     naive = tref.naive_attention(tq, tk, tv, q_offset=q_offset)
     np.testing.assert_allclose(got.numpy(), naive.numpy(), atol=FLASH_TOL,
                                rtol=0)
+
+
+@pytest.mark.parametrize("Sq,Sk,q_offset", [(1100, 1100, 0), (40, 1105, 1065),
+                                            (130, 1040, 0)])
+def test_flash_vjp_forward_at_head_dim_80_matches_jax(Sq, Sk, q_offset):
+    """zamba2's head dim 80 on the route beyond 1024 positions: the
+    port's ``flash_vjp`` forward (GQA, with and without an offset into a
+    longer cache) against the JAX package's."""
+    q, k, v = _attn_inputs(Sq + Sk, 1, Sq, Sk, 4, 2, 80)
+    want = np.asarray(jax_flash_vjp(*(jnp.asarray(a) for a in (q, k, v)),
+                                    q_offset, True, None, 512, 1024))
+    got = tflash.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 q_offset, True, None, 512, 1024)
+    np.testing.assert_allclose(got.numpy(), want, atol=FLASH_TOL, rtol=0)
 
 
 # ------------------------------------------------------------- RWKV6 WKV

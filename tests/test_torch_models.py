@@ -326,6 +326,37 @@ def test_long_context_attention_takes_the_flash_route_as_jax():
     _close(got, want, LOGIT_TOL)
 
 
+def test_zamba2_at_head_dim_80_beyond_1024_positions_matches_jax():
+    """Reduced zamba2 with the full model's attention head dim (80)
+    beyond 1024 positions: the forward, a prefill into a 1105-slot cache
+    and one decode step take the flash route in both packages (on a card
+    the port's goes through K3 at D = 80)."""
+    jcfg = jax_arch("zamba2-2.7b", reduced=True).replace(head_dim=80)
+    cfg = get_arch("zamba2-2.7b", reduced=True).replace(head_dim=80)
+    japi = jax_model(jcfg)
+    jparams = japi.init(jax.random.PRNGKey(9))
+    api = get_model(cfg)
+    params = params_from_jax(_np_tree(jparams), cfg, device="cpu")
+    toks = _tokens(cfg, (1, 1101), 10)
+    head = toks[:, :1100]
+    want, _ = japi.forward(jparams, {"tokens": jnp.asarray(head)},
+                           JAX_REPLICATED)
+    got, _ = api.forward(params, {"tokens": torch.from_numpy(head)},
+                         REPLICATED)
+    _close(got, want, LOGIT_TOL)
+    want, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(head)},
+                                JAX_REPLICATED, max_cache=1105)
+    got, cache = api.prefill(params, {"tokens": torch.from_numpy(head)},
+                             REPLICATED, 1105)
+    _close(got, want, LOGIT_TOL)
+    step = toks[:, 1100:]
+    want, _ = japi.decode_step(jparams, jnp.asarray(step), jcache,
+                               jnp.int32(1100), JAX_REPLICATED)
+    got, _ = api.decode_step(params, torch.from_numpy(step), cache, 1100,
+                             REPLICATED)
+    _close(got, want, LOGIT_TOL)
+
+
 def test_norms_rope_and_positions_match_jax():
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 4, 16)).astype(np.float32)

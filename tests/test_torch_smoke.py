@@ -32,6 +32,7 @@ def test_ab_compares_no_kernel_of_identical_sources(tmp_path):
     ("gaussian_blur.cu", ["gaussian_blur"]),
     # the shared header: every kernel that includes it
     ("tc.cuh", ["flash_attention", "mamba2_ssd", "rwkv6_scan"]),
+    ("preprocess.cu", ["preprocess"]),
 ])
 def test_ab_compares_the_kernels_whose_sources_differ(tmp_path, edit, want):
     import repro_torch.kernels.flash_attention  # noqa: F401  (declares)
