@@ -20,9 +20,10 @@ Phases (any failed check exits non-zero, before the result line):
    HBM rate, the matrix products at the tensor-core rate for their type
    and the other operations at the fp32 rate) and a library yardstick;
    K3's, K4's and K5's rows name their tensor-core route; besides the
-   main shapes, K3 at zamba2's head dim 80 (float32 and bfloat16), K1's
-   general route (ksize 99, and ksize 5 over 64 channels), and K2 at one
-   image, at a 1080p lanczos3 downsample and at 8 channels;
+   main shapes, K3 at zamba2's head dim 80 (float32 and bfloat16), K1 at
+   one 64x64 image (C1's IQ3 in phase 10) and on its general route
+   (ksize 99, and ksize 5 over 64 channels), and K2 at one image, at a
+   1080p lanczos3 downsample and at 8 channels;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
@@ -39,16 +40,35 @@ Phases (any failed check exits non-zero, before the result line):
    requests of 4096 tokens + 16 generated, and prefill + 4 decode steps
    of a 2048-token prompt against the no-cache forward; every layer of
    a prefill or forward beyond 1024 positions runs the flash-attention
-   kernel K3.
+   kernel K3;
+9. the scale-out path: (a) the static-hash workload through a 1-shard
+   ``ShardedEngine``, through a ``WireFrontend`` + ``WireClient`` on
+   127.0.0.1 in front of an engine, and through the wire in front of the
+   1-shard cluster, each hashing to the recorded value; (b) phase 4's
+   device chain (256 faces, batch 32) through a 1-shard and a 4-shard
+   cluster in process, every shard with its own device backend, and
+   through the 4-shard cluster over the wire, against phase 4's
+   response; (c) the same at ``replica_factor=2`` with ``kill_shard(1)``
+   while the query is in flight (shard 1's first device group held 0.5 s
+   by the fault injector; every entity answered, failovers > 0), then a
+   query on the surviving shards;
+10. the paper's baselines and curves (``benchmarks/torch_suite.py``):
+   C1 (IQ1–IQ9 as remote ops, 32 64x64 faces) and C2 through the sync,
+   pooled and async systems, whose responses must agree; C3 at 2, 4 and
+   8 clients on the simulated transport; the shard curve at 1, 2 and 4
+   shards and the kappa curve at 1–64 remote servers.  Times and
+   speedups are printed, not gated.
 
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
-zeroed again just before each of phases 6, 7 and 8 and read just after
-it (phase 6 must have launched K4, and K3 past 1024 slots; phase 7 K5;
-phase 8 K3).  Phase 5's
-launches, which only compare kernels with their plain versions, count
-in none.  The last lines are the card's name and power limit, one
-``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
+zeroed again just before each of phases 6, 7, 8, 9 and 10 and read just
+after it (phase 6 must have launched K4, and K3 past 1024 slots; phase
+7 K5; phase 8 K3; phase 9 K1 and K2; phase 10 K1).  K1's and K2's
+launches in the kernels line are the sum over phases 2–4, 9 and 10.
+Phase 5's launches, which only compare kernels with their plain
+versions, count in none.  The last lines are the card's name and power
+limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
+{...}}``.
 
 ``python3 chip_smoke.py --ab DIR [KERNEL ...]`` instead holds the named
 kernels (by default every kernel whose sources in DIR differ from the
@@ -201,21 +221,24 @@ def fmt(t: dict) -> str:
 
 
 # --------------------------------------------------------------- phases
+# benchmarks/dispatch_bench.py's static-hash pipeline: index permutations
+# and comparisons only, so its bytes are the same on every platform
+STATIC_PIPE = [
+    {"type": "crop", "x": 4, "y": 4, "width": 24, "height": 24},
+    {"type": "remote", "url": "http://svc/flip", "options": {"id": "flip"}},
+    {"type": "rotate", "k": 1},
+    {"type": "threshold", "value": 0.5},
+]
+
+
 def phase_static_hash(VDMSAsyncEngine, TransportModel, device="cuda"):
     print("phase 2: static hash on the card", flush=True)
     transport = TransportModel(network_latency_s=0.001, service_time_s=0.001)
-    pipe = [
-        {"type": "crop", "x": 4, "y": 4, "width": 24, "height": 24},
-        {"type": "remote", "url": "http://svc/flip",
-         "options": {"id": "flip"}},
-        {"type": "rotate", "k": 1},
-        {"type": "threshold", "value": 0.5},
-    ]
     eng = VDMSAsyncEngine(device=device, num_remote_servers=2,
                           transport=transport)
     try:
         fill(eng, 8, 32, "dsp")
-        res, dt = run_query(eng, find("dsp", pipe))
+        res, dt = run_query(eng, find("dsp", STATIC_PIPE))
     finally:
         eng.shutdown()
     digest = response_hash(res["entities"])
@@ -329,6 +352,7 @@ def phase_device(VDMSAsyncEngine, TransportModel, faces, launches,
     check(err <= PIPE_TOL,
           f"device arm vs all-native on the card: {err:.3g} <= {PIPE_TOL}")
     return {"device_arm": dev_s, "native_arm": nat_s,
+            "response": dev_res["entities"],
             "launches": rose, "native_launches": nat_rose,
             "max_abs_err_vs_native": err,
             "fused_segments": dev["fused_segments"],
@@ -785,6 +809,7 @@ def phase_kernels():
     rows.append(entries["gaussian_blur"])
     rows.append(blur_case((1, 224, 224, 3), 9, 2.0))
     rows.append(blur_case((1, 250, 250, 3), 5, 1.5))
+    rows.append(blur_case((1, 64, 64, 3), 5, 1.5))    # C1's IQ3, phase 10
     rows.append(blur_case((1, 1080, 1920, 3), 5, 1.5))
     # K1's general route: a window past 63 taps, and a halo of 2 x 64
     # floats a side (ksize 5 over a 64-channel feature map)
@@ -1078,6 +1103,221 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
     return out
 
 
+# ------------------------------------------------- phases 9 and 10
+def wire_query(engine, query):
+    """``run_query`` through a ``WireFrontend`` on 127.0.0.1 in front of
+    ``engine`` and a ``WireClient``: the response reassembled from the
+    streamed frames, cold and warm."""
+    from repro_torch.serving.frontend import WireClient, WireFrontend
+    front = WireFrontend(engine).start()
+    try:
+        with WireClient(front.address) as client:
+            return run_query(client, query)
+    finally:
+        front.close()
+
+
+def codec_ms(entities, n=32):
+    """Median host ms to code one response entity as a wire ``entity``
+    frame and decode it back (``to_jsonable``, ``encode_frame``,
+    ``FrameDecoder.feed``, ``from_jsonable``) over the first ``n``
+    entities, and the frame's bytes."""
+    from repro_torch.serving.wire import (FrameDecoder, encode_frame,
+                                          from_jsonable, to_jsonable)
+    times = []
+    for eid in list(entities)[:n]:
+        t0 = time.perf_counter()
+        frame = encode_frame("entity", {"rid": "r", "eid": eid,
+                                        "data": to_jsonable(entities[eid])})
+        (_, payload), = FrameDecoder().feed(frame)
+        from_jsonable(payload["data"])
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3, len(frame)
+
+
+def phase_wire_hash(device="cuda"):
+    """Phase 9a: the static-hash workload through a 1-shard cluster, the
+    wire in front of an engine, and the wire in front of that cluster."""
+    from repro_torch.cluster import ShardedEngine
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    print("phase 9a: static hash through a 1-shard cluster and the wire",
+          flush=True)
+    transport = TransportModel(network_latency_s=0.001, service_time_s=0.001)
+    query = find("dsp", STATIC_PIPE)
+    kw = dict(device=device, num_remote_servers=2, transport=transport)
+    cluster = ShardedEngine(num_shards=1, replica_factor=1, **kw)
+    engine = VDMSAsyncEngine(**kw)
+    out = {}
+    try:
+        fill(cluster, 8, 32, "dsp")
+        fill(engine, 8, 32, "dsp")
+        for name, eng, run in (("cluster_1_shard", cluster, run_query),
+                               ("wire", engine, wire_query),
+                               ("wire_cluster", cluster, wire_query)):
+            res, dt = run(eng, query)
+            digest = response_hash(res["entities"])
+            print(f"  {name}: sha256 {digest}; {fmt(dt)}", flush=True)
+            check(digest == STATIC_SHA256,
+                  f"{name}: static hash equals the recorded 778564da…")
+            out[name] = {"sha256": digest, "query": dt}
+    finally:
+        engine.shutdown()
+        cluster.shutdown()
+    return out
+
+
+KILL_HOLD_S = 0.5
+
+
+def phase_cluster_chain(faces, reference, launches, device="cuda",
+                        num_shards=4):
+    """Phases 9b and 9c: phase 4's device-backend chain through a
+    1-shard and a ``num_shards``-shard cluster, every shard with its own
+    device backend (K2 then K1 on stacked batches), in process, and
+    through the ``num_shards``-shard cluster over the wire; then at
+    ``replica_factor=2`` with ``kill_shard(1)`` while the query is in
+    flight, and a query on the surviving shards.  ``reference`` is phase
+    4's device-arm response."""
+    from repro_torch.cluster import ShardedEngine
+    from repro_torch.core.remote import TransportModel
+    from repro_torch.distributed.fault import FaultInjector
+    print(f"phase 9b: phase 4's device chain through 1 and {num_shards} "
+          "shards, and over the wire", flush=True)
+    transport = TransportModel(network_latency_s=0.002, service_time_s=0.001)
+    query = find("lfw", DEVICE_PIPE)
+    kw = dict(device=device, num_remote_servers=2, transport=transport,
+              dispatch="cost", device_backend=True if device == "cuda"
+              else device, device_batch_size=32, device_max_wait_ms=50.0,
+              cost_overrides=DEVICE_PINNED)
+    engine_path = ("gaussian_blur", "fused_resize_crop_normalize")
+    out = {}
+    for shards in (1, num_shards):
+        cluster = ShardedEngine(num_shards=shards, **kw)
+        try:
+            ingest_faces(cluster, faces, "lfw")
+            before = {k: launches[k].count for k in engine_path}
+            res, dt = run_query(cluster, query)
+            rose = {k: launches[k].count - before[k] for k in engine_path}
+            dev = [e.dispatch_stats()["device"]
+                   for e in cluster.shards.values()]
+            batching = {k: sum(d[k] for d in dev)
+                        for k in ("groups_run", "entities_run")}
+            if shards == num_shards:
+                wire_res, wire_dt = wire_query(cluster, query)
+            stats = cluster.cluster_stats()
+        finally:
+            cluster.shutdown()
+        owned = {sid: v["owned"] for sid, v in stats["per_shard"].items()}
+        err = max_err(res["entities"], reference)
+        print(f"  {shards} shard(s) in process: {fmt(dt)}; primaries per "
+              f"shard {owned} (imbalance {stats['imbalance']:.3f}); "
+              f"device groups {batching}; launches {rose}; max_abs_err vs "
+              f"phase 4 {err:.3g}", flush=True)
+        check(sum(owned.values()) == len(faces),
+              f"the {shards} shard(s)' primaries sum to {len(faces)}")
+        check(err <= PIPE_TOL, f"{shards} shard(s) vs phase 4: "
+              f"{err:.3g} <= {PIPE_TOL}")
+        for name in engine_path:
+            check(device == "cpu" or rose[name] > 0,
+                  f"{name} launched behind {shards} shard(s) ({rose[name]})")
+        out[f"shards_{shards}"] = {
+            "query": dt, "owned_primary": owned,
+            "imbalance": stats["imbalance"], "chain_launches": rose,
+            "device_batching": batching, "max_abs_err_vs_phase4": err}
+    err = max_err(wire_res["entities"], reference)
+    coded_ms, frame_bytes = codec_ms(wire_res["entities"])
+    print(f"  {num_shards} shards over the wire: {fmt(wire_dt)}; "
+          f"max_abs_err vs phase 4 {err:.3g}; one entity frame of "
+          f"{frame_bytes} bytes coded and decoded in {coded_ms:.3f} ms "
+          "(host)", flush=True)
+    check(err <= PIPE_TOL, f"{num_shards} shards over the wire vs phase 4: "
+          f"{err:.3g} <= {PIPE_TOL}")
+    out["wire"] = {"shards": num_shards, "query": wire_dt,
+                   "max_abs_err_vs_phase4": err,
+                   "codec_ms_per_entity": coded_ms,
+                   "frame_bytes": frame_bytes}
+    res = wire_res
+
+    print(f"phase 9c: the same at replica_factor=2, shard 1 killed in "
+          "flight", flush=True)
+    cluster = ShardedEngine(num_shards=num_shards, replica_factor=2, **kw)
+    # hold shard 1's first device group for KILL_HOLD_S, so the kill below
+    # lands while its piece is in flight on every run, as the reference's
+    # tests hold theirs with a slow transport
+    cluster.shards[1].device_backend.fault_injector = FaultInjector().at(
+        "backend:device", 0, "latency", latency_s=KILL_HOLD_S)
+    try:
+        ingest_faces(cluster, faces, "lfw")
+        t0 = time.monotonic()
+        fut = cluster.submit(query)          # the scatter is on the shards
+        cluster.kill_shard(1)
+        killed = fut.result(timeout=600)
+        kill_s = time.monotonic() - t0
+        stats = cluster.cluster_stats()
+        after, after_s = run_query(cluster, query)
+    finally:
+        cluster.shutdown()
+    err_kill = max_err(killed["entities"], res["entities"])
+    err_after = max_err(after["entities"], res["entities"])
+    print(f"  killed in flight: {kill_s * 1e3:.3f} ms, failovers "
+          f"{stats['failovers']}, live {stats['live_shards']}, max_abs_err "
+          f"vs 9b {err_kill:.3g}; then on the survivors "
+          f"{fmt(after_s)}, max_abs_err {err_after:.3g}", flush=True)
+    check(killed["stats"]["failed"] == 0
+          and len(killed["entities"]) == len(faces),
+          "every entity answered after kill_shard(1) "
+          f"({len(killed['entities'])})")
+    check(stats["failovers_total"] > 0,
+          f"failovers > 0 ({stats['failovers_total']})")
+    check(1 not in stats["live_shards"], "shard 1 is dead")
+    check(err_kill <= PIPE_TOL,
+          f"response after the kill vs 9b: {err_kill:.3g} <= {PIPE_TOL}")
+    check(err_after <= PIPE_TOL,
+          f"query on the survivors vs 9b: {err_after:.3g} <= {PIPE_TOL}")
+    out["kill"] = {"query_s": kill_s, "failovers": stats["failovers"],
+                   "live_shards": stats["live_shards"],
+                   "max_abs_err_vs_9b": err_kill, "survivors": after_s,
+                   "survivors_max_abs_err_vs_9b": err_after}
+    return out
+
+
+def phase_baselines(device="cuda", sizes=None):
+    """Phase 10: ``benchmarks/torch_suite.py``'s C1–C3, shard and κ
+    runs.  Sync, pooled and async responses must agree for every C1
+    query and C2, and the blur kernel must launch in IQ3 in all three
+    systems; the times are printed, not gated."""
+    from benchmarks import torch_suite
+    print("phase 10: the paper's baselines and curves", flush=True)
+    result = torch_suite.run_all(device, **(sizes or {}))
+    for row in result["c1"] + result["c2"]:
+        err = max(row["max_abs_err"].values())
+        print(f"  {row['name']}: sync {row['sync_s'] * 1e3:.3f} ms, pool "
+              f"{row['pool_s'] * 1e3:.3f} ms, async "
+              f"{row['async_s'] * 1e3:.3f} ms; sync/async "
+              f"{row['sync_over_async']:.3f}, pool/async "
+              f"{row['pool_over_async']:.3f}; K1 launches "
+              f"{row['k1_launches']}", flush=True)
+        check(err <= PIPE_TOL,
+              f"{row['name']}: sync, pool and async agree "
+              f"({err:.3g} <= {PIPE_TOL})")
+    iq3 = next(r for r in result["c1"] if r["name"] == "image_c1_IQ3_blur")
+    for system, n in iq3["k1_launches"].items():
+        check(device == "cpu" or n > 0,
+              f"IQ3 launched the blur kernel in the {system} system ({n})")
+    for row in result["c3"]:
+        print(f"  {row['name']}: sync/async {row['sync_over_async']:.3f}, "
+              f"pool/async {row['pool_over_async']:.3f}, sync/async-opt "
+              f"{row['opt_speedup']:.3f}", flush=True)
+    for key in ("shards", "kappa"):
+        print(f"  {key}: " + ", ".join(
+            f"{r['name'].split('_')[-1]} {r['wall_s'] * 1e3:.3f} ms "
+            f"(T(1)/T {r['gain']:.3f}, efficiency {r['derived']:.3f})"
+            for r in result[key]), flush=True)
+    print(f"  seconds per suite: {result['seconds']}", flush=True)
+    return result
+
+
 def changed_kernels(old_csrc) -> list[str]:
     """The kernels whose sources in ``old_csrc`` differ from the
     checkout's: the kernel's ``.cu`` file or a header it includes."""
@@ -1261,6 +1501,7 @@ def main() -> int:
         print(json.dumps({"ab": rows}))
         return 0
     t_start = time.monotonic()
+    from benchmarks import torch_suite
     from repro_torch.core.engine import VDMSAsyncEngine
     from repro_torch.core.remote import TransportModel
     from repro_torch.dataio.synthetic import synthetic_faces
@@ -1335,6 +1576,34 @@ def main() -> int:
         path_launches[kernel] = counts[kernel]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # ---- the scale-out path (K2 then K1 behind every shard), then the
+    # baselines (K1 in IQ3's remote servers): counts zeroed just before
+    # each phase, read just after it
+    phase4 = details["device"].pop("response")
+    scaleout = [
+        (9, "scaleout", engine_path, lambda: {
+            "hash": phase_wire_hash(),
+            **phase_cluster_chain(faces256, phase4, launches)}),
+        (10, "baselines", ("gaussian_blur",), phase_baselines),
+    ]
+    for phase, key, need, run in scaleout:
+        for c in launches.values():
+            c.reset()
+        t0 = time.monotonic()
+        details[key] = run()
+        details[key]["phase_s"] = time.monotonic() - t0
+        counts = {k: launches[k].count for k in engine_path}
+        print(f"  phase {phase}: {details[key]['phase_s']:.3f} s; launches "
+              f"{counts}", flush=True)
+        for name in need:
+            check(counts[name] > 0,
+                  f"{name} launched in phase {phase} ({counts[name]})")
+        for name in engine_path:
+            path_launches[name] += counts[name]
+        details[key]["launches"] = counts
+    print("  report: " + torch_suite.write_report(details["baselines"],
+                                                  "cuda"), flush=True)
     kernels = kernels_line(entries, path_launches)
     details["seconds"] = time.monotonic() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

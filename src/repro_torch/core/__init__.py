@@ -9,7 +9,8 @@ generalized to N workers with per-query fair scheduling) and Thread_3
 Entity Response Dictionary updated after every operation.  The client API
 is futures-based (repro_torch.core.session): ``submit()`` returns a
 QueryFuture; ``execute()`` is the blocking wrapper.  The paper's
-baseline executors are not ported yet.
+baselines (sync, pooled and frame-graph executors) are in
+repro_torch.core.executors.
 """
 from repro_torch.core.entity import Entity, ERD  # noqa: F401
 from repro_torch.core.pipeline import Operation, make_op, parse_operations  # noqa: F401

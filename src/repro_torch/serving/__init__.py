@@ -1,2 +1,3 @@
 """Serving layer: prefill/decode steps, greedy generation, the grouped
-model batcher and the grouped-UDF dispatch backend."""
+model batcher, the grouped-UDF dispatch backend, and the network front
+end (the SSE-flavored wire protocol and its server and client)."""

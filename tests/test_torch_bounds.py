@@ -88,6 +88,8 @@ def _preprocess(shape=(32, 250, 250, 3), kw=None):
     ("K2 (1,1080,1920,3) lanczos3", 0.007630, "bytes"),
     ("K2 (4,250,250,8)", 0.004307, "bytes"),
     ("K2 (1,1080,1920,3) lanczos3 to 8x8", 0.007450, "bytes"),
+    # K1 at C1's IQ3: one 64x64 face a launch in the remote servers
+    ("K1 (1,64,64,3) k5", 0.000029, "bytes"),
 ])
 def test_bound_of_each_kernel_row(row, want_ms, want_by):
     got = {
@@ -120,6 +122,7 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
         "K2 (4,250,250,8)": lambda: _preprocess((4, 250, 250, 8)),
         "K2 (1,1080,1920,3) lanczos3 to 8x8": lambda: _preprocess(
             (1, 1080, 1920, 3), cs.K2_WIDE),
+        "K1 (1,64,64,3) k5": lambda: _blur((1, 64, 64, 3), 5),
     }[row]()
     assert got[1] == want_by
     assert got[0] == pytest.approx(want_ms, abs=5e-7)

@@ -19,6 +19,12 @@ tolerance), its log-sum-exp 1e-4; in bfloat16 both versions compute in
 float32 from the same inputs and round the output once, so they may
 land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
 sixth of a typical output (about 0.03 for a row over 4096 keys).
+
+The scale-out path on the card: a 2-shard cluster with a device backend
+on each shard against one CUDA engine (1e-4, the fused preprocess
+kernel's tolerance), the wire in front of a CUDA engine and the codec on
+CUDA tensors (exact), and the baseline executors against the engine on
+a remote blur (exact: the same kernel on the same images).
 """
 import hashlib
 
@@ -698,3 +704,139 @@ def test_ssd_kernel_bf16_strided_slices(cuda):
     torch.testing.assert_close(y.float(), y_p.float(), atol=SSD_BF16_ATOL,
                                rtol=SSD_BF16_RTOL)
     torch.testing.assert_close(h, h_p, atol=SSD_BF16_ATOL, rtol=SSD_BF16_RTOL)
+
+
+# ------------------------------------- the scale-out path on the card
+DEVICE_PIPE = [{"type": "resize", "width": 64, "height": 64},
+               {"type": "crop", "x": 8, "y": 8, "width": 48, "height": 48},
+               {"type": "normalize", "mean": 0.45, "std": 0.22},
+               {"type": "blur", "ksize": 9, "sigma_x": 2.0}]
+DEVICE_PINNED = {o["type"]: {"device": 1e-6, "native": 10.0, "remote": 10.0,
+                             "batcher": 10.0} for o in DEVICE_PIPE}
+
+
+def _faces(eng, n, size=72, category="d"):
+    for i in range(n):
+        img = np.random.default_rng(i).uniform(
+            0, 1, (size, size, 3)).astype(np.float32)
+        eng.add_entity("image", img, {"category": category, "idx": i})
+
+
+def _query(ops, category="d"):
+    return [{"FindImage": {"constraints": {"category": ["==", category]},
+                           "operations": ops}}]
+
+
+@pytest.mark.cuda
+def test_sharded_device_chain_on_the_card_equals_one_engine(cuda):
+    """A 2-shard cluster, each shard with its own device backend, runs
+    the resize → crop → normalize → blur chain through K2 and K1 and
+    answers what one CUDA engine answers (1e-4)."""
+    from repro_torch.cluster import ShardedEngine
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.kernels import gaussian_blur as gb
+    kw = dict(device="cuda", dispatch="cost", device_backend=True,
+              cost_overrides=DEVICE_PINNED)
+    out = {}
+    for name, make in (("cluster", lambda: ShardedEngine(num_shards=2, **kw)),
+                       ("engine", lambda: VDMSAsyncEngine(**kw))):
+        eng = make()
+        try:
+            _faces(eng, 10)
+            k1, k2 = gb.launches.count, pp.launches.count
+            out[name] = eng.execute(_query(DEVICE_PIPE), timeout=120)
+            assert gb.launches.count > k1 and pp.launches.count > k2
+        finally:
+            eng.shutdown()
+    assert list(out["cluster"]["entities"]) == list(out["engine"]["entities"])
+    assert out["cluster"]["stats"]["failed"] == 0
+    for eid, arr in out["engine"]["entities"].items():
+        np.testing.assert_allclose(out["cluster"]["entities"][eid], arr,
+                                   atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wire_frontend_in_front_of_a_cuda_engine(cuda):
+    """Over a real socket the wire answers what ``execute`` answers, and
+    every streamed entity frame carries the entity's response bytes."""
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.serving.frontend import WireClient, WireFrontend
+    from repro_torch.serving.wire import from_jsonable
+    eng = VDMSAsyncEngine(device="cuda", num_remote_servers=2)
+    try:
+        _faces(eng, 6, size=40)
+        q = _query([{"type": "blur", "ksize": 5, "sigma_x": 1.5},
+                    {"type": "remote", "url": "u", "options": {"id": "flip"}}])
+        want = eng.execute(q, timeout=120)
+        front = WireFrontend(eng).start()
+        try:
+            with WireClient(front.address) as c:
+                fut = c.submit(q)
+                got = fut.result(120)
+        finally:
+            front.close()
+    finally:
+        eng.shutdown()
+    assert list(got["entities"]) == list(want["entities"])
+    for eid, arr in want["entities"].items():
+        assert got["entities"][eid].dtype == arr.dtype
+        assert np.array_equal(got["entities"][eid], arr)
+    streamed = {p["eid"]: from_jsonable(p["data"])
+                for e, p in fut.frames if e == "entity"}
+    assert sorted(streamed) == sorted(want["entities"])
+    for eid, arr in streamed.items():
+        assert np.array_equal(arr, want["entities"][eid])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(), (3,), (2, 5, 3)])
+def test_wire_codes_a_cuda_tensor_through_the_host(cuda, shape):
+    from repro_torch.core.boundary import to_host
+    from repro_torch.serving.wire import from_jsonable, to_jsonable
+    t = _uniform(0, shape, cuda)
+    assert to_jsonable(t) == to_jsonable(to_host(t))
+    assert to_jsonable({"a": [t]}) == {"a": [to_jsonable(to_host(t))]}
+    back = from_jsonable(to_jsonable(t))
+    assert back.shape == shape and np.array_equal(back, to_host(t))
+
+
+@pytest.mark.cuda
+def test_executors_on_the_card_agree_with_the_engine_on_iq3(cuda):
+    """IQ3 (a remote blur): the sync, pooled and frame executors on the
+    card answer what the engine on the card answers, bit for bit (the
+    same kernel on the same images), and each launches the blur kernel."""
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.entity import Entity
+    from repro_torch.core.executors import (FrameExecutor, PooledExecutor,
+                                            SyncExecutor)
+    from repro_torch.core.pipeline import parse_operations
+    from repro_torch.core.remote import RemoteServerPool, TransportModel
+    from repro_torch.kernels import gaussian_blur as gb
+    fast = TransportModel(network_latency_s=0.001, service_time_s=0.002)
+    iq3 = [{"type": "remote", "url": "u",
+            "options": {"id": "blur", "ksize": 5, "sigma_x": 1.5}}]
+    imgs = [np.random.default_rng(i).uniform(0, 1, (64, 64, 3))
+            .astype(np.float32) for i in range(6)]
+    eng = VDMSAsyncEngine(device="cuda", num_remote_servers=2, transport=fast)
+    try:
+        eids = [eng.add_entity("image", img, {"category": "iq3"})
+                for img in imgs]
+        res = eng.execute(_query(iq3, "iq3"), timeout=120)
+    finally:
+        eng.shutdown()
+    pool = RemoteServerPool(2, fast)
+    try:
+        for ex in (SyncExecutor(pool, device="cuda"),
+                   PooledExecutor(pool, workers=3, device="cuda"),
+                   FrameExecutor(pool, workers=2, device="cuda")):
+            ents = [Entity(str(i), "image", img.copy(),
+                           ops=parse_operations(iq3))
+                    for i, img in enumerate(imgs)]
+            k1 = gb.launches.count
+            ex.run(ents)
+            assert gb.launches.count - k1 >= len(imgs), type(ex).__name__
+            for eid, ent in zip(eids, ents):
+                assert isinstance(ent.data, np.ndarray)
+                assert np.array_equal(ent.data, res["entities"][eid])
+    finally:
+        pool.shutdown()

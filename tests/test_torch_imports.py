@@ -22,11 +22,18 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401  (its own imports live in main())
+import benchmarks.torch_suite  # noqa: F401
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "repro."))
              or k == "repro")
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
+# the scale-out slice's modules, which the walk must reach
+SCALE_OUT = {"repro_torch.cluster", "repro_torch.cluster.engine",
+             "repro_torch.cluster.gather", "repro_torch.cluster.ring",
+             "repro_torch.distributed.elastic", "repro_torch.serving.wire",
+             "repro_torch.serving.frontend", "repro_torch.launch.serve",
+             "repro_torch.core.executors"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
@@ -35,12 +42,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, bad, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 30          # every module of the slice was imported
+    walked = set(names.split(","))
+    assert SCALE_OUT <= walked, SCALE_OUT - walked
     assert bad == "[]", bad
     # chip_smoke.main's own imports, as listed there
-    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
-    assert "import jax" not in src and "from repro." not in src
+    for path in ("chip_smoke.py", os.path.join("benchmarks",
+                                               "torch_suite.py")):
+        src = open(os.path.join(ROOT, path)).read()
+        assert "import jax" not in src and "from repro." not in src
 
 
 def test_cuda_requests_raise_on_a_host_without_cuda():

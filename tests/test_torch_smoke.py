@@ -1,10 +1,13 @@
 """Host-side logic of ``chip_smoke.py`` that a host without a card can
-check: which kernels ``--ab`` compares by default, and the attention
-mask behind K3's library time at a cache offset.
+check: which kernels ``--ab`` compares by default, the attention mask
+behind K3's library time at a cache offset, and a rehearsal of phases 9
+and 10 (the scale-out path and the baselines) on the CPU at a few
+entities each, where the kernels' launch counts stay 0.
 
 Tolerance: the masked ``scaled_dot_product_attention`` against the plain
 flash forward, 1e-5 absolute (the same float32 softmax over the same
-products, as ``tests/test_torch_kernels.py`` holds attention routes).
+products, as ``tests/test_torch_kernels.py`` holds attention routes);
+the phases apply their own (``chip_smoke.PIPE_TOL``, the static hash).
 """
 import shutil
 
@@ -59,3 +62,50 @@ def test_offset_mask_gives_the_prefill_into_a_cache(Sq, Sk, q_offset):
     want, _ = ref.flash_attention_chunked(q, k, v, causal=True,
                                           q_offset=q_offset)
     assert float((got - want).abs().max()) <= 1e-5
+
+
+def _engine_path_launches():
+    from repro_torch.kernels import gaussian_blur as gb
+    from repro_torch.kernels import preprocess as pp
+    return {"gaussian_blur": gb.launches,
+            "fused_resize_crop_normalize": pp.launches}
+
+
+def test_phase_9_rehearsed_on_the_cpu():
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    from repro_torch.dataio.synthetic import synthetic_faces
+    launches = _engine_path_launches()
+    faces = synthetic_faces(10, 250, seed=1)
+    phase4 = cs.phase_device(VDMSAsyncEngine, TransportModel, faces,
+                             launches, device="cpu")
+    before = {k: c.count for k, c in launches.items()}
+    hashes = cs.phase_wire_hash(device="cpu")
+    assert sorted(hashes) == ["cluster_1_shard", "wire", "wire_cluster"]
+    assert {h["sha256"] for h in hashes.values()} == {cs.STATIC_SHA256}
+    out = cs.phase_cluster_chain(faces, phase4.pop("response"), launches,
+                                 device="cpu")
+    assert sum(out["shards_4"]["owned_primary"].values()) == len(faces)
+    assert out["wire"]["max_abs_err_vs_phase4"] == 0.0
+    assert out["kill"]["failovers"].get(1, 0) >= 1
+    assert 1 not in out["kill"]["live_shards"]
+    assert {k: c.count for k, c in launches.items()} == before
+
+
+REMOTE_BLUR = {"type": "remote", "url": "u",
+               "options": {"id": "blur", "ksize": 5, "sigma_x": 1.5}}
+
+
+def test_phase_10_rehearsed_on_the_cpu():
+    result = cs.phase_baselines("cpu", sizes=dict(
+        c1=dict(n_images=2, queries={"IQ3_blur": [REMOTE_BLUR]}),
+        c2=dict(n_images=2), c3=dict(n_images=2, clients=(2,)),
+        shards=dict(shard_counts=(1, 2), n_images=6, repeats=1),
+        kappa=dict(kappas=(1, 2), n_images=4)))
+    assert [r["name"] for r in result["c1"]] == ["image_c1_IQ3_blur"]
+    for row in result["c1"] + result["c2"]:
+        assert max(row["max_abs_err"].values()) == 0.0
+    assert [r["shards"] for r in result["shards"]] == [1, 2]
+    assert result["shards"][0]["gain"] == 1.0
+    assert [r["name"] for r in result["kappa"]] == ["scaleout_k1",
+                                                    "scaleout_k2"]
