@@ -57,14 +57,42 @@ Phases (any failed check exits non-zero, before the result line):
    pooled and async systems, whose responses must agree; C3 at 2, 4 and
    8 clients on the simulated transport; the shard curve at 1, 2 and 4
    shards and the kappa curve at 1–64 remote servers.  Times and
-   speedups are printed, not gated.
+   speedups are printed, not gated;
+11. the MoE path at the full width of granite-moe-1b-a400m (24 layers,
+   d_model 1024, 32 experts top-8 of d_ff 512): ``model_serve.run``
+   over 16 requests of 512 tokens + 16 generated at the published
+   capacity factor 1.25, and the same past 1024 slots (2 x 1,536 + 16:
+   K3 causal at head dim 64, GQA 16/8); the prefill/decode-vs-forward
+   checks run on a copy of the config at capacity factor E/K = 4.0,
+   where no token is dropped (at 1.25 the forward over S + n tokens
+   drops other tokens than prefill + decode, so the two would compute
+   different things);
+12. the encoder-decoder path at the full width of whisper-small (12 +
+   12 layers, d_model 768): ``model_serve.run`` over 16 requests of
+   1,500 frames + 32 tokens + 16 generated (each prefill runs K3 not
+   causal in every encoder layer, over 1,500 frames, and in every
+   decoder layer's cross-attention, 32 rows against 1,500 keys); the
+   forward check at (2, 16, 4) with seeded frames; the model UDF's
+   batcher and device arms over 16 images (the JAX package's per-entity
+   route builds no frames and raises ``KeyError('frames')``: checked
+   to raise here too);
+13. the vit_stub path at the full width of internvl2-1b (24 layers,
+   d_model 896, 14 q and 2 kv heads of 64, 256 patches):
+   ``model_serve.run`` over 4 requests of 256 patches + 1,024 tokens +
+   16 generated (1,297 cache slots: K3 on every prefill layer), the
+   forward check at (1, 1024, 4) with seeded patches, and the
+   per-entity model UDF (the only route the JAX package registers for
+   a vit_stub model) over 16 images, whose labels must equal those of
+   ``greedy_generate`` called on the same prompts.
 
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
-zeroed again just before each of phases 6, 7, 8, 9 and 10 and read just
-after it (phase 6 must have launched K4, and K3 past 1024 slots; phase
-7 K5; phase 8 K3; phase 9 K1 and K2; phase 10 K1).  K1's and K2's
-launches in the kernels line are the sum over phases 2–4, 9 and 10.
+zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 9 and 10
+(run in that order) and read just after it (phase 6 must have launched
+K4, and K3 past 1024 slots; phase 7 K5; phases 8, 11, 12 and 13 K3;
+phase 9 K1 and K2; phase 10 K1).  K1's and K2's launches in the kernels
+line are the sum over phases 2–4, 9 and 10, K3's over phases 6–8 and
+11–13.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
 limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -135,6 +163,9 @@ STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 ARCH = "zamba2-2.7b"
 RWKV_ARCH = "rwkv6-1.6b"
 LONG_ARCH = "qwen3-0.6b"
+MOE_ARCH = "granite-moe-1b-a400m"
+ENCDEC_ARCH = "whisper-small"
+VLM_ARCH = "internvl2-1b"
 MODEL_UDF = "lm"
 
 # a few ms of device sleep ahead of each timed call (outlasts the host
@@ -868,6 +899,20 @@ def phase_kernels():
     rows.append(attn_case(2, 1536, 1553, 32, 32, 80, library=True))
     rows.append(attn_case(2, 1536, 1553, 32, 32, 80, dtype=torch.bfloat16,
                           library=True))
+    # K3 on phase 12's whisper-small prefill (16 requests, 12 heads of
+    # 64): the encoder's self-attention over 1,500 frames and the
+    # decoder's cross-attention of 32 rows against them, neither causal,
+    # both ending in a partial 64-row tile; phase 11's granite-moe past
+    # 1024 slots (2 x 1,536 rows, GQA 16/8 at head dim 64, into the
+    # 1,553-slot cache that run allocates, a partial last key tile); and
+    # phase 13's internvl2-1b prefill (4 x 1,280 rows, GQA 14/2, into
+    # 1,297 slots)
+    rows.append(attn_case(16, 1500, 1500, 12, 12, 64, causal=False,
+                          library=True))
+    rows.append(attn_case(16, 32, 1500, 12, 12, 64, causal=False,
+                          library=True))
+    rows.append(attn_case(2, 1536, 1553, 16, 8, 64, library=True))
+    rows.append(attn_case(4, 1280, 1297, 14, 2, 64, library=True))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -911,32 +956,54 @@ def kernels_line(entries, path_launches):
     return kernels
 
 
+def model_inputs(cfg, batch, seed, device):
+    """The inputs besides tokens that ``cfg`` asks for, seeded: a
+    vit_stub model's patch embeddings, an encoder-decoder's frames."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "vit_stub":
+        out["patch_embeds"] = (batch, cfg.num_patches, cfg.d_model)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (batch, cfg.encoder_seq_len, cfg.d_model)
+    return {k: torch.from_numpy((rng.standard_normal(shape) * 0.1)
+                                .astype(np.float32)).to(device)
+            for k, shape in out.items()}
+
+
 def consistency_check(api, params, cfg, shape, device):
     """Prefill + decode logits against the no-cache forward over
-    ``shape`` = (batch, prompt, decode steps), held to MODEL_TOL."""
+    ``shape`` = (batch, prompt, decode steps), held to MODEL_TOL (with
+    seeded frames or patch embeddings where ``cfg`` takes them; a
+    vit_stub model's tokens sit behind its patches)."""
     import numpy as np
     import torch
     from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.models.registry import token_start
     batch, S, extra = shape
+    P = token_start(cfg)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (batch, S + extra)).astype(np.int32)).to(device)
+    inputs = model_inputs(cfg, batch, 3, device)
     with torch.no_grad():
-        full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
-        lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
-                                S + extra + 1)
-        errs = [float((lg - full[:, S - 1]).abs().max())]
+        full, _ = api.forward(params, {"tokens": toks, **inputs}, REPLICATED)
+        lg, cache = api.prefill(params, {"tokens": toks[:, :S], **inputs},
+                                REPLICATED, P + S + extra + 1)
+        errs = [float((lg - full[:, P + S - 1]).abs().max())]
         for i in range(extra):
             lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1],
-                                        cache, S + i, REPLICATED)
-            errs.append(float((lg - full[:, S + i]).abs().max()))
+                                        cache, P + S + i, REPLICATED)
+            errs.append(float((lg - full[:, P + S + i]).abs().max()))
     finite = bool(torch.isfinite(full).all())
     out = {"shape": list(shape), "max_abs_err": max(errs), "per_step": errs,
            "logit_absmax": float(full.abs().max())}
     print(f"  prefill of {batch} x {S} + {extra} decode steps vs forward: "
           f"max_abs_err {max(errs):.3g} (logits up to "
           f"{float(full.abs().max()):.3g})", flush=True)
-    check(finite and full.shape == (batch, S + extra, cfg.padded_vocab),
-          f"forward logits finite, shape ({batch}, {S + extra}, padded vocab)")
+    check(finite and full.shape == (batch, P + S + extra, cfg.padded_vocab),
+          f"forward logits finite, shape ({batch}, {P + S + extra}, padded "
+          "vocab)")
     check(max(errs) <= MODEL_TOL,
           f"prefill/decode logits vs forward: {max(errs):.3g} <= {MODEL_TOL}")
     return out
@@ -960,18 +1027,30 @@ def serve_once(arch, reduced, requests, prompt_len, gen, device, vocab,
     return r
 
 
+def no_drop_moe(arch, reduced=False) -> dict:
+    """The capacity factor E/K at which a MoE drops no token: each expert
+    then has a slot for every token of the batch."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch, reduced=reduced)
+    return {"moe_capacity_factor": cfg.num_experts / cfg.num_experts_per_tok}
+
+
 def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
                 device="cuda", reduced=False, requests=16, prompt_len=512,
-                gen=16, consistency=(2, 16, 4), n_images=16, beyond=None):
+                gen=16, consistency=(2, 16, 4), n_images=16, beyond=None,
+                check_cfg=None):
     """A model path: ``launch.model_serve.run`` (cold, then warm), prefill
     + decode against the no-cache forward over ``consistency`` = (batch,
     prompt, decode steps), and, when ``n_images`` is not 0, the model UDF
-    through the engine's three arms, counting ``kernel``'s launches in
-    each.  ``beyond`` = (batch, prompt, decode steps), with prompt + steps
-    past 1024 cache slots, serves and checks that much on the same
-    weights, where attention takes the flash route (K3), and counts K3's
-    and ``kernel``'s launches there.  ``device`` and ``reduced`` let a
-    host without a card rehearse it."""
+    through the engine arms the JAX package registers for the arch,
+    counting ``kernel``'s launches in each.  ``beyond`` = (batch, prompt,
+    decode steps), with prompt + steps past 1024 cache slots, serves and
+    checks that much on the same weights, where attention takes the
+    flash route (K3), and counts K3's and ``kernel``'s launches there.
+    ``check_cfg`` (a dict of config fields) runs the prefill/decode
+    checks on a copy of the config with those fields replaced, on the
+    same weights.  ``device`` and ``reduced`` let a host without a card
+    rehearse it."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import get_model
@@ -1001,7 +1080,9 @@ def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
     out["serve"] = serve
 
     # -- prefill + decode against the no-cache forward
-    api = get_model(cfg)
+    api = get_model(cfg.replace(**(check_cfg or {})))
+    if check_cfg:
+        print(f"  the checks run on the config with {check_cfg}", flush=True)
     params = api.init(torch.Generator(device=device).manual_seed(1))
     out["tree_params"] = sum(t.numel() for t in tree_leaves(params))
     print(f"  the parameter tree holds {out['tree_params']} values "
@@ -1040,30 +1121,66 @@ def phase_model(launches, arch=ARCH, kernel="mamba2_ssd", phase=6,
 
 
 def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
-    """The model UDF through the engine's per-entity, batcher and
-    device-backend arms, which must stamp identical labels."""
+    """The model UDF through the engine arms of the routes that
+    ``register_model_udf`` registered for ``arch`` (the batcher and
+    device arms where it registered a batched or a device route, the
+    per-entity arm where its per-entity route answers an image alone),
+    which must stamp identical labels.  An encoder-decoder's per-entity
+    route must raise ``KeyError('frames')``, as the JAX package's does.
+    A vit_stub model's labels must also equal those of
+    ``greedy_generate`` called on the same prompts: a wiring check of
+    the engine's path (the UDF generates through ``greedy_generate``
+    itself), not a check of the model."""
     import numpy as np
     import torch
+    from repro_torch.configs import get_arch
     from repro_torch.core.engine import VDMSAsyncEngine
     from repro_torch.core.remote import TransportModel
-    from repro_torch.core.udf import register_model_udf, unregister_udf
+    from repro_torch.core.udf import (get_udf, has_batched_udf,
+                                      has_device_udf, patch_embeds,
+                                      prompt_tokens, register_model_udf,
+                                      unregister_udf)
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.models import get_model
+    from repro_torch.serving.serve_step import greedy_generate
     from repro_torch.visual.font import draw_text
     on_card = device == "cuda"
-    register_model_udf(MODEL_UDF, arch=arch, reduced=reduced, device=device)
+    cfg = get_arch(arch, reduced=reduced)
+    api = get_model(cfg)
+    # the UDF's own seeded init, kept here for the direct generation
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    register_model_udf(MODEL_UDF, arch=arch, reduced=reduced, device=device,
+                       params=params)
     query = find("lm", [{"type": "udf", "options": {"id": MODEL_UDF}}])
-    off = {"native": 10.0, "remote": 10.0}
-    arms = {
-        "per_entity": dict(dispatch="native"),
-        "batcher": dict(dispatch="cost", cost_overrides={
-            MODEL_UDF: {**off, "batcher": 1e-6}}),
-        "device_backend": dict(
-            dispatch="cost", device_backend=True if on_card else device,
-            cost_overrides={MODEL_UDF: {**off, "batcher": 10.0,
-                                        "device": 1e-6}}),
-    }
+    rng = np.random.default_rng(11)    # fill()'s images, in fill()'s order
+    images = [torch.from_numpy(rng.uniform(0, 1, (32, 32, 3))
+                               .astype(np.float32)) for _ in range(n_images)]
     transport = TransportModel(network_latency_s=0.001, service_time_s=0.001)
     responses, out = {}, {"arms": {}}
     try:
+        try:
+            get_udf(MODEL_UDF)(images[0].to(device))
+            raised = None
+        except KeyError as e:
+            raised = e
+        check(raised is None if not cfg.is_encoder_decoder
+              else raised is not None and raised.args == ("frames",),
+              "the per-entity route answers an image alone, or raises "
+              "KeyError('frames') for an encoder-decoder, as the JAX "
+              "package's does")
+        off = {"native": 10.0, "remote": 10.0}
+        arms = {}
+        if raised is None:
+            arms["per_entity"] = dict(dispatch="native")
+        if has_batched_udf(MODEL_UDF):
+            arms["batcher"] = dict(dispatch="cost", cost_overrides={
+                MODEL_UDF: {**off, "batcher": 1e-6}})
+        if has_device_udf(MODEL_UDF):
+            arms["device_backend"] = dict(
+                dispatch="cost", device_backend=True if on_card else device,
+                cost_overrides={MODEL_UDF: {**off, "batcher": 10.0,
+                                            "device": 1e-6}})
+        out["registered_arms"] = list(arms)
         for arm, kw in arms.items():
             eng = VDMSAsyncEngine(device=device, num_remote_servers=1,
                                   transport=transport, **kw)
@@ -1081,25 +1198,44 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
             print(f"  {arm} arm: {n_images} images, {fmt(dt)}; placements "
                   f"{stats.get('placements')}; {kernel} launches "
                   f"{out['arms'][arm]['kernel_launches']}", flush=True)
+        if cfg.frontend == "vit_stub":
+            with torch.no_grad():
+                direct = []
+                for img in images:
+                    dimg = img.to(device)
+                    toks = greedy_generate(
+                        api, params, {
+                            "tokens": prompt_tokens(dimg, cfg.vocab_size)[None],
+                            "patch_embeds": patch_embeds(dimg, cfg)[None]},
+                        steps=4, sh=REPLICATED)
+                    direct.append(int(toks[0, -1]) % 4)
     finally:  # free the model's parameters before the next phase
         unregister_udf(MODEL_UDF)
-    # which label each image carries: the stamp that reproduces it
-    rng = np.random.default_rng(11)    # fill()'s images
-    labels = []
-    for eid in responses["per_entity"]:
-        img = torch.from_numpy(rng.uniform(0, 1, (32, 32, 3))
-                               .astype(np.float32))
-        got = responses["per_entity"][eid]
-        diff = {lab: float(np.abs(draw_text(img, lab, 4, 4).numpy() - got)
-                           .max()) for lab in ("WALK", "RUN", "JUMP", "SIT")}
-        labels.append(min(diff, key=diff.get))
+        del params
+    # which image each response is (its bottom-right corner, which no
+    # stamp reaches) and which label it carries: the stamp that
+    # reproduces it; listed in fill()'s order
+    first = next(iter(responses))
+    names = ("WALK", "RUN", "JUMP", "SIT")
+    labels = [None] * n_images
+    for got in responses[first].values():
+        got = np.asarray(got)
+        i = next(j for j, img in enumerate(images)
+                 if np.array_equal(img.numpy()[-8:, -8:], got[-8:, -8:]))
+        diff = {lab: float(np.abs(draw_text(images[i], lab, 4, 4).numpy()
+                                  - got).max()) for lab in names}
+        labels[i] = min(diff, key=diff.get)
     out["labels"] = labels
-    print(f"  labels (per entity): {labels}", flush=True)
-    for arm in ("batcher", "device_backend"):
-        same = list(responses[arm]) == list(responses["per_entity"]) and all(
-            np.array_equal(responses[arm][e], responses["per_entity"][e])
-            for e in responses["per_entity"])
-        check(same, f"{arm} arm stamps the per-entity arm's labels exactly")
+    print(f"  labels ({first}): {labels}", flush=True)
+    for arm in list(responses)[1:]:
+        same = list(responses[arm]) == list(responses[first]) and all(
+            np.array_equal(responses[arm][e], responses[first][e])
+            for e in responses[first])
+        check(same, f"{arm} arm stamps the {first} arm's labels exactly")
+    if cfg.frontend == "vit_stub":
+        check(labels == [names[t] for t in direct],
+              "per-entity labels equal greedy_generate's on the same "
+              "prompts")
     return out
 
 
@@ -1563,17 +1699,31 @@ def main() -> int:
         ("long_context", 8, dict(arch=LONG_ARCH, kernel="flash_attention",
                                  requests=4, prompt_len=4096, gen=16,
                                  consistency=(1, 2048, 4), n_images=0)),
+        ("moe", 11, dict(arch=MOE_ARCH, kernel="flash_attention",
+                         beyond=(2, 1536, 16), n_images=0,
+                         check_cfg=no_drop_moe(MOE_ARCH))),
+        ("encdec", 12, dict(arch=ENCDEC_ARCH, kernel="flash_attention",
+                            requests=16, prompt_len=32, gen=16)),
+        ("vit_stub", 13, dict(arch=VLM_ARCH, kernel="flash_attention",
+                              requests=4, prompt_len=1024, gen=16,
+                              consistency=(1, 1024, 4))),
     ]
+    for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+        path_launches[name] = 0
     for key, phase, kw in model_paths:
         for c in launches.values():
             c.reset()
+        t0 = time.monotonic()
         details[key] = phase_model(launches, phase=phase, **kw)
+        details[key]["phase_s"] = time.monotonic() - t0
         counts = {k: c.count for k, c in launches.items()}
         kernel = kw["kernel"]
-        print(f"  phase {phase} launches: {counts}", flush=True)
+        print(f"  phase {phase}: {details[key]['phase_s']:.3f} s; launches "
+              f"{counts}", flush=True)
         check(counts[kernel] > 0,
               f"{kernel} launched on the {kw['arch']} path ({counts[kernel]})")
-        path_launches[kernel] = counts[kernel]
+        for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+            path_launches[name] += counts[name]
         gc.collect()
         torch.cuda.empty_cache()
 

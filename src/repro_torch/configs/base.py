@@ -6,8 +6,10 @@ each also provides a reduced same-family config for CPU tests.  The
 fields are those of the JAX package's ``ArchConfig``, so a config reads
 the same in both packages.
 
-Ported so far: ``zamba2-2.7b`` (hybrid), ``qwen3-0.6b`` (dense) and
-``rwkv6-1.6b`` (ssm, the rwkv family).
+Ported so far: ``zamba2-2.7b`` (hybrid), ``qwen3-0.6b`` (dense),
+``rwkv6-1.6b`` (ssm, the rwkv family), ``granite-moe-1b-a400m`` and
+``qwen3-moe-235b-a22b`` (moe), ``whisper-small`` (audio, the
+encoder-decoder) and ``internvl2-1b`` (vlm, the ``vit_stub`` frontend).
 :func:`get_arch` of another assigned architecture raises a ``KeyError``
 that names the slice of the port it comes with.
 """
@@ -124,10 +126,11 @@ class ArchConfig:
         return self.d_model // self.rwkv_head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding included, unpadded vocab)
-        of the families ported so far (dense, rwkv and hybrid): the JAX
-        package's formula, approximate for rwkv (it leaves out ``c_r``
-        and the LoRAs), kept so that the configs stay equal."""
+        """Analytic parameter count (embedding included, unpadded vocab):
+        the JAX package's formula, approximate for rwkv (it leaves out
+        ``c_r`` and the LoRAs) and for the encoder-decoder (it counts the
+        GELU MLP as three matrices and leaves out biases and norms), kept
+        so that the configs stay equal."""
         d, hd = self.d_model, self.resolved_head_dim
         qdim = self.num_heads * hd
         kvdim = self.num_kv_heads * hd
@@ -145,8 +148,33 @@ class ArchConfig:
             total = self.num_layers * mamba_l
             # shared blocks (weight-tied): count once each
             total += self.num_shared_blocks * (attn + mlp)
+        elif self.is_moe:
+            expert = 3 * d * self.d_ff
+            router = d * self.num_experts
+            total = self.num_layers * (attn + self.num_experts * expert
+                                       + router)
         else:
             total = self.num_layers * (attn + mlp)
+        if self.is_encoder_decoder:
+            # encoder self-attn+mlp, decoder gets extra cross-attn
+            total += self.num_encoder_layers * (attn + mlp)
+            total += self.num_layers * attn  # cross-attention
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters one token touches: of a MoE, only its top-k
+        experts (the JAX package's formula)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        hd = self.resolved_head_dim
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        expert = 3 * d * self.d_ff
+        router = d * self.num_experts
+        total = self.num_layers * (attn + self.num_experts_per_tok * expert
+                                   + router)
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return int(total)
 
@@ -159,10 +187,6 @@ _REGISTRY: dict[str, "ArchEntry"] = {}
 
 # assigned architectures of the JAX package that later slices bring
 PENDING = {
-    "qwen3-moe-235b-a22b": "the MoE slice (models/moe.py)",
-    "granite-moe-1b-a400m": "the MoE slice (models/moe.py)",
-    "whisper-small": "the encoder-decoder slice (models/encdec.py)",
-    "internvl2-1b": "the vit_stub frontend slice",
     "minicpm-2b": "a later dense-config slice",
     "granite-8b": "a later dense-config slice",
     "qwen1.5-32b": "a later dense-config slice",

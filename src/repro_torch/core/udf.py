@@ -104,6 +104,18 @@ def unregister_udf(name: str) -> None:
             registry.pop(name, None)
 
 
+def patch_embeds(img: torch.Tensor, cfg) -> torch.Tensor:
+    """A ``vit_stub`` model's (P, d_model) patch embeddings of an (H, W,
+    3) image: the JAX package's ``jax.image.resize(img, (P, 8, 3),
+    "linear")`` (antialiased when it shrinks), flattened to (P, 24),
+    tiled across ``d_model`` and scaled by 0.02."""
+    from repro_torch.visual.ops import resize_hw
+    P = cfg.num_patches
+    pe = resize_hw(img, P, 8, "linear").reshape(P, -1)
+    pe = pe.repeat(1, cfg.d_model // pe.shape[-1] + 1)[:, :cfg.d_model]
+    return pe * 0.02
+
+
 def prompt_tokens(img: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """The model UDF's prompt, (C,) int32 on the image's device: the JAX
     package's ``feats_of`` — truncate ``img*255`` to int32, take the
@@ -132,8 +144,13 @@ def register_model_udf(name: str, arch: str = "qwen3-0.6b", *,
     stamping the same label (greedy decoding): per entity, grouped
     behind a :class:`~repro_torch.serving.batcher.GroupBatcher` (the
     batcher backend), and one prefill + decode over the whole
-    micro-batch (the device backend).  An image on the card given to a
-    model on the CPU raises: nothing moves the card's work to the CPU.
+    micro-batch (the device backend).  A ``vit_stub`` model registers
+    the per-entity route alone (its prompt carries :func:`patch_embeds`
+    of the image).  An encoder-decoder's grouped and device routes feed
+    zero frames; its per-entity route feeds none, and raises
+    ``KeyError('frames')``, as the JAX package's does.  An image on the
+    card given to a model on the CPU raises: nothing moves the card's
+    work to the CPU.
     """
     import numpy as np
     from repro_torch.configs import get_arch
@@ -168,18 +185,24 @@ def register_model_udf(name: str, arch: str = "qwen3-0.6b", *,
 
     def udf(img, **_):
         prompt = {"tokens": feats_of(img)[None, :].to(dev)}
+        if cfg.frontend == "vit_stub":
+            prompt["patch_embeds"] = patch_embeds(img.to(dev), cfg)[None]
         with lock:  # model params shared across engine threads
             toks = greedy_generate(model, params, prompt, steps=steps, sh=sh)
         return draw_text(img, label_of(toks[0, -1]), 4, 4)
 
     register_udf(name, udf)
+    if cfg.frontend == "vit_stub":
+        # the per-entity prompt carries image-derived patch embeddings,
+        # which a group's prefill does not: no grouped or device route
+        return
 
     # Grouped serving path: the same model behind a GroupBatcher, so the
     # dispatch router can amortize prefill+decode over a group instead of
     # paying full inference per entity.  Greedy decoding (temperature 0)
     # makes batched == sequential token-for-token, so the label — the
     # argmax bucket of the LAST decoded token — is identical to the
-    # per-entity UDF.
+    # per-entity UDF.  An encoder-decoder's group gets zero frames.
     batcher = GroupBatcher(model, params, group_size=8,
                            max_new_default=steps, sh=sh, temperature=0.0)
 
@@ -202,9 +225,13 @@ def register_model_udf(name: str, arch: str = "qwen3-0.6b", *,
     def device_batched(imgs, **_):
         with lock:
             toks = torch.stack([feats_of(img).to(dev) for img in imgs])
+            batch = {"tokens": toks}
+            if cfg.is_encoder_decoder:
+                batch["frames"] = torch.zeros(
+                    (len(imgs), cfg.encoder_seq_len, cfg.d_model),
+                    dtype=torch.float32, device=dev)
             prompt_len = toks.shape[1]
-            logits, cache = prefill_fn(params, {"tokens": toks},
-                                       prompt_len + steps + 1)
+            logits, cache = prefill_fn(params, batch, prompt_len + steps + 1)
             tok = sample_token(logits, None, 0.0, cfg.vocab_size)
             for i in range(steps - 1):
                 logits, cache = serve_step(params, tok, cache, prompt_len + i)

@@ -8,7 +8,7 @@ records into a port engine keeping their eids, so the two engines
 answer one query over the same data.
 
 A model's state is its parameters: :func:`params_from_jax` turns the JAX
-package's LM parameter tree (as numpy arrays) into the port's, so both
+package's parameter tree (an LM's or an encoder-decoder's) (as numpy arrays) into the port's, so both
 packages compute the same function in the parity tests.
 """
 from __future__ import annotations
@@ -37,29 +37,36 @@ def ingest_reference_state(engine, entities: Iterable[tuple]) -> list[str]:
 
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
-    """The JAX package's parameter tree of an LM of ``cfg`` — nested
+    """The JAX package's parameter tree of a model of ``cfg`` — nested
     dicts whose leaves convert with ``np.asarray``, per-layer leaves
-    stacked as ``init_lm`` stacks them (``blocks`` (L, ...), dense and
-    rwkv; hybrid ``mamba`` (n_app, group, ...) and ``shared``
-    (num_shared_blocks, ...)) — as the port's parameters on ``device``
-    (the CUDA card unless the caller asks for the CPU).  The port keeps
-    the same layout, so leaves carry over one for one; the top-level
-    keys and the stacked axes are checked against ``cfg``."""
+    stacked as its ``init_lm`` and ``init_encdec`` stack them (``blocks``
+    (L, ...), dense, moe, vlm and rwkv, a MoE's experts (L, E, ...);
+    hybrid ``mamba`` (n_app, group, ...) and ``shared``
+    (num_shared_blocks, ...); encoder-decoder ``enc_blocks``
+    (num_encoder_layers, ...) and ``dec_blocks`` (L, ...)) — as the
+    port's parameters on ``device`` (the CUDA card unless the caller
+    asks for the CPU).  The port keeps the same layout, so leaves carry
+    over one for one; the top-level keys and the stacked axes are
+    checked against ``cfg``."""
     import torch
 
     from repro_torch.core.boundary import resolve_device
     from repro_torch.models.lm import (family_kind, hybrid_shape,
                                       tree_leaves, tree_map)
 
-    kind = family_kind(cfg)
-    want = {"embed", "final_norm"}
-    if not cfg.tie_embeddings:
-        want.add("lm_head")
+    kind = "encdec" if cfg.is_encoder_decoder else family_kind(cfg)
+    if kind == "encdec":
+        want = {"embed", "enc_blocks", "enc_norm", "enc_norm_b",
+                "dec_blocks", "dec_norm", "dec_norm_b"}
+    else:
+        want = {"embed", "final_norm"}
+        if not cfg.tie_embeddings:
+            want.add("lm_head")
     if kind == "tblock":
         want.add("blocks")
     elif kind == "rwkv":
         want |= {"blocks", "final_norm_b", "ln0_s", "ln0_b"}
-    else:
+    elif kind == "hybrid":
         want |= {"mamba", "shared"}
     if set(tree) != want:
         raise ValueError(f"{cfg.name}: expected top-level keys "
@@ -70,6 +77,9 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
         raise ValueError(f"{cfg.name}: embed is {tuple(out['embed'].shape)}")
     if kind in ("tblock", "rwkv"):
         lead = {"blocks": (cfg.num_layers,)}
+    elif kind == "encdec":
+        lead = {"enc_blocks": (cfg.num_encoder_layers,),
+                "dec_blocks": (cfg.num_layers,)}
     else:
         lead = {"mamba": hybrid_shape(cfg),
                 "shared": (cfg.num_shared_blocks,)}
@@ -79,4 +89,14 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 raise ValueError(f"{cfg.name}: a {key!r} leaf of shape "
                                  f"{tuple(leaf.shape)} is not stacked as "
                                  f"{axes}")
+    if kind == "tblock" and cfg.is_moe:
+        experts = out["blocks"].get("moe")
+        if experts is None:
+            raise ValueError(f"{cfg.name}: the blocks hold no 'moe' experts")
+        for name in ("w_gate", "w_up", "w_down"):
+            shape = tuple(experts[name].shape[:2])
+            if shape != (cfg.num_layers, cfg.num_experts):
+                raise ValueError(f"{cfg.name}: moe {name!r} is stacked as "
+                                 f"{shape}, not (layers, experts) "
+                                 f"{(cfg.num_layers, cfg.num_experts)}")
     return out

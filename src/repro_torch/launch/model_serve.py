@@ -22,6 +22,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.boundary import resolve_device
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import get_model
+from repro_torch.models.registry import token_start
 from repro_torch.serving.serve_step import make_serve_fns, sample_token
 
 
@@ -32,8 +33,10 @@ def _sync(dev: torch.device) -> None:
 
 def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
         model_par=1, temperature=0.0, device="cuda", params=None) -> dict:
-    """Prefill ``requests`` seeded prompts of ``prompt_len`` tokens and
-    decode ``gen`` tokens each.  ``params`` (on ``device``) replaces the
+    """Prefill ``requests`` seeded prompts of ``prompt_len`` tokens (behind
+    ``num_patches`` patch embeddings of 0.01 for a ``vit_stub`` model; with
+    ``encoder_seq_len`` frames of 0.01 for an encoder-decoder) and decode
+    ``gen`` tokens each.  ``params`` (on ``device``) replaces the
     port's seeded init.  Times are host wall clock around work that ends
     in a device synchronise; the first call of a process includes its
     one-time set-up (kernel library load, cuBLAS handles)."""
@@ -51,9 +54,16 @@ def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
     rng = np.random.default_rng(0)
     tokens = rng.integers(1, cfg.vocab_size, (requests, prompt_len))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+    P = token_start(cfg)
+    if P:
+        batch["patch_embeds"] = torch.full((requests, P, cfg.d_model), 0.01,
+                                           device=dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.full(
+            (requests, cfg.encoder_seq_len, cfg.d_model), 0.01, device=dev)
 
     prefill_fn, serve_step = make_serve_fns(model, sh)
-    max_cache = prompt_len + gen + 1
+    max_cache = P + prompt_len + gen + 1
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill_fn(params, batch, max_cache)
@@ -68,7 +78,7 @@ def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
     t1 = time.perf_counter()
     for i in range(gen):
         toks.append(tok)
-        logits, cache = serve_step(params, tok, cache, prompt_len + i)
+        logits, cache = serve_step(params, tok, cache, P + prompt_len + i)
         tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
     _sync(dev)
     t_decode = time.perf_counter() - t1

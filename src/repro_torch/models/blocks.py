@@ -1,13 +1,13 @@
 """Composable residual blocks built from the layer library: the
-decoder's transformer block (attention + SwiGLU MLP, RMSNorm) and the
-Mamba2 block.  MoE and cross-attention come with later slices."""
+transformer block (attention, optional cross-attention, SwiGLU or GELU
+MLP or MoE, RMSNorm or LayerNorm) and the Mamba2 block."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models import attention, common, mamba2, mlp
+from repro_torch.models import attention, common, mamba2, mlp, moe
 
 
 def residual_scale(cfg: ArchConfig) -> float:
@@ -17,28 +17,34 @@ def residual_scale(cfg: ArchConfig) -> float:
     return 1.0
 
 
-def _unported(use_moe=False, cross=False, enc=None, cross_cache=None):
-    if use_moe:
-        raise NotImplementedError("MoE blocks are not ported yet: they come "
-                                  "with the MoE slice (models/moe.py)")
-    if cross or enc is not None or cross_cache is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet: it comes with the "
-            "encoder-decoder slice (models/encdec.py)")
-
-
 # ---------------------------------------------------------------- dense
-def init_tblock(kg, cfg: ArchConfig, dtype, *, use_moe=False,
-                cross=False) -> dict:
-    _unported(use_moe, cross)
+def init_tblock(kg, cfg: ArchConfig, dtype, *, use_moe=False, cross=False,
+                mlp_kind="swiglu", norm="rms") -> dict:
     dev = kg.device
     p = {
         "ln1": common.ones((cfg.d_model,), dtype, dev),
         "attn": attention.init_attention(kg, cfg, dtype),
         "ln2": common.ones((cfg.d_model,), dtype, dev),
     }
-    p["mlp"] = mlp.init_mlp(kg, cfg, dtype)
+    if norm == "layer":
+        p["ln1_b"] = common.zeros((cfg.d_model,), dtype, dev)
+        p["ln2_b"] = common.zeros((cfg.d_model,), dtype, dev)
+    if cross:
+        p["ln_x"] = common.ones((cfg.d_model,), dtype, dev)
+        p["xattn"] = attention.init_attention(kg, cfg, dtype)
+        if norm == "layer":
+            p["ln_x_b"] = common.zeros((cfg.d_model,), dtype, dev)
+    if use_moe:
+        p["moe"] = moe.init_moe(kg, cfg, dtype)
+    else:
+        p["mlp"] = mlp.init_mlp(kg, cfg, dtype, kind=mlp_kind)
     return p
+
+
+def _norm(x, p, name, cfg, norm):
+    if norm == "layer":
+        return common.layer_norm(x, p[name], p[name + "_b"], cfg.norm_eps)
+    return common.rms_norm(x, p[name], cfg.norm_eps)
 
 
 def apply_tblock(
@@ -51,21 +57,36 @@ def apply_tblock(
     positions=None,
     kv_cache=None,
     cache_index=None,
-    enc=None,
-    cross_cache=None,
+    enc=None,                  # encoder output: cross-attention over it
+    cross_cache=None,          # encoder K/V for decode cross-attention
     use_moe=False,
+    mlp_kind="swiglu",
+    norm="rms",
 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Returns (x, kv_cache written in place or None, moe_aux)."""
-    _unported(use_moe, False, enc, cross_cache)
     rs = residual_scale(cfg)
     h, new_cache = attention.apply_attention(
-        p["attn"], common.rms_norm(x, p["ln1"], cfg.norm_eps), cfg=cfg,
-        sh=sh, causal=causal, positions=positions, kv_cache=kv_cache,
+        p["attn"], _norm(x, p, "ln1", cfg, norm), cfg=cfg, sh=sh,
+        causal=causal, positions=positions, kv_cache=kv_cache,
         cache_index=cache_index)
     x = x + rs * h
+    if enc is not None:
+        hx, _ = attention.apply_attention(
+            p["xattn"], _norm(x, p, "ln_x", cfg, norm), cfg=cfg, sh=sh,
+            causal=False, use_rope=False, xk=enc)
+        x = x + rs * hx
+    elif cross_cache is not None:
+        hx = attention.apply_cross_attention_cached(
+            p["xattn"], _norm(x, p, "ln_x", cfg, norm), cross_cache,
+            cfg=cfg, sh=sh)
+        x = x + rs * hx
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = mlp.apply_mlp(p["mlp"], common.rms_norm(x, p["ln2"], cfg.norm_eps),
-                      sh=sh)
+    if use_moe:
+        h, aux = moe.apply_moe(p["moe"], _norm(x, p, "ln2", cfg, norm),
+                               cfg=cfg, sh=sh)
+    else:
+        h = mlp.apply_mlp(p["mlp"], _norm(x, p, "ln2", cfg, norm), sh=sh,
+                          kind=mlp_kind)
     x = x + rs * h
     return sh(x, "batch", "seq", "embed"), new_cache, aux
 

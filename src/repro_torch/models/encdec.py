@@ -1,0 +1,137 @@
+"""Whisper-style encoder-decoder.  The conv/mel frontend is a stub, as in
+the JAX package: the encoder takes precomputed frame embeddings
+(B, Se, d).
+
+Parameters are laid out as the JAX package's tree (``enc_blocks`` and
+``dec_blocks`` stacked on a leading layer axis), so
+``repro_torch.interop.params_from_jax`` carries one over leaf for leaf.
+The reference's ``lax.scan`` over the stack becomes a Python loop over
+per-layer views, and the caches — self-attention ``k``/``v`` of
+``max_cache`` slots and the encoder's cross-attention ``xk``/``xv`` —
+are preallocated stacked tensors written in place.  On a card the
+encoder's self-attention over more than 1024 frames and the decoder's
+cross-attention over them take the flash route (K3, not causal).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.models import attention, blocks, common
+from repro_torch.models.lm import layer, stack_init
+
+_BLOCK = dict(mlp_kind="gelu", norm="layer")
+
+
+def init_encdec(generator: torch.Generator, cfg: ArchConfig,
+                dtype=torch.float32) -> dict:
+    """Random parameters drawn from ``generator`` on its device."""
+    kg = common.KeyGen(generator)
+    dev = kg.device
+    return {
+        "embed": common.normal(kg(), (cfg.padded_vocab, cfg.d_model), dtype,
+                               std=0.02),
+        "enc_blocks": stack_init(
+            lambda k: blocks.init_tblock(k, cfg, dtype, **_BLOCK),
+            kg, cfg.num_encoder_layers),
+        "enc_norm": common.ones((cfg.d_model,), dtype, dev),
+        "enc_norm_b": common.zeros((cfg.d_model,), dtype, dev),
+        "dec_blocks": stack_init(
+            lambda k: blocks.init_tblock(k, cfg, dtype, cross=True, **_BLOCK),
+            kg, cfg.num_layers),
+        "dec_norm": common.ones((cfg.d_model,), dtype, dev),
+        "dec_norm_b": common.zeros((cfg.d_model,), dtype, dev),
+    }
+
+
+def encode(params, frames, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
+    """frames: (B, Se, d) precomputed frontend embeddings."""
+    pos = common.sinusoidal_positions(
+        torch.arange(frames.shape[1], device=frames.device), cfg.d_model,
+        frames.dtype)
+    h = sh(frames + pos[None], "batch", "seq", "embed")
+    for li in range(cfg.num_encoder_layers):
+        h, _, _ = blocks.apply_tblock(layer(params["enc_blocks"], li), h,
+                                      cfg=cfg, sh=sh, causal=False, **_BLOCK)
+    return common.layer_norm(h, params["enc_norm"], params["enc_norm_b"],
+                             cfg.norm_eps)
+
+
+def _dec_embed(params, tokens, cfg, sh, offset=0):
+    h = params["embed"][tokens.to(params["embed"].device)]
+    pos = common.sinusoidal_positions(
+        torch.arange(tokens.shape[1], device=h.device) + offset, cfg.d_model,
+        h.dtype)
+    return sh(h + pos[None], "batch", "seq", "embed")
+
+
+def _logits(params, h, cfg):
+    h = common.layer_norm(h, params["dec_norm"], params["dec_norm_b"],
+                          cfg.norm_eps)
+    return h @ params["embed"].T  # whisper ties the decoder embedding
+
+
+def forward(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
+            *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced pass -> (logits (B,S,Vp), aux=0)."""
+    if remat:
+        raise NotImplementedError("remat comes with the training slice")
+    enc = encode(params, frames, cfg, sh)
+    h = _dec_embed(params, tokens, cfg, sh)
+    for li in range(cfg.num_layers):
+        h, _, _ = blocks.apply_tblock(layer(params["dec_blocks"], li), h,
+                                      cfg=cfg, sh=sh, causal=True, enc=enc,
+                                      **_BLOCK)
+    logits = sh(_logits(params, h, cfg), "batch", "seq", "vocab")
+    return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               dtype=torch.float32, device=None, enc_len: int | None = None
+               ) -> dict:
+    """Self-attention ``k``/``v`` of ``max_seq`` slots and cross-attention
+    ``xk``/``xv`` of ``enc_len`` (default ``cfg.encoder_seq_len``)."""
+    hd = cfg.resolved_head_dim
+    L, H = cfg.num_layers, cfg.num_kv_heads
+    Se = cfg.encoder_seq_len if enc_len is None else enc_len
+
+    def z(n):
+        return torch.zeros((L, batch, n, H, hd), dtype=dtype, device=device)
+
+    return {"k": z(max_seq), "v": z(max_seq), "xk": z(Se), "xv": z(Se)}
+
+
+def prefill(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
+            max_cache: int, cache_dtype=None) -> tuple[torch.Tensor, dict]:
+    """Encode the frames + prefill the decoder tokens -> (last logits
+    (B,Vp), cache)."""
+    enc = encode(params, frames, cfg, sh)
+    h = _dec_embed(params, tokens, cfg, sh)
+    cache = init_cache(cfg, tokens.shape[0], max_cache,
+                       cache_dtype or h.dtype, h.device, enc.shape[1])
+    for li in range(cfg.num_layers):
+        bp = layer(params["dec_blocks"], li)
+        h, _, _ = blocks.apply_tblock(
+            bp, h, cfg=cfg, sh=sh, causal=True, enc=enc,
+            kv_cache={"k": cache["k"][li], "v": cache["v"][li]},
+            cache_index=0, **_BLOCK)
+        xc = attention.make_cross_cache(bp["xattn"], enc, cfg, sh)
+        cache["xk"][li] = xc["k"]
+        cache["xv"][li] = xc["v"]
+    return _logits(params, h[:, -1:], cfg)[:, 0], cache
+
+
+def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
+                sh: ShardingCtx) -> tuple[torch.Tensor, dict]:
+    """tokens (B,1); returns (logits (B,Vp), the cache, updated in place)."""
+    cache_index = int(cache_index)
+    h = _dec_embed(params, tokens, cfg, sh, offset=cache_index)
+    for li in range(cfg.num_layers):
+        h, _, _ = blocks.apply_tblock(
+            layer(params["dec_blocks"], li), h, cfg=cfg, sh=sh, causal=True,
+            kv_cache={"k": cache["k"][li], "v": cache["v"][li]},
+            cache_index=cache_index,
+            cross_cache={"k": cache["xk"][li], "v": cache["xv"][li]},
+            **_BLOCK)
+    return _logits(params, h, cfg)[:, 0], cache

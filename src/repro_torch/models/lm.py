@@ -1,10 +1,10 @@
-"""Unified decoder-only LM for the dense (``tblock``), ``rwkv`` and
-hybrid (zamba2) families.  Parameters are nested dicts of tensors laid
-out as the JAX package lays them out: per-layer leaves stacked on a
-leading axis (``blocks`` (L, ...), dense and rwkv; ``mamba`` (n_app,
-group, ...); ``shared`` (num_shared_blocks, ...)), so
-``repro_torch.interop.params_from_jax`` carries a JAX tree over leaf
-for leaf.  The JAX package's ``lax.scan``
+"""Unified decoder-only LM for the dense, vlm and moe (``tblock``),
+``rwkv`` and hybrid (zamba2) families.  Parameters are nested dicts of
+tensors laid out as the JAX package lays them out: per-layer leaves
+stacked on a leading axis (``blocks`` (L, ...), dense and rwkv, a MoE's
+experts (L, E, ...); ``mamba`` (n_app, group, ...); ``shared``
+(num_shared_blocks, ...)), so ``repro_torch.interop.params_from_jax``
+carries a JAX tree over leaf for leaf.  The JAX package's ``lax.scan``
 over the stack becomes a Python loop over views of the stacked tensors,
 and caches are preallocated stacked tensors written in place (the JAX
 package threads them through the scan and donates them, which computes
@@ -57,7 +57,7 @@ def layer(tree, *index):
     return tree_map(lambda a: a[index], tree)
 
 
-def _stack_init(init_one: Callable, kg: common.KeyGen, n: int) -> dict:
+def stack_init(init_one: Callable, kg: common.KeyGen, n: int) -> dict:
     """``n`` layers of ``init_one(kg)`` stacked on a leading axis, drawn
     one layer after another and written into one preallocated tensor per
     leaf (no second copy of the stack is ever held)."""
@@ -88,22 +88,22 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
         p["lm_head"] = common.normal(kg(), (cfg.d_model, cfg.padded_vocab),
                                      dtype, std=0.02)
     if kind == "tblock":
-        p["blocks"] = _stack_init(
+        p["blocks"] = stack_init(
             lambda k: blocks.init_tblock(k, cfg, dtype, use_moe=cfg.is_moe),
             kg, cfg.num_layers)
     elif kind == "rwkv":
         p["ln0_s"] = common.ones((cfg.d_model,), dtype, dev)
         p["ln0_b"] = common.zeros((cfg.d_model,), dtype, dev)
         p["final_norm_b"] = common.zeros((cfg.d_model,), dtype, dev)
-        p["blocks"] = _stack_init(lambda k: rwkv6.init_rwkv6(k, cfg, dtype),
+        p["blocks"] = stack_init(lambda k: rwkv6.init_rwkv6(k, cfg, dtype),
                                   kg, cfg.num_layers)
     else:  # hybrid (zamba2)
         n_app, group = hybrid_shape(cfg)
-        mb = _stack_init(lambda k: blocks.init_mblock(k, cfg, dtype),
+        mb = stack_init(lambda k: blocks.init_mblock(k, cfg, dtype),
                          kg, n_app * group)
         p["mamba"] = tree_map(
             lambda a: a.reshape(n_app, group, *a.shape[1:]), mb)
-        p["shared"] = _stack_init(lambda k: blocks.init_tblock(k, cfg, dtype),
+        p["shared"] = stack_init(lambda k: blocks.init_tblock(k, cfg, dtype),
                                   kg, cfg.num_shared_blocks)
     return p
 
@@ -145,10 +145,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 # ======================================================================
 # embedding / head
 # ======================================================================
-def embed_tokens(p, tokens, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
+def embed_tokens(p, tokens, cfg: ArchConfig, sh: ShardingCtx,
+                 extra_embeds=None) -> torch.Tensor:
+    """Token embeddings, with ``extra_embeds`` (B, P, d) — a vlm's patch
+    embeddings — prepended before the positions are added."""
     h = p["embed"][tokens.to(p["embed"].device)]
     if cfg.scale_emb != 1.0:
         h = h * cfg.scale_emb
+    if extra_embeds is not None:
+        h = torch.cat([extra_embeds.to(h.dtype), h], dim=1)
     if cfg.pos_scheme == "sinusoidal":
         pos = common.sinusoidal_positions(
             torch.arange(h.shape[1], device=h.device), cfg.d_model, h.dtype)
@@ -193,12 +198,13 @@ def lm_head(p, h, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
 # forward (no cache)
 # ======================================================================
 def forward(params, tokens, cfg: ArchConfig, sh: ShardingCtx,
-            *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B,S,Vp), moe_aux)."""
+            *, extra_embeds=None,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B,S,Vp), moe_aux summed over the layers)."""
     kind = family_kind(cfg)
     if remat:
         raise NotImplementedError("remat comes with the training slice")
-    h = embed_tokens(params, tokens, cfg, sh)
+    h = embed_tokens(params, tokens, cfg, sh, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "rwkv":
@@ -226,10 +232,11 @@ def forward(params, tokens, cfg: ArchConfig, sh: ShardingCtx,
 # prefill: forward + cache construction
 # ======================================================================
 def prefill(params, tokens, cfg: ArchConfig, sh: ShardingCtx, max_cache: int,
-            *, cache_dtype=None) -> tuple[torch.Tensor, dict]:
-    """Returns (last-position logits (B,Vp), cache)."""
+            *, extra_embeds=None, cache_dtype=None) -> tuple[torch.Tensor, dict]:
+    """Returns (last-position logits (B,Vp), cache); ``extra_embeds``
+    fill the first cache slots."""
     kind = family_kind(cfg)
-    h = embed_tokens(params, tokens, cfg, sh)
+    h = embed_tokens(params, tokens, cfg, sh, extra_embeds)
     B, S = h.shape[0], h.shape[1]
     cache_dtype = cache_dtype or h.dtype
     positions = torch.arange(S, device=h.device)

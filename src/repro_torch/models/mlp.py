@@ -1,25 +1,39 @@
-"""Feed-forward layer: SwiGLU (llama-family; the GELU MLP of whisper
-comes with the encoder-decoder slice)."""
+"""Feed-forward layers: SwiGLU (llama-family) and GELU (whisper)."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import common
 
 
-def init_mlp(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
+def init_mlp(kg: common.KeyGen, cfg: ArchConfig, dtype,
+             kind: str = "swiglu") -> dict:
     d, f = cfg.d_model, cfg.d_ff
     depth_std = (f ** -0.5) / max(cfg.num_layers, 1) ** 0.5
+    if kind == "swiglu":
+        return {
+            "w_gate": common.normal(kg(), (d, f), dtype),
+            "w_up": common.normal(kg(), (d, f), dtype),
+            "w_down": common.normal(kg(), (f, d), dtype, std=depth_std),
+        }
     return {
-        "w_gate": common.normal(kg(), (d, f), dtype),
-        "w_up": common.normal(kg(), (d, f), dtype),
-        "w_down": common.normal(kg(), (f, d), dtype, std=depth_std),
+        "w_in": common.normal(kg(), (d, f), dtype),
+        "b_in": common.zeros((f,), dtype, kg.device),
+        "w_out": common.normal(kg(), (f, d), dtype, std=depth_std),
+        "b_out": common.zeros((d,), dtype, kg.device),
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, *, sh: ShardingCtx) -> torch.Tensor:
-    h = common.swiglu(x @ p["w_gate"], x @ p["w_up"])
+def apply_mlp(p: dict, x: torch.Tensor, *, sh: ShardingCtx,
+              kind: str = "swiglu") -> torch.Tensor:
+    if kind == "swiglu":
+        h = common.swiglu(x @ p["w_gate"], x @ p["w_up"])
+        h = sh(h, "batch", "seq", "act_ff")
+        return h @ p["w_down"]
+    # the exact erf form, as the reference's gelu(approximate=False)
+    h = F.gelu(x @ p["w_in"] + p["b_in"])
     h = sh(h, "batch", "seq", "act_ff")
-    return h @ p["w_down"]
+    return h @ p["w_out"] + p["b_out"]

@@ -1,10 +1,11 @@
 """ModelAPI: one uniform surface over the ported architectures.
 
 ``get_model(cfg)`` returns callables the serving and launch layers use
-without knowing the family (dense, rwkv or hybrid): init / forward /
-prefill / decode_step / init_cache.  ``loss`` comes with the training
-slice; MoE blocks, encoder-decoder models and the ``vit_stub`` frontend
-come with later slices and raise.
+without knowing the family (dense, moe, vlm, rwkv, hybrid or the
+encoder-decoder): init / forward / prefill / decode_step / init_cache.
+A ``vit_stub`` model's batch carries ``patch_embeds`` (B, P, d), an
+encoder-decoder's ``frames`` (B, Se, d).  ``loss`` comes with the
+training slice.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 @dataclasses.dataclass
@@ -28,15 +29,15 @@ class ModelAPI:
     init_cache: Callable[..., dict]
 
 
+def token_start(cfg: ArchConfig) -> int:
+    """Cache slots ahead of the first token: a ``vit_stub`` model's
+    patches (the serving layer's prompt offset)."""
+    return cfg.num_patches if cfg.frontend == "vit_stub" else 0
+
+
 def get_model(cfg: ArchConfig) -> ModelAPI:
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet: they "
-            "come with the encoder-decoder slice (models/encdec.py)")
-    if cfg.frontend == "vit_stub":
-        raise NotImplementedError(
-            f"{cfg.name}: the vit_stub frontend is not ported yet: it comes "
-            "with the vit_stub frontend slice")
+        return _encdec_api(cfg)
     return _lm_api(cfg)
 
 
@@ -46,11 +47,13 @@ def _lm_api(cfg: ArchConfig) -> ModelAPI:
         return lm.init_lm(generator, cfg, dtype)
 
     def forward(params, batch, sh: ShardingCtx, remat=False):
-        return lm.forward(params, batch["tokens"], cfg, sh, remat=remat)
+        return lm.forward(params, batch["tokens"], cfg, sh,
+                          extra_embeds=batch.get("patch_embeds"), remat=remat)
 
     def prefill(params, batch, sh: ShardingCtx, max_cache: int,
                 cache_dtype=None):
         return lm.prefill(params, batch["tokens"], cfg, sh, max_cache,
+                          extra_embeds=batch.get("patch_embeds"),
                           cache_dtype=cache_dtype)
 
     def decode_step(params, tokens, cache, cache_index, sh: ShardingCtx):
@@ -58,6 +61,30 @@ def _lm_api(cfg: ArchConfig) -> ModelAPI:
 
     def init_cache(batch, max_seq, dtype=torch.float32, device=None):
         return lm.init_cache(cfg, batch, max_seq, dtype, device)
+
+    return ModelAPI(cfg=cfg, init=init, forward=forward, prefill=prefill,
+                    decode_step=decode_step, init_cache=init_cache)
+
+
+# ------------------------------------------------------------- enc-dec
+def _encdec_api(cfg: ArchConfig) -> ModelAPI:
+    def init(generator: torch.Generator, dtype=torch.float32):
+        return encdec.init_encdec(generator, cfg, dtype)
+
+    def forward(params, batch, sh: ShardingCtx, remat=False):
+        return encdec.forward(params, batch["frames"], batch["tokens"], cfg,
+                              sh, remat=remat)
+
+    def prefill(params, batch, sh: ShardingCtx, max_cache: int,
+                cache_dtype=None):
+        return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
+                              sh, max_cache, cache_dtype=cache_dtype)
+
+    def decode_step(params, tokens, cache, cache_index, sh: ShardingCtx):
+        return encdec.decode_step(params, tokens, cache, cache_index, cfg, sh)
+
+    def init_cache(batch, max_seq, dtype=torch.float32, device=None):
+        return encdec.init_cache(cfg, batch, max_seq, dtype, device)
 
     return ModelAPI(cfg=cfg, init=init, forward=forward, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache)

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models.registry import ModelAPI
+from repro_torch.models.registry import ModelAPI, token_start
 from repro_torch.query.dispatch import OFFLOAD_STOP, OffloadInboxMixin
 from repro_torch.serving.serve_step import sample_token
 
@@ -118,10 +118,18 @@ class GroupBatcher:
         n = len(group)
         prompt_len = len(group[0].tokens)
         max_new = max(r.max_new for r in group)
-        max_cache = prompt_len + max_new + 1
+        P = token_start(cfg)
+        max_cache = P + prompt_len + max_new + 1
 
         toks = torch.from_numpy(np.stack([r.tokens for r in group]))
         batch = {"tokens": toks.to(self.device)}
+        if P:
+            batch["patch_embeds"] = torch.zeros(
+                (n, P, cfg.d_model), dtype=torch.float32, device=self.device)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros(
+                (n, cfg.encoder_seq_len, cfg.d_model), dtype=torch.float32,
+                device=self.device)
         logits, cache = self.model.prefill(self.params, batch, self.sh,
                                            max_cache,
                                            cache_dtype=self.cache_dtype)
@@ -145,7 +153,7 @@ class GroupBatcher:
             if not live.any() or step == max_new - 1:
                 break
             logits, cache = self.model.decode_step(
-                self.params, tok, cache, prompt_len + step, self.sh)
+                self.params, tok, cache, P + prompt_len + step, self.sh)
             self.steps_run += 1
             tok = sample_token(logits, gen, self.temperature, cfg.vocab_size)
         for r in group:

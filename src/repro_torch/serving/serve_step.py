@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models.registry import ModelAPI
+from repro_torch.models.registry import ModelAPI, token_start
 
 
 def make_serve_fns(model: ModelAPI, sh: ShardingCtx, cache_dtype=torch.float32):
@@ -46,7 +46,8 @@ def greedy_generate(model: ModelAPI, params, batch: dict, *, steps: int,
                     generator: torch.Generator | None = None) -> torch.Tensor:
     """Prefill then decode ``steps`` tokens; returns (B, steps) int32."""
     cfg = model.cfg
-    prompt_len = batch["tokens"].shape[1]
+    P = token_start(cfg)
+    prompt_len = batch["tokens"].shape[1] + P
     max_cache = max_cache or (prompt_len + steps + 1)
 
     prefill_fn, serve_step = make_serve_fns(model, sh)

@@ -20,6 +20,10 @@ float32 from the same inputs and round the output once, so they may
 land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
 sixth of a typical output (about 0.03 for a row over 4096 keys).
 
+Reduced granite-moe, whisper and internvl2 on the card agree with the
+same model on the host to 3e-4 (the JAX package's tolerance between
+its prefill or decode and its forward).
+
 The scale-out path on the card: a 2-shard cluster with a device backend
 on each shard against one CUDA engine (1e-4, the fused preprocess
 kernel's tolerance), the wire in front of a CUDA engine and the codec on
@@ -473,6 +477,12 @@ def _attn(seed, B, Sq, Sk, H, Hkv, D, device, dtype=torch.float32):
     (2, 40, 130, 4, 2, 16, 17, True, torch.float32),     # q_offset
     (1, 512, 4113, 16, 8, 128, 3584, True, torch.float32),
     (2, 1100, 1105, 16, 8, 128, 0, True, torch.bfloat16),
+    # whisper-small's encoder over 1,500 frames and its cross-attention
+    # of 32 decoder rows against them (neither causal, partial tiles),
+    # and granite-moe-1b-a400m past 1024 slots (GQA 16/8 at D 64)
+    (16, 1500, 1500, 12, 12, 64, 0, False, torch.float32),
+    (16, 32, 1500, 12, 12, 64, 0, False, torch.float32),
+    (2, 1536, 1553, 16, 8, 64, 0, True, torch.float32),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, q_offset,
                                     causal, dtype):
@@ -541,6 +551,60 @@ def test_reduced_model_on_the_card_goes_through_its_kernel(cuda, arch,
     before = launches.count
     out = run(arch, reduced=True, requests=2, prompt_len=S, gen=2)
     assert launches.count > before
+    assert out["generated"].shape == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,S,replace,flash_per_prefill", [
+    ("granite-moe-1b-a400m", 1030, {}, "decoder"),
+    ("whisper-small", 24, {"encoder_seq_len": 1100}, "encoder+decoder"),
+    ("internvl2-1b", 1030, {}, "decoder"),
+])
+def test_reduced_moe_encdec_and_vlm_on_the_card(cuda, arch, S, replace,
+                                                 flash_per_prefill):
+    """Reduced granite-moe and internvl2 beyond 1024 positions (K3
+    causal in every layer of a prefill), and reduced whisper over 1,100
+    frames (K3 not causal in every encoder layer and every decoder
+    cross-attention): prefill + a decode step on the card agree with the
+    same model on the host; ``model_serve.run`` on the card launches K3
+    where its route calls for it (whisper's reduced 32 frames take the
+    plain route, granite's and internvl2's prompts here go past 1024
+    slots)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.model_serve import run
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_map
+    from repro_torch.models.registry import token_start
+    cfg = get_arch(arch, reduced=True).replace(**replace)
+    api = get_model(cfg)
+    host = api.init(torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda), host)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, S)).astype(np.int32))}
+    P = token_start(cfg)
+    if P:
+        batch["patch_embeds"] = torch.from_numpy((rng.standard_normal(
+            (2, P, cfg.d_model)) * 0.1).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.encoder_seq_len, cfg.d_model)) * 0.1).astype(np.float32))
+    want = cfg.num_layers + (cfg.num_encoder_layers
+                             if flash_per_prefill == "encoder+decoder" else 0)
+    before = fa.launches.count
+    lg, cache = api.prefill(card, {k: v.to(cuda) for k, v in batch.items()},
+                            REPLICATED, P + S + 4)
+    assert fa.launches.count - before == want
+    step = batch["tokens"][:, -1:]
+    lg, _ = api.decode_step(card, step.to(cuda), cache, P + S, REPLICATED)
+    lh, hcache = api.prefill(host, batch, REPLICATED, P + S + 4)
+    lh, _ = api.decode_step(host, step, hcache, P + S, REPLICATED)
+    assert float((lg.cpu() - lh).abs().max()) <= 3e-4
+    before = fa.launches.count
+    out = run(arch, reduced=True, requests=2, prompt_len=S, gen=2)
+    assert (fa.launches.count > before) == (flash_per_prefill == "decoder")
     assert out["generated"].shape == (2, 2)
 
 

@@ -1,11 +1,16 @@
 """The PyTorch port's model path held against the JAX package on the CPU.
 
 Reduced ``zamba2-2.7b`` (hybrid: Mamba2 trunk, the SSD scan, shared
-attention blocks), ``qwen3-0.6b`` (dense: GQA, qk_norm) and
-``rwkv6-1.6b`` (rwkv: token shift, data-dependent decay, the WKV6 scan)
-are built from one JAX parameter tree, carried into the port by
-``repro_torch.interop.params_from_jax``; the same numpy tokens go
-through both.
+attention blocks), ``qwen3-0.6b`` (dense: GQA, qk_norm), ``rwkv6-1.6b``
+(rwkv: token shift, data-dependent decay, the WKV6 scan),
+``granite-moe-1b-a400m`` and ``qwen3-moe-235b-a22b`` (moe: top-k
+routing, sort-based dispatch; the reduced configs' capacity factor 4.0
+drops no token), ``whisper-small`` (the encoder-decoder: GELU,
+LayerNorm, cross-attention, sinusoidal positions) and ``internvl2-1b``
+(vlm: QKV bias, ``vit_stub`` patch embeddings ahead of the tokens) are
+built from one JAX parameter tree, carried into the port by
+``repro_torch.interop.params_from_jax``; the same numpy tokens (and
+numpy-seeded frames or patch embeddings) go through both.
 
 Tolerances (absolute, float32):
 - logits 3e-4 — the JAX package's own tolerance between its prefill or
@@ -14,6 +19,8 @@ Tolerances (absolute, float32):
 - caches and layer outputs 1e-4 — the same arithmetic, one to six layers
   deep, on values of order one;
 - norms, rope and positions 1e-6 — elementwise float32;
+- the MoE load-balancing loss 1e-6 — a float32 sum of E products of
+  means over a few dozen tokens;
 - greedy tokens: equal.
 """
 import jax
@@ -35,15 +42,18 @@ from repro_torch.distributed.sharding import REPLICATED, ShardingCtx
 from repro_torch.interop import params_from_jax
 from repro_torch.models import common, get_model
 from repro_torch.models.mamba2 import apply_mamba2, conv_dim
+from repro_torch.models.registry import token_start
 from repro_torch.models.rope import apply_rope
 from repro_torch.serving.serve_step import greedy_generate
 
 torch.set_num_threads(1)
 
-ARCHS = ["zamba2-2.7b", "qwen3-0.6b", "rwkv6-1.6b"]
+ARCHS = ["zamba2-2.7b", "qwen3-0.6b", "rwkv6-1.6b", "granite-moe-1b-a400m",
+         "qwen3-moe-235b-a22b", "whisper-small", "internvl2-1b"]
 LOGIT_TOL = 3e-4
 STATE_TOL = 1e-4
 ELEM_TOL = 1e-6
+AUX_TOL = 1e-6
 B, S = 2, 24
 
 
@@ -68,6 +78,27 @@ def _tokens(cfg, shape, seed):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _extras(cfg, batch, seed):
+    """The inputs besides tokens a config asks for, numpy-seeded: a
+    vit_stub model's patch embeddings, an encoder-decoder's frames."""
+    rng = np.random.default_rng(100 + seed)
+    out = {}
+    if token_start(cfg):
+        out["patch_embeds"] = (rng.standard_normal(
+            (batch, cfg.num_patches, cfg.d_model)) * 0.1).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (rng.standard_normal(
+            (batch, cfg.encoder_seq_len, cfg.d_model)) * 0.1).astype(np.float32)
+    return out
+
+
+def _batches(cfg, toks, seed):
+    """The same batch for the JAX package and for the port."""
+    b = {"tokens": toks, **_extras(cfg, toks.shape[0], seed)}
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+
 def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), atol=tol, rtol=0)
@@ -81,27 +112,31 @@ def test_configs_match_the_reference():
                 jax_arch(arch, reduced).__dict__
     for arch in ARCHS:
         assert get_arch(arch).param_count() == jax_arch(arch).param_count()
+        assert get_arch(arch).active_param_count() == \
+            jax_arch(arch).active_param_count()
 
 
 def test_forward_matches_jax(pair):
     _, japi, jparams, api, params = pair
-    toks = _tokens(api.cfg, (B, S), 1)
-    want, _ = japi.forward(jparams, {"tokens": jnp.asarray(toks)},
-                           JAX_REPLICATED)
-    got, aux = api.forward(params, {"tokens": torch.from_numpy(toks)},
-                           REPLICATED)
-    assert got.shape == (B, S, api.cfg.padded_vocab)
+    jb, tb = _batches(api.cfg, _tokens(api.cfg, (B, S), 1), 1)
+    want, jaux = japi.forward(jparams, jb, JAX_REPLICATED)
+    got, aux = api.forward(params, tb, REPLICATED)
+    assert got.shape == (B, token_start(api.cfg) + S, api.cfg.padded_vocab)
     _close(got, want, LOGIT_TOL)
-    assert float(aux) == 0.0
+    if api.cfg.is_moe:
+        assert float(aux) > 0.0
+        _close(aux, jaux, AUX_TOL)
+    else:
+        assert float(aux) == 0.0
 
 
 def test_prefill_logits_and_cache_match_jax(pair):
     _, japi, jparams, api, params = pair
-    toks = _tokens(api.cfg, (B, S), 2)
-    want, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks)},
-                                JAX_REPLICATED, max_cache=S + 6)
-    got, cache = api.prefill(params, {"tokens": torch.from_numpy(toks)},
-                             REPLICATED, S + 6)
+    jb, tb = _batches(api.cfg, _tokens(api.cfg, (B, S), 2), 2)
+    P = token_start(api.cfg)
+    want, jcache = japi.prefill(jparams, jb, JAX_REPLICATED,
+                                max_cache=P + S + 6)
+    got, cache = api.prefill(params, tb, REPLICATED, P + S + 6)
     _close(got, want, LOGIT_TOL)
     assert set(cache) == set(jcache)
     for key in jcache:
@@ -113,16 +148,17 @@ def test_prefill_logits_and_cache_match_jax(pair):
 def test_four_decode_steps_match_jax(pair):
     _, japi, jparams, api, params = pair
     toks = _tokens(api.cfg, (B, S + 4), 3)
-    _, jcache = japi.prefill(jparams, {"tokens": jnp.asarray(toks[:, :S])},
-                             JAX_REPLICATED, max_cache=S + 5)
-    _, cache = api.prefill(params, {"tokens": torch.from_numpy(toks[:, :S])},
-                           REPLICATED, S + 5)
+    jb, tb = _batches(api.cfg, toks[:, :S], 3)
+    P = token_start(api.cfg)
+    _, jcache = japi.prefill(jparams, jb, JAX_REPLICATED,
+                             max_cache=P + S + 5)
+    _, cache = api.prefill(params, tb, REPLICATED, P + S + 5)
     for i in range(4):
         step = toks[:, S + i:S + i + 1]
         want, jcache = japi.decode_step(jparams, jnp.asarray(step), jcache,
-                                        jnp.int32(S + i), JAX_REPLICATED)
+                                        jnp.int32(P + S + i), JAX_REPLICATED)
         got, cache = api.decode_step(params, torch.from_numpy(step), cache,
-                                     S + i, REPLICATED)
+                                     P + S + i, REPLICATED)
         _close(got, want, LOGIT_TOL)
     for key in jcache:
         _close(cache[key], jcache[key], STATE_TOL)
@@ -130,11 +166,9 @@ def test_four_decode_steps_match_jax(pair):
 
 def test_greedy_tokens_match_jax(pair):
     _, japi, jparams, api, params = pair
-    toks = _tokens(api.cfg, (3, 5), 4)
-    want = jax_generate(japi, jparams, {"tokens": jnp.asarray(toks)},
-                        steps=6, sh=JAX_REPLICATED)
-    got = greedy_generate(api, params, {"tokens": torch.from_numpy(toks)},
-                          steps=6, sh=REPLICATED)
+    jb, tb = _batches(api.cfg, _tokens(api.cfg, (3, 5), 4), 4)
+    want = jax_generate(japi, jparams, jb, steps=6, sh=JAX_REPLICATED)
+    got = greedy_generate(api, params, tb, steps=6, sh=REPLICATED)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -144,15 +178,16 @@ def test_prefill_and_decode_match_forward_in_the_port(pair):
     prefill's last logits and four decode steps equal the no-cache
     forward at the same positions."""
     _, _, _, api, params = pair
-    toks = torch.from_numpy(_tokens(api.cfg, (B, S + 4), 5))
-    full, _ = api.forward(params, {"tokens": toks}, REPLICATED)
-    lg, cache = api.prefill(params, {"tokens": toks[:, :S]}, REPLICATED,
-                            S + 5)
-    _close(lg, full[:, S - 1], LOGIT_TOL)
+    _, batch = _batches(api.cfg, _tokens(api.cfg, (B, S + 4), 5), 5)
+    toks, P = batch["tokens"], token_start(api.cfg)
+    full, _ = api.forward(params, batch, REPLICATED)
+    lg, cache = api.prefill(params, {**batch, "tokens": toks[:, :S]},
+                            REPLICATED, P + S + 5)
+    _close(lg, full[:, P + S - 1], LOGIT_TOL)
     for i in range(4):
         lg, cache = api.decode_step(params, toks[:, S + i:S + i + 1], cache,
-                                    S + i, REPLICATED)
-        _close(lg, full[:, S + i], LOGIT_TOL)
+                                    P + S + i, REPLICATED)
+        _close(lg, full[:, P + S + i], LOGIT_TOL)
 
 
 def test_port_init_is_seeded_and_shaped_as_the_reference(pair):
@@ -418,21 +453,13 @@ def test_group_batcher_matches_sequential_greedy():
 
 # ------------------------------------------------- what is not ported
 def test_unported_paths_raise_instead_of_running_something_else():
-    """The slices still to come (MoE, encoder-decoder, the vit_stub
-    frontend, meshes) raise and name their slice."""
-    with pytest.raises(KeyError, match="MoE slice"):
-        get_arch("qwen3-moe-235b-a22b")
-    with pytest.raises(KeyError, match="encoder-decoder slice"):
-        get_arch("whisper-small")
+    """What is still to come (the dense configs minicpm-2b, granite-8b
+    and qwen1.5-32b, meshes) raises and names its slice."""
+    for arch in ("minicpm-2b", "granite-8b", "qwen1.5-32b"):
+        with pytest.raises(KeyError, match="dense-config slice"):
+            get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_model(jax_arch("granite-moe-1b-a400m", reduced=True)).init(
-            torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        get_model(jax_arch("whisper-small", reduced=True))
-    with pytest.raises(NotImplementedError, match="vit_stub"):
-        get_model(jax_arch("internvl2-1b", reduced=True))
     with pytest.raises(NotImplementedError, match="distribution slice"):
         ShardingCtx(mesh=object())
     from repro_torch.launch.model_serve import run
