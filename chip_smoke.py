@@ -22,8 +22,14 @@ Phases (any failed check exits non-zero, before the result line):
    K3's, K4's and K5's rows name their tensor-core route; besides the
    main shapes, K3 at zamba2's head dim 80 (float32 and bfloat16), K1 at
    one 64x64 image (C1's IQ3 in phase 10) and on its general route
-   (ksize 99, and ksize 5 over 64 channels), and K2 at one image, at a
-   1080p lanczos3 downsample and at 8 channels;
+   (ksize 99, and ksize 5 over 64 channels), K2 at one image, at a
+   1080p lanczos3 downsample and at 8 channels, and for the training
+   path K3 in bfloat16 at minicpm-2b's head dim 64, K3 at qwen3-0.6b's
+   training microbatch and at granite-8b's prefill (phase 14), and K3's
+   forward + recomputing backward (``flash_vjp``'s Function) at
+   qwen3-0.6b's and minicpm-2b's training shapes, its output held
+   against the plain forward and its gradients against autograd
+   through the plain forward;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
@@ -83,16 +89,36 @@ Phases (any failed check exits non-zero, before the result line):
    forward check at (1, 1024, 4) with seeded patches, and the
    per-entity model UDF (the only route the JAX package registers for
    a vit_stub model) over 16 images, whose labels must equal those of
-   ``greedy_generate`` called on the same prompts.
+   ``greedy_generate`` called on the same prompts;
+14. the dense path at the full width of granite-8b (36 layers, d_model
+   4096, 32 q and 8 kv heads of 128; about 32 GB of float32 weights):
+   ``model_serve.run`` over 2 requests of 1,536 tokens + 16 generated
+   (1,553 cache slots: K3 on every prefill layer) and the forward check
+   at (1, 1100, 4);
+15. training (``launch.train`` and ``training.make_train_step``): (a)
+   one step of qwen3-0.6b at full width cut to 2 layers, 1 x 1,536
+   tokens in float32, on the card and on the host from one state (loss,
+   gradient norm, each leaf of both moments, parameters); (b)
+   qwen3-0.6b at full width, 4 x 4,096 tokens as 2 microbatches,
+   float32: 3 steps straight, then 2 steps with a checkpoint at step 2
+   and a run resuming from it, whose step-3 loss must equal the
+   straight run's; (c) minicpm-2b at full width, 1 x 4,096 tokens,
+   bfloat16 compute: 2 steps, the first loss against
+   ``model.loss`` of the float32 parameters; (d) one step of minicpm-2b
+   at full width cut to 2 layers, 1 x 4,096, at the bfloat16 defaults
+   against the same step in float32 from one state (gradient norm, each
+   leaf's first moment).  Every attention layer runs
+   K3 forward and again when remat recomputes it, under the recomputing
+   backward.
 
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
-zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 9 and 10
-(run in that order) and read just after it (phase 6 must have launched
-K4, and K3 past 1024 slots; phase 7 K5; phases 8, 11, 12 and 13 K3;
-phase 9 K1 and K2; phase 10 K1).  K1's and K2's launches in the kernels
-line are the sum over phases 2–4, 9 and 10, K3's over phases 6–8 and
-11–13.
+zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15, 9
+and 10 (run in that order) and read just after it (phase 6 must have
+launched K4, and K3 past 1024 slots; phase 7 K5; phases 8 and 11–15
+K3; phase 9 K1 and K2; phase 10 K1).  K1's and K2's launches in the
+kernels line are the sum over phases 2–4, 9 and 10, K3's over phases
+6–8 and 11–15.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
 limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -157,6 +183,39 @@ K5_BF16_ATOL, K5_BF16_RTOL = 5e-2, 2.0 ** -7
 # sixth of a typical output (about 0.03 for a row over 4096 keys)
 K3_TOL, K3_LSE_TOL = 2e-5, 1e-4
 K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
+# flash attention's recomputing backward over K3's output and
+# log-sum-exp, against autograd through the plain forward: float32
+# 2e-4 (the JAX package's tolerance for its flash gradients,
+# tests/test_kernels.py) plus 1e-4 relative (a log-sum-exp within
+# K3_LSE_TOL scales a row's probabilities by up to 1e-4); bfloat16
+# 2e-2 absolute and relative (its bfloat16 flash tolerance: both round
+# the output, whose rounding enters delta = rowsum(dO·O), and the grads)
+K3_GRAD_TOL, K3_GRAD_RTOL = 2e-4, 1e-4
+K3_GRAD_BF16_TOL = 2e-2
+# a training step on the card against the same step on the host, and a
+# resumed step against the straight run's: float32 sums in other orders
+# (loss 1e-5 relative; the gradient norm 1e-4, summed over every
+# gradient, K3's 3xTF32 products of about 22 bits among them); a
+# bfloat16-compute step's loss against the float32 model's, 2e-2
+# relative (bfloat16 rounds every activation to 8 bits of mantissa)
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# the card's step against the host's, each moment leaf's largest
+# difference over that leaf's largest magnitude: m 5e-5, v 1e-4.  Every
+# leaf differs by about the same 5e-6 relative (the clip scale from the
+# two float32 norms, and p = exp(logit - lse) whose float32 lse over
+# 151,936 logits scales a row's probabilities); v = g^2 twice that.
+# Measured on an H100: m 1.14e-5, v 2.29e-5 (full width, 2 layers)
+TRAIN_MOMENT_TOL = {"m": 5e-5, "v": 1e-4}
+# a bfloat16-compute step (bfloat16 gradient rounding) against the same
+# step in float32, minicpm-2b at full width cut to 2 layers: the
+# gradient norm 5e-2 relative (measured 2.05e-2 on an H100); each
+# block and norm leaf's first moment 1e-1 in relative L2 (measured
+# 0.022-0.029), the tied embedding's 0.5 (measured 0.186: the rows of
+# the head no label picks get sums of 4,096 terms of about 1/V whose
+# bfloat16 logit noise does not cancel)
+TRAIN_BF16_NORM_RTOL, TRAIN_BF16_M_RTOL, TRAIN_BF16_EMBED_M_RTOL = \
+    5e-2, 1e-1, 5e-1
 # the RWKV6 decay with log w about -8 a step: ww = log(8) + N(0, 1)
 STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 
@@ -166,6 +225,8 @@ LONG_ARCH = "qwen3-0.6b"
 MOE_ARCH = "granite-moe-1b-a400m"
 ENCDEC_ARCH = "whisper-small"
 VLM_ARCH = "internvl2-1b"
+DENSE_ARCH = "granite-8b"
+TRAIN_BF16_ARCH = "minicpm-2b"
 MODEL_UDF = "lm"
 
 # a few ms of device sleep ahead of each timed call (outlasts the host
@@ -484,6 +545,14 @@ def wkv_work(B, T, H, K, V, itemsize):
     return nbytes, 4 * K * V * steps, (K * V + 3 * K + 2 * V) * steps
 
 
+def visible_pairs(Sq, Sk, q_offset, causal) -> int:
+    """The (query, key) pairs attention must visit: every key when not
+    causal, keys up to ``q_offset + row`` when causal."""
+    if causal:
+        return sum(min(Sk, q_offset + i + 1) for i in range(Sq))
+    return Sq * Sk
+
+
 def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     """Bytes and operations of one flash-attention call over the
     (query, key) pairs it must visit: every key when not causal, keys
@@ -493,14 +562,25 @@ def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     for its share of P V per visible pair and head.  Other: the scale,
     running max, exponential and sum of each visible pair and head
     (4)."""
-    if causal:
-        pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq))
-        keys = min(Sk, q_offset + Sq)
-    else:
-        pairs, keys = Sq * Sk, Sk
+    pairs = visible_pairs(Sq, Sk, q_offset, causal)
+    keys = min(Sk, q_offset + Sq) if causal else Sk
     nbytes = (2 * B * Sq * H * D + 2 * B * keys * Hkv * D) * itemsize \
         + B * Sq * H * 4
     return nbytes, 4 * pairs * D * H * B, 4 * pairs * H * B
+
+
+def attn_grad_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
+    """Bytes and operations of flash attention's forward and recomputing
+    backward together, over the visible (query, key) pairs: q, k, v and
+    the output's cotangent read once, the output and dq, dk, dv written
+    once.  Products, as FlashAttention-2 counts them: 4D a visible pair
+    and head forward (Q Kᵀ, P V) and 10D backward (Q Kᵀ again, Pᵀ dO,
+    dO Vᵀ, dS K, dSᵀ Q: 2.5 times the forward's), 14D in all.  Other:
+    the forward's 4 and the backward's exponential, difference and two
+    scalings (4) a visible pair and head."""
+    pairs = visible_pairs(Sq, Sk, q_offset, causal)
+    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) * itemsize
+    return nbytes, 14 * pairs * D * H * B, 8 * pairs * H * B
 
 
 def blur_work(shape, ksize):
@@ -836,6 +916,73 @@ def phase_kernels():
             row["library_call"] = call
         return row
 
+    def attn_grad_case(B, S, H, Hkv, D, dtype):
+        """Flash attention forward (K3) and its recomputing backward
+        through ``flash_vjp``'s Function, causal, against autograd
+        through the plain chunked forward on the same tensors; timed
+        forward + backward, beside SDPA's forward + backward."""
+        from repro_torch.kernels import flash_vjp
+
+        def n(shape):
+            return torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).cuda().to(dtype)
+        q, k, v, do = n((B, S, H, D)), n((B, S, Hkv, D)), n((B, S, Hkv, D)), \
+            n((B, S, H, D))
+
+        def grads(forward):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = forward(*leaves)
+            out.backward(do)
+            return out.detach(), [t.grad for t in leaves]
+
+        def kernel(*t):
+            return flash_vjp.flash_attention(*t)
+
+        def plain(*t):
+            return ref.flash_attention_chunked(*t)[0]
+
+        (o, got), (o_p, want) = grads(kernel), grads(plain)
+        torch.cuda.synchronize()
+        what = (f"K3 forward + recomputing backward q {(B, S, H, D)} kv heads "
+                f"{Hkv} causal {str(dtype)[6:]}")
+        if dtype == torch.float32:
+            fwd_err = held(f"{what}: the Function's output against the plain "
+                           "forward", (o,), (o_p,), K3_TOL)
+        else:
+            fwd_err = held(f"{what}: the Function's output against the plain "
+                           "forward", (o,), (o_p,), K3_BF16_ATOL, K3_BF16_RTOL)
+        what += ": dq, dk, dv against autograd through the plain forward"
+        if dtype == torch.float32:
+            err = held(what, got, want, K3_GRAD_TOL, K3_GRAD_RTOL)
+        else:
+            err = held(what, got, want, K3_GRAD_BF16_TOL, K3_GRAD_BF16_TOL)
+        check(all(g.dtype == dtype for g in got), f"{what}: grads in {dtype}")
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+
+        def library():
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            F.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=Hkv != H).backward(dot)
+
+        nbytes, products, other = attn_grad_work(B, S, S, H, Hkv, D, 0, True,
+                                                 q.element_size())
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        return {"kernel": "flash_attention+backward", "shape": [B, S, H, D],
+                "kv": [S, Hkv], "causal": True, "dtype": str(dtype),
+                "max_abs_err": err, "forward_max_abs_err": fwd_err,
+                "ms": time_ms(lambda: grads(kernel), flush, reps=10),
+                "plain_ms": time_ms(lambda: grads(plain), flush, reps=3),
+                "library_ms": time_ms(library, flush, reps=10),
+                "library_call": "F.scaled_dot_product_attention(is_causal"
+                                ", enable_gqa) forward + backward on "
+                                "(B,H,S,D) views",
+                "route": ("K3 forward (" + ("mma.sync 3xTF32" if dtype ==
+                          torch.float32 else "wgmma bf16") + ") + the "
+                          "reference's _bwd in torch.einsum, float32"),
+                "bytes": nbytes, "flops": products + other,
+                "products": products, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
     entries["gaussian_blur"] = blur_case((32, 224, 224, 3), 9, 2.0)
     rows.append(entries["gaussian_blur"])
     rows.append(blur_case((1, 224, 224, 3), 9, 2.0))
@@ -913,6 +1060,19 @@ def phase_kernels():
                           library=True))
     rows.append(attn_case(2, 1536, 1553, 16, 8, 64, library=True))
     rows.append(attn_case(4, 1280, 1297, 14, 2, 64, library=True))
+    # phase 14's granite-8b prefill past 1024 slots (2 x 1,536 rows, GQA
+    # 32/8 at head dim 128, into 1,553 slots, a partial last key tile)
+    rows.append(attn_case(2, 1536, 1553, 32, 8, 128, library=True))
+    # the training slice (phase 15): minicpm-2b's attention (1 x 4,096
+    # rows, 36 heads of 64, MHA) on K3's bfloat16 route, K3 alone at
+    # qwen3-0.6b's microbatch (2 x 4,096, GQA 16/8 at D 128, float32),
+    # and the forward + recomputing backward at qwen3-0.6b's microbatch
+    # and minicpm-2b's (bfloat16)
+    rows.append(attn_case(1, 4096, 4096, 36, 36, 64, dtype=torch.bfloat16,
+                          library=True))
+    rows.append(attn_case(2, 4096, 4096, 16, 8, 128, library=True))
+    rows.append(attn_grad_case(2, 4096, 16, 8, 128, torch.float32))
+    rows.append(attn_grad_case(1, 4096, 36, 36, 64, torch.bfloat16))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -1240,6 +1400,264 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
 
 
 # ------------------------------------------------- phases 9 and 10
+def train_step_products(cfg, batch, seq) -> int:
+    """Matrix-product operations of one remat training step of a dense
+    config over ``batch`` x ``seq`` tokens: each layer's weights 2
+    operations a token forward, 2 again when remat recomputes the layer
+    and 4 backward; the head 2 + 4 (not recomputed); attention 4D a
+    visible pair and head forward, 4D recomputed and 10D backward."""
+    hd = cfg.resolved_head_dim
+    d = cfg.d_model
+    layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+             + 3 * d * cfg.d_ff)
+    tokens = batch * seq
+    pairs = visible_pairs(seq, seq, 0, True)
+    return (8 * tokens * layer * cfg.num_layers
+            + 6 * tokens * d * cfg.padded_vocab
+            + 18 * pairs * hd * cfg.num_heads * batch * cfg.num_layers)
+
+
+def _train_run(label, launches, arch, device, **kw):
+    """``launch.train.run`` once on the card: its step walls, tokens/s,
+    peak device memory and K3's launches, printed and returned."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    before = launches["flash_attention"].count
+    r = train.run(arch, device=device, log_every=1, **kw)
+    r["flash_launches"] = launches["flash_attention"].count - before
+    r["peak_memory_bytes"] = (torch.cuda.max_memory_allocated() if on_card
+                              else 0)
+    cfg = get_arch(arch, reduced=kw.get("reduced", True))
+    tokens = kw["batch"] * kw["seq"]
+    r["step_ms"] = [t * 1e3 for t in r["step_s"]]
+    r["tokens_per_s"] = [tokens / t for t in r["step_s"]]
+    products = train_step_products(cfg, kw["batch"], kw["seq"])
+    r["bound_ms"] = products / PRODUCT_FLOP_S[
+        "torch." + kw["compute_dtype"]] * 1e3
+    print(f"  {label}: steps from {r['start_step']}, losses {r['losses']}, "
+          f"grad norms {r['grad_norms']}; step ms {r['step_ms']}; tokens/s "
+          f"{r['tokens_per_s']}; peak device memory "
+          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; flash_attention "
+          f"launches {r['flash_launches']}; least step time "
+          f"{r['bound_ms']:.3f} ms ({products / 1e12:.3f} TFLOP of products)",
+          flush=True)
+    check(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+          f"{label}: finite losses and gradient norms")
+    check(not on_card or r["flash_launches"] > 0,
+          f"{label}: flash_attention launched ({r['flash_launches']})")
+    return r
+
+
+def moment_diff(a, b) -> float:
+    """The largest elementwise difference of two moment trees (card and
+    host), each leaf's over that leaf's largest magnitude: a wrong
+    gradient on any one leaf shows, whatever its scale."""
+    from repro_torch.models.lm import tree_leaves
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.float()
+        x = x.to(y.device).float()
+        top = float(y.abs().max())
+        worst = max(worst, float((x - y).abs().max()) / max(top, 1e-30))
+    return worst
+
+
+def moment_rel_l2(a, b) -> tuple[float, float]:
+    """The relative L2 difference ``|a - b| / |b|`` of two moment trees'
+    ``embed`` leaf, and the largest of their other leaves'."""
+    from repro_torch.models.lm import tree_leaves
+
+    def rel(x, y):
+        return float((x.double() - y.double()).norm() / y.double().norm())
+
+    rest = [k for k in b if k != "embed"]
+    return rel(a["embed"], b["embed"]), max(
+        rel(x, y) for x, y in zip(tree_leaves({k: a[k] for k in rest}),
+                                  tree_leaves({k: b[k] for k in rest})))
+
+
+def phase_training(launches, device="cuda", reduced=False, seq=4096):
+    """Phase 15: the training slice.  (a) one ``make_train_step`` step of
+    qwen3-0.6b at full width cut to 2 layers, 1 x 1,536 tokens, float32
+    compute and gradients, on the card and on the host from one state;
+    (b) ``launch.train.run`` of qwen3-0.6b at full width, 4 x 4,096
+    tokens as 2 microbatches of 2, float32: 3 steps straight, then 2
+    steps saving a checkpoint and 3 steps resuming from it at step 2,
+    whose third loss must be the straight run's; (c) 2 steps of
+    minicpm-2b at full width, 1 x 4,096 tokens, bfloat16 compute, whose
+    first loss must be ``model.loss`` of the float32 parameters on the
+    same batch; (d) one step of minicpm-2b cut to 2 layers on that batch
+    at the bfloat16 defaults against float32 compute from one state.
+    ``device``, ``reduced`` and ``seq`` (of (b)–(d)) let a host without
+    a card rehearse it."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dataio import lm_token_stream
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+    out = {}
+
+    # -- (a) card against host
+    cfg = get_arch(LONG_ARCH, reduced).replace(num_layers=2)
+    width = "reduced" if reduced else "full width"
+    print(f"phase 15a: one train step of {cfg.name} at {width}, 2 layers, "
+          "1 x 1,536 tokens, float32, on the card and on the host",
+          flush=True)
+    api = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=100,
+                       compute_dtype="float32", grad_reduce_dtype="float32")
+    step = make_train_step(api, tcfg, REPLICATED)
+    host = init_train_state(api, torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(device, copy=True), host)
+    toks = torch.from_numpy(lm_token_stream(1, 1536, cfg.vocab_size, 0))
+    before = launches["flash_attention"].count
+    t0 = time.perf_counter()
+    card, mc = step(card, {"tokens": toks.to(device)})
+    card_loss = float(mc["loss"])
+    card_s = time.perf_counter() - t0
+    k3 = launches["flash_attention"].count - before
+    t0 = time.perf_counter()
+    host, mh = step(host, {"tokens": toks})
+    host_s = time.perf_counter() - t0
+    lr, b1, eps = mh["lr"], tcfg.b1, tcfg.eps
+    loss_rel = abs(card_loss / float(mh["loss"]) - 1)
+    norm_rel = abs(float(mc["grad_norm"]) / float(mh["grad_norm"]) - 1)
+    moment_rel = {k: moment_diff(card[k], host[k]) for k in ("m", "v")}
+    dp_lr, excess = 0.0, 0.0
+    for pc, ph, m_c, m_h in zip(*(tree_leaves(st[k]) for k, st in (
+            ("params", card), ("params", host), ("m", card), ("m", host)))):
+        dp = (pc.cpu() - ph).abs()
+        allowed = lr * (1e-3 + (m_c.cpu() - m_h).abs() / ((1 - b1) * eps))
+        dp_lr = max(dp_lr, float(dp.max()) / lr)
+        excess = max(excess, float((dp - allowed).max()))
+    out["card_vs_host"] = {
+        "card_ms": card_s * 1e3, "host_ms": host_s * 1e3,
+        "loss": [card_loss, float(mh["loss"])], "loss_rel": loss_rel,
+        "grad_norm": [float(mc["grad_norm"]), float(mh["grad_norm"])],
+        "grad_norm_rel": norm_rel, "max_param_diff_over_lr": dp_lr,
+        "moment_diff_over_leaf_max": moment_rel, "flash_launches": k3}
+    print(f"  card {card_s * 1e3:.3f} ms, host {host_s * 1e3:.3f} ms; loss "
+          f"{card_loss} / {float(mh['loss'])} (rel {loss_rel:.3g}); grad norm "
+          f"rel {norm_rel:.3g}; max |Δm|, |Δv| over the leaf's largest "
+          f"{moment_rel['m']:.3g}, {moment_rel['v']:.3g}; max |Δparam| / lr "
+          f"{dp_lr:.3g}; flash_attention launches {k3}", flush=True)
+    check(device != "cuda" or k3 == 2 * cfg.num_layers, f"K3 launched forward and under remat in "
+          f"every layer ({k3} == {2 * cfg.num_layers})")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"card vs host loss: {loss_rel:.3g} <= {TRAIN_LOSS_RTOL}")
+    check(norm_rel <= TRAIN_NORM_RTOL,
+          f"card vs host grad norm: {norm_rel:.3g} <= {TRAIN_NORM_RTOL}")
+    for k, d in moment_rel.items():
+        check(d <= TRAIN_MOMENT_TOL[k], f"card vs host {k}, leaf by leaf: "
+              f"{d:.3g} <= {TRAIN_MOMENT_TOL[k]} of the leaf's largest")
+    check(excess <= 1e-7, "card vs host parameters within "
+          f"lr (1e-3 + |Δm| / ((1 - b1) eps)) (+1e-7): excess {excess:.3g}")
+    del card, host
+
+    # -- (b) qwen3-0.6b at full width, straight and resumed
+    print(f"phase 15b: launch.train.run {LONG_ARCH} at {width}, 4 x {seq} "
+          "tokens as 2 microbatches, float32", flush=True)
+    kw = dict(reduced=reduced, batch=4, seq=seq, microbatches=2,
+              compute_dtype="float32")
+    out["qwen3_straight"] = _train_run("straight, 3 steps", launches,
+                                       LONG_ARCH, device, steps=3, **kw)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        out["qwen3_saved"] = _train_run(
+            "2 steps, checkpoint at 2", launches, LONG_ARCH, device, steps=2,
+            ckpt_dir=ckpt, save_every=2, **kw)
+        out["qwen3_resumed"] = _train_run(
+            "3 steps, resumed", launches, LONG_ARCH, device, steps=3,
+            ckpt_dir=ckpt, save_every=2, **kw)
+        out["qwen3_resume_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r3 = out["qwen3_resumed"]
+    check(r3["start_step"] == 2 and r3["steps"] == 1,
+          f"the run resumed at step 2 ({r3['start_step']}) and ran 1 step")
+    rel = abs(r3["losses"][0] / out["qwen3_straight"]["losses"][2] - 1)
+    out["qwen3_resume_loss_rel"] = rel
+    check(rel <= TRAIN_LOSS_RTOL, f"resumed step-3 loss vs the straight run's: "
+          f"{rel:.3g} <= {TRAIN_LOSS_RTOL}")
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (c) minicpm-2b at full width, bfloat16 compute
+    print(f"phase 15c: launch.train.run {TRAIN_BF16_ARCH} at {width}, 1 x "
+          f"{seq} tokens, bfloat16 compute", flush=True)
+    kw = dict(reduced=reduced, batch=1, seq=seq, compute_dtype="bfloat16")
+    r = _train_run("2 steps", launches, TRAIN_BF16_ARCH, device, steps=2, **kw)
+    out["minicpm"] = r
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = get_arch(TRAIN_BF16_ARCH, reduced)
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in make_batch_fn(cfg, 1, seq)(0).items()}
+    with torch.no_grad():
+        want, _ = api.loss(params, batch, REPLICATED, remat=False)
+    want = float(want)
+    rel = abs(r["losses"][0] / want - 1)
+    r["float32_loss"], r["loss_rel_vs_float32"] = want, rel
+    print(f"  first step's loss {r['losses'][0]} against model.loss of the "
+          f"float32 parameters {want}: rel {rel:.3g}", flush=True)
+    check(rel <= TRAIN_BF16_LOSS_RTOL, f"bfloat16 step loss vs float32 "
+          f"model.loss: {rel:.3g} <= {TRAIN_BF16_LOSS_RTOL}")
+    del params
+
+    # -- (d) the bfloat16 step's gradients against float32 compute: the
+    # first loss is ln V whatever the precision, so hold what the
+    # backward computes (the gradient norm and the first moments)
+    cfg = cfg.replace(num_layers=2)
+    print(f"phase 15d: one train step of {cfg.name} at {width}, 2 layers, 1 x "
+          f"{seq} tokens, at the bfloat16 defaults and in float32, from one "
+          "state", flush=True)
+    api = get_model(cfg)
+    f32 = init_train_state(api, torch.Generator(device=device).manual_seed(0))
+    bf16 = tree_map(lambda a: a.clone(), f32)
+    before = launches["flash_attention"].count
+    bf16, mb = make_train_step(api, TrainConfig(), REPLICATED)(bf16, batch)
+    f32, mf = make_train_step(api, TrainConfig(
+        compute_dtype="float32", grad_reduce_dtype="float32"),
+        REPLICATED)(f32, batch)
+    k3 = launches["flash_attention"].count - before
+    norm_rel = abs(float(mb["grad_norm"]) / float(mf["grad_norm"]) - 1)
+    embed_rel, m_rel = moment_rel_l2(bf16["m"], f32["m"])
+    out["minicpm_bf16_vs_f32"] = {
+        "grad_norm": [float(mb["grad_norm"]), float(mf["grad_norm"])],
+        "grad_norm_rel": norm_rel, "embed_m_rel_l2": embed_rel,
+        "m_rel_l2": m_rel, "flash_launches": k3}
+    print(f"  grad norm {float(mb['grad_norm'])} / {float(mf['grad_norm'])} "
+          f"(rel {norm_rel:.3g}); |Δm| / |m| of the embedding {embed_rel:.3g}"
+          f", of the worst other leaf {m_rel:.3g}; flash_attention launches "
+          f"{k3}", flush=True)
+    check(device != "cuda" or k3 == 4 * cfg.num_layers, "K3 launched forward "
+          f"and under remat in every layer of both steps ({k3})")
+    check(norm_rel <= TRAIN_BF16_NORM_RTOL, f"bfloat16 vs float32 grad norm: "
+          f"{norm_rel:.3g} <= {TRAIN_BF16_NORM_RTOL}")
+    check(m_rel <= TRAIN_BF16_M_RTOL, f"bfloat16 vs float32 first moments, "
+          f"leaf by leaf: {m_rel:.3g} <= {TRAIN_BF16_M_RTOL}")
+    check(embed_rel <= TRAIN_BF16_EMBED_M_RTOL, "bfloat16 vs float32 first "
+          f"moment of the embedding: {embed_rel:.3g} <= "
+          f"{TRAIN_BF16_EMBED_M_RTOL}")
+    del bf16, f32
+    return out
+
+
 def wire_query(engine, query):
     """``run_query`` through a ``WireFrontend`` on 127.0.0.1 in front of
     ``engine`` and a ``WireClient``: the response reassembled from the
@@ -1707,6 +2125,9 @@ def main() -> int:
         ("vit_stub", 13, dict(arch=VLM_ARCH, kernel="flash_attention",
                               requests=4, prompt_len=1024, gen=16,
                               consistency=(1, 1024, 4))),
+        ("dense_8b", 14, dict(arch=DENSE_ARCH, kernel="flash_attention",
+                              requests=2, prompt_len=1536, gen=16,
+                              n_images=0, consistency=(1, 1100, 4))),
     ]
     for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
         path_launches[name] = 0
@@ -1726,6 +2147,22 @@ def main() -> int:
             path_launches[name] += counts[name]
         gc.collect()
         torch.cuda.empty_cache()
+
+    # ---- training (K3 forward, and again under remat, beneath the
+    # recomputing backward): counts zeroed just before, read just after
+    for c in launches.values():
+        c.reset()
+    t0 = time.monotonic()
+    details["training"] = phase_training(launches)
+    details["training"]["phase_s"] = time.monotonic() - t0
+    counts = {k: c.count for k, c in launches.items()}
+    print(f"  phase 15: {details['training']['phase_s']:.3f} s; launches "
+          f"{counts}", flush=True)
+    check(counts["flash_attention"] > 0, "flash_attention launched on the "
+          f"training path ({counts['flash_attention']})")
+    path_launches["flash_attention"] += counts["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- the scale-out path (K2 then K1 behind every shard), then the
     # baselines (K1 in IQ3's remote servers): counts zeroed just before

@@ -6,12 +6,12 @@ each also provides a reduced same-family config for CPU tests.  The
 fields are those of the JAX package's ``ArchConfig``, so a config reads
 the same in both packages.
 
-Ported so far: ``zamba2-2.7b`` (hybrid), ``qwen3-0.6b`` (dense),
-``rwkv6-1.6b`` (ssm, the rwkv family), ``granite-moe-1b-a400m`` and
-``qwen3-moe-235b-a22b`` (moe), ``whisper-small`` (audio, the
-encoder-decoder) and ``internvl2-1b`` (vlm, the ``vit_stub`` frontend).
-:func:`get_arch` of another assigned architecture raises a ``KeyError``
-that names the slice of the port it comes with.
+Every assigned architecture of the JAX package is ported:
+``zamba2-2.7b`` (hybrid), ``qwen3-0.6b``, ``minicpm-2b``, ``granite-8b``
+and ``qwen1.5-32b`` (dense), ``rwkv6-1.6b`` (ssm, the rwkv family),
+``granite-moe-1b-a400m`` and ``qwen3-moe-235b-a22b`` (moe),
+``whisper-small`` (audio, the encoder-decoder) and ``internvl2-1b``
+(vlm, the ``vit_stub`` frontend).
 """
 from __future__ import annotations
 
@@ -185,13 +185,6 @@ class ArchConfig:
 # registry ------------------------------------------------------------
 _REGISTRY: dict[str, "ArchEntry"] = {}
 
-# assigned architectures of the JAX package that later slices bring
-PENDING = {
-    "minicpm-2b": "a later dense-config slice",
-    "granite-8b": "a later dense-config slice",
-    "qwen1.5-32b": "a later dense-config slice",
-}
-
 
 @dataclasses.dataclass
 class ArchEntry:
@@ -208,9 +201,6 @@ def get_arch(name: str, reduced: bool = False) -> ArchConfig:
     import repro_torch.configs as _c  # noqa: F401  (triggers registration)
 
     if name not in _REGISTRY:
-        if name in PENDING:
-            raise KeyError(f"arch {name!r} is not ported yet: it comes with "
-                           f"{PENDING[name]}; ported: {sorted(_REGISTRY)}")
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     e = _REGISTRY[name]
     return e.reduced if reduced else e.full

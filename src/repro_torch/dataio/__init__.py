@@ -1,1 +1,3 @@
-from repro_torch.dataio.synthetic import synthetic_faces, synthetic_video  # noqa: F401
+from repro_torch.dataio.synthetic import (  # noqa: F401
+    synthetic_faces, synthetic_video, lm_token_stream)
+from repro_torch.dataio.loader import ShardedLoader  # noqa: F401

@@ -233,3 +233,30 @@ class HeartbeatMonitor:
         with self._lock:
             return dict(self._last)
 
+
+
+class TrainSupervisor:
+    """Checkpoint-every-N + restart-from-latest orchestration."""
+
+    def __init__(self, ckpt_dir: str, save_every: int = 50, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.save_every = save_every
+        self.keep = keep
+
+    def maybe_save(self, step: int, state) -> str | None:
+        # deferred import: the query-path fault layer above must not pay
+        # for the checkpoint stack at import time
+        from repro_torch.checkpoint import save_checkpoint
+        if step % self.save_every == 0 and step > 0:
+            return save_checkpoint(self.ckpt_dir, step, state, keep=self.keep)
+        return None
+
+    def resume(self, template):
+        """Returns (state, start_step); fresh start if no checkpoint.  The
+        restored leaves land on the template's devices."""
+        from repro_torch.checkpoint import latest_step, restore_checkpoint
+        step = latest_step(self.ckpt_dir)
+        if step is None:
+            return template, 0
+        state, step = restore_checkpoint(self.ckpt_dir, template)
+        return state, int(step)

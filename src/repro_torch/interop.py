@@ -9,7 +9,8 @@ answer one query over the same data.
 
 A model's state is its parameters: :func:`params_from_jax` turns the JAX
 package's parameter tree (an LM's or an encoder-decoder's) (as numpy arrays) into the port's, so both
-packages compute the same function in the parity tests.
+packages compute the same function in the parity tests, and
+:func:`train_state_from_jax` does the same for a train state.
 """
 from __future__ import annotations
 
@@ -99,4 +100,19 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 raise ValueError(f"{cfg.name}: moe {name!r} is stacked as "
                                  f"{shape}, not (layers, experts) "
                                  f"{(cfg.num_layers, cfg.num_experts)}")
+    return out
+
+
+def train_state_from_jax(state, cfg, device="cuda") -> dict:
+    """The JAX package's train state (``params``, the AdamW moments ``m``
+    and ``v``, which mirror the params' tree, and the int32 ``step``), as
+    numpy-convertible leaves, as the port's train state on ``device``."""
+    import torch
+
+    from repro_torch.core.boundary import resolve_device
+
+    out = {k: params_from_jax(state[k], cfg, device)
+           for k in ("params", "m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=resolve_device(device))
     return out

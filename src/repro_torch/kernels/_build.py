@@ -188,3 +188,17 @@ def check(err: int, what: str) -> None:
     runs, and a later synchronise would not report it)."""
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if autograd would record a call of kernel ``what``: its
+    output would carry no ``grad_fn``, and every parameter upstream of
+    it would silently miss its share of the gradient.  A kernel with a
+    backward runs under a ``torch.autograd.Function`` (flash attention's
+    in ``flash_vjp``), whose forward autograd does not record."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward on the card: call it under "
+            "torch.no_grad() or on tensors that need no gradient")

@@ -57,6 +57,8 @@ def flash_attention_cuda(
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda takes CUDA tensors, got q on "
                          f"{q.device}")
+    _build.refuse_grad("flash_attention (call it through "
+                       "flash_vjp.flash_attention for a gradient)", q, k, v)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")

@@ -79,6 +79,7 @@ def gaussian_blur_cuda(
     if not img.is_cuda:
         raise ValueError("gaussian_blur_cuda takes a CUDA tensor, got one "
                          f"on {img.device}")
+    _build.refuse_grad("gaussian_blur", img)
     if img.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 images, got {img.dtype}")
     ksize = int(ksize)

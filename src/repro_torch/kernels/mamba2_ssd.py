@@ -52,6 +52,7 @@ def mamba2_ssd_cuda(
     if not x.is_cuda:
         raise ValueError("mamba2_ssd_cuda takes CUDA tensors, got x on "
                          f"{x.device}")
+    _build.refuse_grad("mamba2_ssd", x, dt, A, Bm, Cm, D, state)
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
                     ("D", D), ("state", state)):
         if t is not None and t.device != x.device:

@@ -285,6 +285,7 @@ def fused_resize_crop_normalize_cuda(
     if not img.is_cuda:
         raise ValueError("fused_resize_crop_normalize_cuda takes a CUDA "
                          f"tensor, got one on {img.device}")
+    _build.refuse_grad("fused_resize_crop_normalize", img)
     if img.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 images, got {img.dtype}")
     squeeze = img.ndim == 3

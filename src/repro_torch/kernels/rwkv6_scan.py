@@ -55,6 +55,7 @@ def rwkv6_scan_cuda(
     if not r.is_cuda:
         raise ValueError("rwkv6_scan_cuda takes CUDA tensors, got r on "
                          f"{r.device}")
+    _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
     for name, t in (("k", k), ("v", v), ("w", w), ("u", u),
                     ("state", state)):
         if t is not None and t.device != r.device:

@@ -43,13 +43,30 @@ def init_attention(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
     return p
 
 
+def axes_attention(cfg: ArchConfig) -> dict:
+    ax = {
+        "wq": ("embed", "heads_fused"),
+        "wk": ("embed", "kv_fused"),
+        "wv": ("embed", "kv_fused"),
+        "wo": ("heads_fused", "embed"),
+    }
+    if cfg.qkv_bias:
+        ax["bq"] = ("heads_fused",)
+        ax["bk"] = ("kv_fused",)
+        ax["bv"] = ("kv_fused",)
+    if cfg.qk_norm:
+        ax["q_norm"] = (None,)
+        ax["k_norm"] = (None,)
+    return ax
+
+
 def _project_qkv(p, x, xk, cfg: ArchConfig, sh: ShardingCtx):
     hd = cfg.resolved_head_dim
     B, S = x.shape[:2]
     Sk = xk.shape[1]
-    q = x @ p["wq"]
-    k = xk @ p["wk"]
-    v = xk @ p["wv"]
+    q = common.dot(x, p["wq"])
+    k = common.dot(xk, p["wk"])
+    v = common.dot(xk, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, cfg.num_heads, hd)
@@ -133,7 +150,7 @@ def apply_attention(
 
     out = sh(out, "batch", "seq", "act_heads", None)
     out = out.reshape(B, S, cfg.num_heads * hd)
-    return out @ p["wo"], new_cache
+    return common.dot(out, p["wo"]), new_cache
 
 
 def apply_cross_attention_cached(
@@ -148,7 +165,7 @@ def apply_cross_attention_cached(
     (every encoder slot valid), on the plain decode attention."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"]
+    q = common.dot(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(B, S, cfg.num_heads, hd)
@@ -157,7 +174,7 @@ def apply_cross_attention_cached(
     out = kops.decode_attention(q, cross_cache["k"], cross_cache["v"],
                                 cross_cache["k"].shape[1])
     out = out.reshape(B, S, cfg.num_heads * hd)
-    return out @ p["wo"]
+    return common.dot(out, p["wo"])
 
 
 def make_cross_cache(p: dict, enc: torch.Tensor, cfg: ArchConfig,
@@ -165,8 +182,8 @@ def make_cross_cache(p: dict, enc: torch.Tensor, cfg: ArchConfig,
     """K/V of the encoder output for the decoder's cross-attention."""
     B, Se, _ = enc.shape
     hd = cfg.resolved_head_dim
-    k = enc @ p["wk"]
-    v = enc @ p["wv"]
+    k = common.dot(enc, p["wk"])
+    v = common.dot(enc, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, Se, cfg.num_kv_heads, hd)

@@ -41,6 +41,25 @@ def init_tblock(kg, cfg: ArchConfig, dtype, *, use_moe=False, cross=False,
     return p
 
 
+def axes_tblock(cfg: ArchConfig, *, use_moe=False, cross=False,
+                mlp_kind="swiglu", norm="rms") -> dict:
+    ax = {"ln1": (None,), "attn": attention.axes_attention(cfg),
+          "ln2": (None,)}
+    if norm == "layer":
+        ax["ln1_b"] = (None,)
+        ax["ln2_b"] = (None,)
+    if cross:
+        ax["ln_x"] = (None,)
+        ax["xattn"] = attention.axes_attention(cfg)
+        if norm == "layer":
+            ax["ln_x_b"] = (None,)
+    if use_moe:
+        ax["moe"] = moe.axes_moe(cfg)
+    else:
+        ax["mlp"] = mlp.axes_mlp(cfg, kind=mlp_kind)
+    return ax
+
+
 def _norm(x, p, name, cfg, norm):
     if norm == "layer":
         return common.layer_norm(x, p[name], p[name + "_b"], cfg.norm_eps)
@@ -95,6 +114,10 @@ def apply_tblock(
 def init_mblock(kg, cfg: ArchConfig, dtype) -> dict:
     return {"ln": common.ones((cfg.d_model,), dtype, kg.device),
             "mixer": mamba2.init_mamba2(kg, cfg, dtype)}
+
+
+def axes_mblock(cfg: ArchConfig) -> dict:
+    return {"ln": (None,), "mixer": mamba2.axes_mamba2(cfg)}
 
 
 def apply_mblock(p, x, *, cfg, sh, conv_state=None, ssm_state=None):

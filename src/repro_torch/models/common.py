@@ -1,4 +1,4 @@
-"""Shared building blocks: initializers, norms, positions."""
+"""Shared building blocks: initializers, norms, positions, the loss."""
 from __future__ import annotations
 
 import math
@@ -92,6 +92,42 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
     freqs = torch.from_numpy(freqs.astype(np.float32)).to(positions.device)
     ang = positions[..., None].to(torch.float32) * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+# ------------------------------------------------------------------ loss
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab_size: int, mask: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked token-mean cross entropy in float32 over (..., V_padded)
+    logits -> (loss, token count, at least 1).  Padded vocabulary slots
+    get ``-1e30`` before the log-sum-exp, so they stay out of the
+    normaliser."""
+    logits = logits.to(torch.float32)
+    v_pad = logits.shape[-1]
+    if v_pad > vocab_size:
+        bias = torch.zeros(v_pad, dtype=torch.float32, device=logits.device)
+        bias[vocab_size:] = -1e30
+        logits = logits + bias
+    logz = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[..., None].to(
+        device=logits.device, dtype=torch.int64))[..., 0]
+    nll = logz - picked
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=logits.device)
+    mask = mask.to(device=logits.device, dtype=torch.float32)
+    total = torch.clamp(mask.sum(), min=1.0)
+    return (nll * mask).sum() / total, total
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the JAX package's type promotion: operands of two
+    dtypes (an encoder-decoder's float32 frames against bfloat16
+    weights) meet in the wider one, where ``@`` would raise."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
+    return x @ w
 
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

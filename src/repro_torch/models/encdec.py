@@ -19,7 +19,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention, blocks, common
-from repro_torch.models.lm import layer, stack_init
+from repro_torch.models.lm import (layer, prepend_axis, run_body,
+                                  stack_init, unstack)
 
 _BLOCK = dict(mlp_kind="gelu", norm="layer")
 
@@ -45,15 +46,31 @@ def init_encdec(generator: torch.Generator, cfg: ArchConfig,
     }
 
 
-def encode(params, frames, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
-    """frames: (B, Se, d) precomputed frontend embeddings."""
+def encdec_axes(cfg: ArchConfig) -> dict:
+    return {
+        "embed": ("vocab", "embed"),
+        "enc_blocks": prepend_axis(blocks.axes_tblock(cfg, **_BLOCK)),
+        "enc_norm": (None,), "enc_norm_b": (None,),
+        "dec_blocks": prepend_axis(blocks.axes_tblock(cfg, cross=True,
+                                                      **_BLOCK)),
+        "dec_norm": (None,), "dec_norm_b": (None,),
+    }
+
+
+def encode(params, frames, cfg: ArchConfig, sh: ShardingCtx,
+           remat: bool = False) -> torch.Tensor:
+    """frames: (B, Se, d) precomputed frontend embeddings.  With
+    ``remat`` each encoder layer is recomputed in the backward."""
     pos = common.sinusoidal_positions(
         torch.arange(frames.shape[1], device=frames.device), cfg.d_model,
         frames.dtype)
     h = sh(frames + pos[None], "batch", "seq", "embed")
-    for li in range(cfg.num_encoder_layers):
-        h, _, _ = blocks.apply_tblock(layer(params["enc_blocks"], li), h,
-                                      cfg=cfg, sh=sh, causal=False, **_BLOCK)
+
+    def body(x, bp):
+        return blocks.apply_tblock(bp, x, cfg=cfg, sh=sh, causal=False,
+                                   **_BLOCK)[0]
+    for bp in unstack(params["enc_blocks"]):
+        h = run_body(body, remat, h, bp)
     return common.layer_norm(h, params["enc_norm"], params["enc_norm_b"],
                              cfg.norm_eps)
 
@@ -69,20 +86,21 @@ def _dec_embed(params, tokens, cfg, sh, offset=0):
 def _logits(params, h, cfg):
     h = common.layer_norm(h, params["dec_norm"], params["dec_norm_b"],
                           cfg.norm_eps)
-    return h @ params["embed"].T  # whisper ties the decoder embedding
+    return common.dot(h, params["embed"].T)  # whisper ties the decoder embedding
 
 
 def forward(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
             *, remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced pass -> (logits (B,S,Vp), aux=0)."""
-    if remat:
-        raise NotImplementedError("remat comes with the training slice")
-    enc = encode(params, frames, cfg, sh)
+    """Teacher-forced pass -> (logits (B,S,Vp), aux=0).  With ``remat``
+    each encoder and each decoder layer is recomputed in the backward."""
+    enc = encode(params, frames, cfg, sh, remat=remat)
     h = _dec_embed(params, tokens, cfg, sh)
-    for li in range(cfg.num_layers):
-        h, _, _ = blocks.apply_tblock(layer(params["dec_blocks"], li), h,
-                                      cfg=cfg, sh=sh, causal=True, enc=enc,
-                                      **_BLOCK)
+
+    def body(x, bp, enc):
+        return blocks.apply_tblock(bp, x, cfg=cfg, sh=sh, causal=True,
+                                   enc=enc, **_BLOCK)[0]
+    for bp in unstack(params["dec_blocks"]):
+        h = run_body(body, remat, h, bp, enc)
     logits = sh(_logits(params, h, cfg), "batch", "seq", "vocab")
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 

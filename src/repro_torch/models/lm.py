@@ -52,9 +52,37 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_like(tree, leaves) -> dict:
+    """``tree``'s structure with ``leaves`` in :func:`tree_leaves`'s
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def layer(tree, *index):
     """The per-layer view ``leaf[index]`` of every stacked leaf."""
     return tree_map(lambda a: a[index], tree)
+
+
+def unstack(tree) -> list:
+    """Every per-layer view of a stacked tree, taken at once with
+    ``unbind(0)``: under autograd the backward of one ``unbind`` stacks
+    the layers' gradients into one tensor, where indexing ``leaf[i]``
+    per layer would build and add a full-size zero gradient per layer."""
+    views = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    return [tree_like(tree, [v[i] for v in views])
+            for i in range(len(views[0]))]
+
+
+def run_body(body: Callable, remat: bool, *args):
+    """``body(*args)``, under remat through
+    ``torch.utils.checkpoint``: the body's activations are dropped after
+    the forward and recomputed in the backward (the JAX package's
+    ``jax.checkpoint`` around its scanned body)."""
+    if not remat:
+        return body(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(body, *args, use_reentrant=False)
 
 
 def stack_init(init_one: Callable, kg: common.KeyGen, n: int) -> dict:
@@ -106,6 +134,33 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig,
         p["shared"] = stack_init(lambda k: blocks.init_tblock(k, cfg, dtype),
                                   kg, cfg.num_shared_blocks)
     return p
+
+
+def prepend_axis(tree, name="layers") -> dict:
+    """``tree`` of logical-axis tuples with ``name`` ahead of each (a
+    stacked leaf's leading axis)."""
+    return tree_map(lambda axes: (name, *axes), tree)
+
+
+def lm_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in the tree's layout (the
+    sharding rules map them onto a mesh)."""
+    kind = family_kind(cfg)
+    ax: dict[str, Any] = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = ("embed", "vocab")
+    if kind == "tblock":
+        ax["blocks"] = prepend_axis(blocks.axes_tblock(cfg,
+                                                       use_moe=cfg.is_moe))
+    elif kind == "rwkv":
+        ax["ln0_s"] = (None,)
+        ax["ln0_b"] = (None,)
+        ax["final_norm_b"] = (None,)
+        ax["blocks"] = prepend_axis(rwkv6.axes_rwkv6(cfg))
+    else:
+        ax["mamba"] = prepend_axis(prepend_axis(blocks.axes_mblock(cfg)))
+        ax["shared"] = prepend_axis(blocks.axes_tblock(cfg))
+    return ax
 
 
 # ======================================================================
@@ -200,30 +255,39 @@ def lm_head(p, h, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
 def forward(params, tokens, cfg: ArchConfig, sh: ShardingCtx,
             *, extra_embeds=None,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B,S,Vp), moe_aux summed over the layers)."""
+    """Returns (logits (B,S,Vp), moe_aux summed over the layers).  With
+    ``remat`` each scanned body of the reference (one layer; for the
+    hybrid one group: the shared block and its Mamba2 blocks) is
+    recomputed in the backward."""
     kind = family_kind(cfg)
-    if remat:
-        raise NotImplementedError("remat comes with the training slice")
     h = embed_tokens(params, tokens, cfg, sh, extra_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind == "rwkv":
-        h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, None)
-    elif kind == "tblock":
-        for li in range(cfg.num_layers):
-            h, _, a = blocks.apply_tblock(
-                layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
-                positions=positions, use_moe=cfg.is_moe)
-            aux = aux + a
+    if kind == "tblock":
+        def body(x, a, bp):
+            x, _, la = blocks.apply_tblock(bp, x, cfg=cfg, sh=sh, causal=True,
+                                           positions=positions,
+                                           use_moe=cfg.is_moe)
+            return x, a + la
+        for bp in unstack(params["blocks"]):
+            h, aux = run_body(body, remat, h, aux, bp)
+    elif kind == "rwkv":
+        def body(x, bp):
+            return rwkv6.apply_rwkv6(bp, x, cfg=cfg, sh=sh)[0]
+        h = _ln0(params, h, cfg)
+        for bp in unstack(params["blocks"]):
+            h = run_body(body, remat, h, bp)
     else:
-        n_app, group = hybrid_shape(cfg)
-        for g in range(n_app):
-            sp = layer(params["shared"], g % cfg.num_shared_blocks)
-            h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
+        def body(x, sp, group):
+            x, _, _ = blocks.apply_tblock(sp, x, cfg=cfg, sh=sh, causal=True,
                                           positions=positions)
-            for i in range(group):
-                h, _, _ = blocks.apply_mblock(layer(params["mamba"], g, i), h,
-                                              cfg=cfg, sh=sh)
+            for mp in group:
+                x, _, _ = blocks.apply_mblock(mp, x, cfg=cfg, sh=sh)
+            return x
+        shared = unstack(params["shared"])
+        for g, group in enumerate(unstack(params["mamba"])):
+            h = run_body(body, remat, h, shared[g % cfg.num_shared_blocks],
+                         unstack(group))
     h = _final_norm(params, h, cfg)
     return lm_head(params, h, cfg, sh), aux
 

@@ -39,6 +39,19 @@ def init_mamba2(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
     }
 
 
+def axes_mamba2(cfg: ArchConfig) -> dict:
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": ("conv_k", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
+    }
+
+
 def _causal_conv(xBC, conv_w, conv_b, conv_state=None):
     """Depthwise causal conv via static shift-sum (W is small).
 

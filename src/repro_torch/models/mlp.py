@@ -27,13 +27,21 @@ def init_mlp(kg: common.KeyGen, cfg: ArchConfig, dtype,
     }
 
 
+def axes_mlp(cfg: ArchConfig, kind: str = "swiglu") -> dict:
+    if kind == "swiglu":
+        return {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+                "w_down": ("ff", "embed")}
+    return {"w_in": ("embed", "ff"), "b_in": ("ff",),
+            "w_out": ("ff", "embed"), "b_out": ("embed",)}
+
+
 def apply_mlp(p: dict, x: torch.Tensor, *, sh: ShardingCtx,
               kind: str = "swiglu") -> torch.Tensor:
     if kind == "swiglu":
-        h = common.swiglu(x @ p["w_gate"], x @ p["w_up"])
+        h = common.swiglu(common.dot(x, p["w_gate"]), common.dot(x, p["w_up"]))
         h = sh(h, "batch", "seq", "act_ff")
-        return h @ p["w_down"]
+        return common.dot(h, p["w_down"])
     # the exact erf form, as the reference's gelu(approximate=False)
-    h = F.gelu(x @ p["w_in"] + p["b_in"])
+    h = F.gelu(common.dot(x, p["w_in"]) + p["b_in"])
     h = sh(h, "batch", "seq", "act_ff")
-    return h @ p["w_out"] + p["b_out"]
+    return common.dot(h, p["w_out"]) + p["b_out"]

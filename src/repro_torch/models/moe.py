@@ -38,6 +38,15 @@ def init_moe(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
     }
 
 
+def axes_moe(cfg: ArchConfig) -> dict:
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "expert_ff"),
+        "w_up": ("experts", "embed", "expert_ff"),
+        "w_down": ("experts", "expert_ff", "embed"),
+    }
+
+
 def capacity(cfg: ArchConfig, tokens: int,
              capacity_factor: float | None = None) -> int:
     """Slots per expert for ``tokens`` tokens (the reference's static C)."""
@@ -108,8 +117,8 @@ def apply_moe(p: dict, x: torch.Tensor, *, cfg: ArchConfig, sh: ShardingCtx,
     # ---- grouped expert FFN (SwiGLU)
     h = common.swiglu(torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"]))
     h = sh(h, "experts", None, "act_ff")
-    out = x.new_zeros((E * C + 1, D))          # the drop row reads zero
-    torch.bmm(h, p["w_down"], out=out[:E * C].view(E, C, D))
+    out = torch.cat([torch.bmm(h, p["w_down"]).reshape(E * C, D),
+                     x.new_zeros((1, D))])     # the drop row reads zero
 
     # ---- combine: back to token order, then the K choices summed
     contrib = out[slot] * top_w.reshape(-1)[order][:, None]

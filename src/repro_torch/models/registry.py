@@ -2,10 +2,10 @@
 
 ``get_model(cfg)`` returns callables the serving and launch layers use
 without knowing the family (dense, moe, vlm, rwkv, hybrid or the
-encoder-decoder): init / forward / prefill / decode_step / init_cache.
-A ``vit_stub`` model's batch carries ``patch_embeds`` (B, P, d), an
-encoder-decoder's ``frames`` (B, Se, d).  ``loss`` comes with the
-training slice.
+encoder-decoder): init / forward / loss / prefill / decode_step /
+init_cache, and the logical-axis tree of the parameters (what the
+sharding rules map onto a mesh).  A ``vit_stub`` model's batch carries
+``patch_embeds`` (B, P, d), an encoder-decoder's ``frames`` (B, Se, d).
 """
 from __future__ import annotations
 
@@ -16,14 +16,16 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
-from repro_torch.models import encdec, lm
+from repro_torch.models import common, encdec, lm
 
 
 @dataclasses.dataclass
 class ModelAPI:
     cfg: ArchConfig
     init: Callable[..., dict]
+    param_axes: Callable[[], dict]
     forward: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    loss: Callable[..., tuple[torch.Tensor, dict]]
     prefill: Callable[..., tuple[torch.Tensor, dict]]
     decode_step: Callable[..., tuple[torch.Tensor, dict]]
     init_cache: Callable[..., dict]
@@ -42,13 +44,30 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
 
 
 # ----------------------------------------------------------------- LM
+def _next_tokens(batch):
+    """Next-token labels and their mask: every token after the first
+    (the logits that predict them run from the first token's slot, past
+    a vit_stub model's patches, to the one before the last)."""
+    mask = batch.get("mask")
+    return batch["tokens"][:, 1:], None if mask is None else mask[:, 1:]
+
+
 def _lm_api(cfg: ArchConfig) -> ModelAPI:
+    P = token_start(cfg)
+
     def init(generator: torch.Generator, dtype=torch.float32):
         return lm.init_lm(generator, cfg, dtype)
 
     def forward(params, batch, sh: ShardingCtx, remat=False):
         return lm.forward(params, batch["tokens"], cfg, sh,
                           extra_embeds=batch.get("patch_embeds"), remat=remat)
+
+    def loss(params, batch, sh: ShardingCtx, remat=True):
+        logits, aux = forward(params, batch, sh, remat=remat)
+        labels, mask = _next_tokens(batch)
+        ce, ntok = common.cross_entropy_loss(logits[:, P:-1], labels,
+                                             cfg.vocab_size, mask)
+        return ce + aux, {"ce": ce, "aux": aux, "ntok": ntok}
 
     def prefill(params, batch, sh: ShardingCtx, max_cache: int,
                 cache_dtype=None):
@@ -62,7 +81,8 @@ def _lm_api(cfg: ArchConfig) -> ModelAPI:
     def init_cache(batch, max_seq, dtype=torch.float32, device=None):
         return lm.init_cache(cfg, batch, max_seq, dtype, device)
 
-    return ModelAPI(cfg=cfg, init=init, forward=forward, prefill=prefill,
+    return ModelAPI(cfg=cfg, init=init, param_axes=lambda: lm.lm_axes(cfg),
+                    forward=forward, loss=loss, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache)
 
 
@@ -75,6 +95,13 @@ def _encdec_api(cfg: ArchConfig) -> ModelAPI:
         return encdec.forward(params, batch["frames"], batch["tokens"], cfg,
                               sh, remat=remat)
 
+    def loss(params, batch, sh: ShardingCtx, remat=True):
+        logits, aux = forward(params, batch, sh, remat=remat)
+        labels, mask = _next_tokens(batch)
+        ce, ntok = common.cross_entropy_loss(logits[:, :-1], labels,
+                                             cfg.vocab_size, mask)
+        return ce + aux, {"ce": ce, "aux": aux, "ntok": ntok}
+
     def prefill(params, batch, sh: ShardingCtx, max_cache: int,
                 cache_dtype=None):
         return encdec.prefill(params, batch["frames"], batch["tokens"], cfg,
@@ -86,5 +113,7 @@ def _encdec_api(cfg: ArchConfig) -> ModelAPI:
     def init_cache(batch, max_seq, dtype=torch.float32, device=None):
         return encdec.init_cache(cfg, batch, max_seq, dtype, device)
 
-    return ModelAPI(cfg=cfg, init=init, forward=forward, prefill=prefill,
+    return ModelAPI(cfg=cfg, init=init,
+                    param_axes=lambda: encdec.encdec_axes(cfg),
+                    forward=forward, loss=loss, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache)

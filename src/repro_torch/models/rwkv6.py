@@ -54,6 +54,24 @@ def init_rwkv6(kg: common.KeyGen, cfg: ArchConfig, dtype) -> dict:
     }
 
 
+def axes_rwkv6(cfg: ArchConfig) -> dict:
+    return {
+        "ln1_s": (None,), "ln1_b": (None,), "ln2_s": (None,), "ln2_b": (None,),
+        "mu_base": (None,), "mu": (None, None),
+        "mix_w1": ("embed", None), "mix_w2": (None, None, "embed"),
+        "w_r": ("embed", "heads_fused"), "w_k": ("embed", "heads_fused"),
+        "w_v": ("embed", "heads_fused"), "w_g": ("embed", "heads_fused"),
+        "w_o": ("heads_fused", "embed"),
+        "decay_base": (None,), "decay_w1": ("embed", None),
+        "decay_w2": (None, "embed"),
+        "u": ("ssm_heads", None),
+        "gn_s": (None,), "gn_b": (None,),
+        "cmu_k": (None,), "cmu_r": (None,),
+        "c_k": ("embed", "ff"), "c_v": ("ff", "embed"),
+        "c_r": ("embed", "heads_fused"),
+    }
+
+
 def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     """Token shift: x_{t-1}, with ``prev`` (B, d) as the t=-1 context."""
     B, S, d = x.shape

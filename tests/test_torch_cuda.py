@@ -508,9 +508,14 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Sk, H, Hkv, D, q_offset,
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     assert launches.count == before + 2
     torch.testing.assert_close(got.float(), out.float(), atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_vjp.flash_attention(q.float().requires_grad_(), k.float(),
-                                  v.float())
+    # under autograd the kernel runs through the recomputing backward's
+    # Function; called bare it refuses, since its output has no grad_fn
+    qg = q.detach().requires_grad_()
+    got = flash_vjp.flash_attention(qg, k, v, q_offset, causal)
+    assert launches.count == before + 3 and got.grad_fn is not None
+    torch.testing.assert_close(got.float(), out.float(), atol=0, rtol=0)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        flash_attention_cuda(qg, k, v, q_offset=q_offset, causal=causal)
 
 
 @pytest.mark.cuda
@@ -904,3 +909,140 @@ def test_executors_on_the_card_agree_with_the_engine_on_iq3(cuda):
                 assert np.array_equal(ent.data, res["entities"][eid])
     finally:
         pool.shutdown()
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_a_gradient(cuda):
+    """K1, K2, K4 and K5 have no backward on the card: an input that
+    requires a gradient, with grad mode on, raises rather than return an
+    output with no grad_fn; under ``torch.no_grad`` they run."""
+    from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    img = torch.rand(1, 16, 16, 3, device=cuda, requires_grad=True)
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(0, 1, 16, 2, 16, 1, 16, cuda)
+    r, k, v, w, u, s0 = _wkv_inputs(0, 1, 16, 2, 16, cuda)
+    calls = {
+        "gaussian_blur": lambda: gaussian_blur_cuda(img, 5, 1.5),
+        "fused_resize_crop_normalize": lambda: pp.fused_resize_crop_normalize_cuda(
+            img, resize_h=8, resize_w=8, crop_x=0, crop_y=0, crop_w=8,
+            crop_h=8),
+        "mamba2_ssd": lambda: mamba2_ssd_cuda(x.requires_grad_(), dt, A, Bm,
+                                              Cm, D, h0),
+        "rwkv6_scan": lambda: rwkv6_scan_cuda(r, k, v, w.requires_grad_(), u,
+                                              s0),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    # the public routes too: the same wrappers
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.gaussian_blur(img, 5, 1.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_train_launcher_refuses_the_scan_families_on_the_card(cuda, arch):
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="no backward on the card"):
+        train.run(arch, reduced=True, steps=1, batch=1, seq=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,q_offset,causal,dtype", [
+    (2, 1100, 1100, 4, 2, 128, 0, True, torch.float32),
+    (1, 600, 1700, 4, 4, 64, 1100, True, torch.float32),
+    (2, 300, 700, 6, 2, 32, 0, False, torch.float32),
+    (1, 1100, 1100, 4, 4, 64, 0, True, torch.bfloat16),
+])
+def test_flash_function_backward_on_the_card(cuda, B, Sq, Sk, H, Hkv, D,
+                                             q_offset, causal, dtype):
+    """The recomputing backward over K3's output and log-sum-exp against
+    autograd through the plain chunked forward, on the card.  Float32:
+    2e-4, the reference's tolerance for its flash gradients; bfloat16:
+    2e-2 absolute and relative (its bfloat16 flash tolerance)."""
+    from repro_torch.kernels import flash_vjp
+    from repro_torch.kernels.flash_attention import launches
+    q, k, v = _attn(Sq + 7 * Sk, B, Sq, Sk, H, Hkv, D, cuda, dtype)
+    do = _attn(1, B, Sq, Sq, H, H, D, cuda, dtype)[0]
+    grads = []
+    for route in ("kernel", "plain"):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = launches.count
+        if route == "kernel":
+            out = flash_vjp.flash_attention(*leaves, q_offset, causal)
+            assert launches.count == before + 1
+        else:
+            out = ref.flash_attention_chunked(*leaves, causal=causal,
+                                              q_offset=q_offset)[0]
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    if dtype == torch.bfloat16:
+        # a bfloat16 decoder's queries against float32 encoder keys run
+        # the kernel in float32, as the plain forward does
+        mixed = flash_vjp.flash_attention(q, k.float(), v.float(), q_offset,
+                                          causal)
+        want = flash_vjp.flash_attention(q.float(), k.float(), v.float(),
+                                         q_offset, causal)
+        assert mixed.dtype == torch.bfloat16
+        torch.testing.assert_close(mixed, want.to(torch.bfloat16), atol=0,
+                                   rtol=0)
+    for got, want in zip(*grads):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_reduced_qwen3_train_step_on_the_card_matches_the_host(cuda):
+    """One float32 train step of reduced qwen3 at 1,100 tokens: K3 runs
+    forward and again under remat in every layer, and the step agrees
+    with the same step on the host: loss 1e-5 relative; each leaf of
+    ``m`` within 5e-5 of that leaf's largest magnitude and each of
+    ``v`` within 1e-4 (a wrong gradient on any one leaf shows there;
+    every leaf differs by about 5e-6 relative, the clip scale from the
+    two float32 norms, and ``v = g^2`` by twice that: measured on an
+    H100, 7.5e-6 and 1.5e-5); each parameter
+    within ``lr · (1e-3 + |Δm| / ((1 - b1) · eps))`` (AdamW's first
+    step moves an element by ``lr · g / (|g| + eps)``, whose slope
+    ``1/eps`` amplifies the gradients' float32 differences where a
+    gradient is near eps; ``Δm / (1 - b1)`` is that difference)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.kernels.flash_attention import launches
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+    cfg = get_arch("qwen3-0.6b", reduced=True)
+    api = get_model(cfg)
+    step = make_train_step(api, TrainConfig(
+        learning_rate=1e-3, warmup_steps=5, compute_dtype="float32",
+        grad_reduce_dtype="float32"), REPLICATED)
+    host = init_train_state(api, torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 1100)).astype(np.int32))
+    before = launches.count
+    card, mc = step(card, {"tokens": toks.to(cuda)})
+    assert launches.count - before == 2 * cfg.num_layers
+    host, mh = step(host, {"tokens": toks})
+    assert abs(float(mc["loss"]) / float(mh["loss"]) - 1) <= 1e-5
+    lr = mh["lr"]
+    leaves = {(name, k): tree_leaves(st[k]) for name, st in
+              (("card", card), ("host", host)) for k in ("params", "m", "v")}
+    for k, tol in (("m", 5e-5), ("v", 1e-4)):
+        for got, want in zip(leaves["card", k], leaves["host", k]):
+            top = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= tol * top, k
+    for pc, ph, mc_, mh_ in zip(leaves["card", "params"],
+                                leaves["host", "params"],
+                                leaves["card", "m"], leaves["host", "m"]):
+        allowed = lr * (1e-3 + (mc_.cpu() - mh_).abs() / (0.1 * 1e-8))
+        assert bool(((pc.cpu() - ph).abs() <= allowed + 1e-7).all())

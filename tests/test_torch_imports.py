@@ -34,6 +34,13 @@ SCALE_OUT = {"repro_torch.cluster", "repro_torch.cluster.engine",
              "repro_torch.distributed.elastic", "repro_torch.serving.wire",
              "repro_torch.serving.frontend", "repro_torch.launch.serve",
              "repro_torch.core.executors"}
+# the training slice's modules
+TRAINING = {"repro_torch.training", "repro_torch.training.optimizer",
+            "repro_torch.training.train_step", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.ckpt", "repro_torch.dataio.loader",
+            "repro_torch.launch.train", "repro_torch.kernels.flash_vjp",
+            "repro_torch.configs.minicpm_2b", "repro_torch.configs.granite_8b",
+            "repro_torch.configs.qwen1p5_32b"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
@@ -46,6 +53,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert int(n) >= 30          # every module of the slice was imported
     walked = set(names.split(","))
     assert SCALE_OUT <= walked, SCALE_OUT - walked
+    assert TRAINING <= walked, TRAINING - walked
     assert bad == "[]", bad
     # chip_smoke.main's own imports, as listed there
     for path in ("chip_smoke.py", os.path.join("benchmarks",

@@ -1,7 +1,10 @@
 """The PyTorch port's model path held against the JAX package on the CPU.
 
 Reduced ``zamba2-2.7b`` (hybrid: Mamba2 trunk, the SSD scan, shared
-attention blocks), ``qwen3-0.6b`` (dense: GQA, qk_norm), ``rwkv6-1.6b``
+attention blocks), ``qwen3-0.6b`` (dense: GQA, qk_norm), ``minicpm-2b``
+(dense: the depth-scaled residual, mup embedding and logit scaling),
+``granite-8b`` (dense: GQA at rope theta 1e7), ``qwen1.5-32b`` (dense:
+QKV bias, MHA), ``rwkv6-1.6b``
 (rwkv: token shift, data-dependent decay, the WKV6 scan),
 ``granite-moe-1b-a400m`` and ``qwen3-moe-235b-a22b`` (moe: top-k
 routing, sort-based dispatch; the reduced configs' capacity factor 4.0
@@ -49,7 +52,8 @@ from repro_torch.serving.serve_step import greedy_generate
 torch.set_num_threads(1)
 
 ARCHS = ["zamba2-2.7b", "qwen3-0.6b", "rwkv6-1.6b", "granite-moe-1b-a400m",
-         "qwen3-moe-235b-a22b", "whisper-small", "internvl2-1b"]
+         "qwen3-moe-235b-a22b", "whisper-small", "internvl2-1b",
+         "minicpm-2b", "granite-8b", "qwen1.5-32b"]
 LOGIT_TOL = 3e-4
 STATE_TOL = 1e-4
 ELEM_TOL = 1e-6
@@ -453,11 +457,10 @@ def test_group_batcher_matches_sequential_greedy():
 
 # ------------------------------------------------- what is not ported
 def test_unported_paths_raise_instead_of_running_something_else():
-    """What is still to come (the dense configs minicpm-2b, granite-8b
-    and qwen1.5-32b, meshes) raises and names its slice."""
-    for arch in ("minicpm-2b", "granite-8b", "qwen1.5-32b"):
-        with pytest.raises(KeyError, match="dense-config slice"):
-            get_arch(arch)
+    """What is still to come (meshes, ``model_par > 1``, the production
+    mesh) raises and names its slice; an unknown arch raises.  Every
+    assigned architecture is ported: the dense configs minicpm-2b,
+    granite-8b and qwen1.5-32b are parity cases of ``ARCHS``."""
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     with pytest.raises(NotImplementedError, match="distribution slice"):
@@ -465,6 +468,11 @@ def test_unported_paths_raise_instead_of_running_something_else():
     from repro_torch.launch.model_serve import run
     with pytest.raises(NotImplementedError, match="distribution slice"):
         run("qwen3-0.6b", model_par=2, device="cpu")
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        train.run("qwen3-0.6b", model_par=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="distribution slice"):
+        train.run("qwen3-0.6b", mesh_kind="production", device="cpu")
     cfg = get_arch("qwen3-0.6b", reduced=True)
     with pytest.raises(ValueError, match="top-level keys"):
         params_from_jax({"embed": np.zeros((1, 1))}, cfg)
@@ -479,6 +487,9 @@ def test_model_entry_points_refuse_cuda_on_a_host_without_a_card():
         register_model_udf("lm_refused", arch="qwen3-0.6b")  # cuda default
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run("qwen3-0.6b", requests=1, prompt_len=2, gen=1)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.run("qwen3-0.6b", steps=1, batch=1, seq=4)     # cuda default
     cfg = get_arch("qwen3-0.6b", reduced=True)
     tree = get_model(cfg).init(torch.Generator().manual_seed(0))
     from repro_torch.models.lm import tree_map

@@ -109,3 +109,20 @@ def test_phase_10_rehearsed_on_the_cpu():
     assert result["shards"][0]["gain"] == 1.0
     assert [r["name"] for r in result["kappa"]] == ["scaleout_k1",
                                                     "scaleout_k2"]
+
+
+def test_phase_15_rehearsed_on_the_cpu():
+    """Phase 15's four parts on reduced configs: card-against-host
+    becomes host against host, the resumed run must match the straight
+    one, and the bfloat16 step must differ from the float32 one (it
+    computes in another precision) within the stated tolerances."""
+    from repro_torch.kernels import flash_attention as fa
+    out = cs.phase_training({"flash_attention": fa.launches}, device="cpu",
+                            reduced=True, seq=24)
+    assert out["card_vs_host"]["loss_rel"] == 0.0
+    assert out["qwen3_resumed"]["start_step"] == 2
+    assert out["qwen3_resume_loss_rel"] <= cs.TRAIN_LOSS_RTOL
+    assert len(out["minicpm"]["losses"]) == 2
+    bf16 = out["minicpm_bf16_vs_f32"]
+    assert 0.0 < bf16["m_rel_l2"] <= cs.TRAIN_BF16_M_RTOL
+    assert 0.0 < bf16["embed_m_rel_l2"] <= cs.TRAIN_BF16_EMBED_M_RTOL
