@@ -109,16 +109,42 @@ Phases (any failed check exits non-zero, before the result line):
    against the same step in float32 from one state (gradient norm, each
    leaf's first moment).  Every attention layer runs
    K3 forward and again when remat recomputes it, under the recomputing
-   backward.
+   backward;
+16. training the hybrid and rwkv families, K4 and K5 under their
+   autograd Functions (the kernel forward, the recomputed chunked
+   form's gradient backward): (a) one step of zamba2-2.7b at full width
+   cut to 2 hybrid groups (12 layers), 1 x 1,536 tokens in float32, on
+   the card and on the host from one state (loss, gradient norm, each
+   leaf's largest |Δparam|), every leaf's gradient on the card finite
+   and not all zero; (b) ``launch.train.run`` of zamba2-2.7b at full
+   width, 1 x 4,096 tokens, float32: 2 steps (K4 in every Mamba2 layer,
+   K3 at head dim 80 at every shared-attention application); (c)
+   rwkv6-1.6b at full width, 4 x 4,096 tokens as 2 microbatches,
+   bfloat16 compute: 2 steps (K5 in every layer); (d) rwkv6-1.6b cut to
+   2 layers, one step at the bfloat16 defaults, every leaf's gradient
+   finite and not all zero (those upstream of K5 named);
+17. the distribution substrate on one card: ``make_host_mesh(model=2)``
+   is 1 x 1, and ``model_serve.run`` and ``train.run`` of reduced
+   qwen3-0.6b at ``model_par=2`` equal their ``model_par=1`` runs bit
+   for bit; through a one-rank NCCL group, the int8 compressed mean,
+   its reducer and error feedback against their numpy formulas, and
+   ``remesh_tree`` of a train state onto the one-card mesh.  Multi-rank
+   results come from the CPU gloo tests only.
+
+Phase 5 also holds K4's and K5's Functions (forward + backward) at the
+training shapes of phase 16 against autograd through the plain chunked
+forward on the card, and K3 forward + backward at zamba2's shared
+attention, with times and bounds.
 
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
-zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15, 9
-and 10 (run in that order) and read just after it (phase 6 must have
-launched K4, and K3 past 1024 slots; phase 7 K5; phases 8 and 11–15
-K3; phase 9 K1 and K2; phase 10 K1).  K1's and K2's launches in the
-kernels line are the sum over phases 2–4, 9 and 10, K3's over phases
-6–8 and 11–15.
+zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15,
+16, 9 and 10 (run in that order, phase 17 after 16) and read just after
+it (phase 6 must have launched K4, and K3 past 1024 slots; phase 7 K5;
+phases 8 and 11–15 K3; phase 16 K3, K4 and K5; phase 9 K1 and K2;
+phase 10 K1).  K1's and K2's launches in the kernels line are the sum
+over phases 2–4, 9 and 10, K3's over phases 6–8 and 11–16, K4's over
+phases 6 and 16, K5's over phases 7 and 16.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
 limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -192,6 +218,13 @@ K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
 # the output, whose rounding enters delta = rowsum(dO·O), and the grads)
 K3_GRAD_TOL, K3_GRAD_RTOL = 2e-4, 1e-4
 K3_GRAD_BF16_TOL = 2e-2
+# the SSD and WKV6 Functions' gradients (the kernel forward, the
+# recomputed chunked form's gradient backward) against autograd through
+# the plain chunked forward on the same tensors: the same float32
+# backward computed twice, 1e-5 of each gradient's largest magnitude;
+# a bfloat16 input's gradient is rounded to bfloat16 once in both, one
+# bfloat16 step apart at most (2^-7 relative beyond that)
+SCAN_GRAD_TOL, SCAN_GRAD_BF16_RTOL = 1e-5, 2.0 ** -7
 # a training step on the card against the same step on the host, and a
 # resumed step against the straight run's: float32 sums in other orders
 # (loss 1e-5 relative; the gradient norm 1e-4, summed over every
@@ -581,6 +614,40 @@ def attn_grad_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     pairs = visible_pairs(Sq, Sk, q_offset, causal)
     nbytes = (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) * itemsize
     return nbytes, 14 * pairs * D * H * B, 8 * pairs * H * B
+
+
+def ssd_grad_work(B, T, H, P, G, N, itemsize):
+    """Bytes and operations of one SSD call forward and backward as a
+    training step runs it (no initial state, a cotangent for y only),
+    counted per step as :func:`ssd_work` counts the forward.  Bytes: x,
+    B, C, dt, A and D read once and y written once; dy read once and
+    dx, dB, dC, ddt, dA and dD written once.  Products per (batch, head)
+    step: the forward's 2N + 2P + 4NP, and the backward's 2N + 2P +
+    10NP: the readout's two (dh += dy Cᵀ and dC = hᵀ dy) and the
+    update's three (dx = dt dh B, dB = dt dhᵀ x, and the decay's sum of
+    dh ∘ h_prev), 2NP each.  Other: twice the forward's."""
+    nbytes = (4 * B * T * H * P + 4 * B * T * G * N) * itemsize \
+        + (2 * B * T * H + 4 * H) * 4
+    steps = B * T * H
+    return (nbytes, (4 * N + 4 * P + 14 * N * P) * steps,
+            (6 + 14 * P + 2 * N * P) * steps)
+
+
+def wkv_grad_work(B, T, H, K, V, itemsize):
+    """Bytes and operations of one WKV6 call forward and backward as a
+    training step runs it (no initial state, a cotangent for y only),
+    counted per step as :func:`wkv_work` counts the forward.  Bytes: r,
+    k, v and y in their type and w in float32, each once; dy read once,
+    dr, dk and dv written once in their type and dw in float32; u and du
+    in float32.  Products per (batch, head) step: the forward's readout
+    and update (4KV) and the backward's five (dS += r dyᵀ, dr = S dy,
+    dk = dS v, dv = dSᵀ k and the decay's sum of dS ∘ S_prev: 10KV).
+    Other: twice the forward's."""
+    nbytes = (4 * B * T * H * K + 4 * B * T * H * V) * itemsize \
+        + 8 * B * T * H * K + 8 * H * K
+    steps = B * T * H
+    return (nbytes, 14 * K * V * steps,
+            2 * (K * V + 3 * K + 2 * V) * steps)
 
 
 def blur_work(shape, ksize):
@@ -983,6 +1050,83 @@ def phase_kernels():
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
+    def scan_grad_case(kind, shape, dtype):
+        """K4 or K5 forward (the kernel) and the recomputing backward
+        through its autograd Function, with a cotangent for y only (as a
+        training step), against ``torch.autograd.grad`` through the
+        plain chunked forward on the same tensors on the card; timed
+        forward + backward, beside autograd through the plain forward
+        (no single PyTorch call computes either scan)."""
+        from repro_torch.kernels import mamba2_ssd as ssd_mod
+        from repro_torch.kernels import rwkv6_scan as wkv_mod
+        if kind == "mamba2_ssd":
+            B, T, H, P, G, N = shape
+            inputs = ssd_inputs(rng, B, T, H, P, G, N, dtype)[:6]
+            chunk = min(128, max(T, 8))
+
+            def kernel(*t):
+                return ssd_mod.mamba2_ssd(*t, chunk=chunk)
+
+            def plain(*t):
+                return ref.mamba2_ssd_chunked(*t, chunk=chunk)
+
+            nbytes, products, other = ssd_grad_work(
+                B, T, H, P, G, N, inputs[0].element_size())
+            tol, bf16 = K4_TOL, (K4_BF16_ATOL, K4_BF16_RTOL)
+            dims = [B, T, H, P]
+        else:
+            B, T, H, K = shape
+            inputs = wkv_inputs(rng, B, T, H, K, dtype)[:5]
+            kernel, plain = wkv_mod.rwkv6_scan, ref.rwkv6_chunked
+            nbytes, products, other = wkv_grad_work(
+                B, T, H, K, K, inputs[0].element_size())
+            tol, bf16 = K5_TOL, (K5_BF16_ATOL, K5_BF16_RTOL)
+            dims = [B, T, H, K]
+        dy = torch.from_numpy(rng.standard_normal(
+            tuple(inputs[0].shape[:3]) + (dims[3],)).astype(np.float32)
+        ).cuda().to(dtype)
+
+        def grads(forward):
+            leaves = [t.detach().requires_grad_() for t in inputs]
+            y = forward(*leaves)[0]
+            return y.detach(), torch.autograd.grad(y, leaves, dy)
+
+        (y, got), (y_p, want) = grads(kernel), grads(plain)
+        torch.cuda.synchronize()
+        what = (f"{'K4' if kind == 'mamba2_ssd' else 'K5'} forward + "
+                f"recomputing backward {tuple(shape)} {str(dtype)[6:]}")
+        if dtype == torch.float32:
+            fwd_err = held(f"{what}: the Function's output against the "
+                           "plain forward", (y,), (y_p,), tol)
+        else:
+            fwd_err = held(f"{what}: the Function's output against the "
+                           "plain forward", (y,), (y_p,), *bf16)
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            top = float(w.float().abs().max())
+            rtol = SCAN_GRAD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+            err = max(err, held(
+                f"{what}: gradient {i} against autograd through the plain "
+                f"forward", (g,), (w,), SCAN_GRAD_TOL * max(top, 1e-30),
+                rtol))
+            check(g.dtype == inputs[i].dtype,
+                  f"{what}: gradient {i} in its input's {g.dtype}")
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        return {"kernel": f"{kind}+backward", "shape": dims,
+                "dtype": str(dtype), "max_abs_err": err,
+                "forward_max_abs_err": fwd_err,
+                "ms": time_ms(lambda: grads(kernel), flush, reps=10),
+                "plain_ms": time_ms(lambda: grads(plain), flush, reps=3),
+                "library_ms": None,
+                "library_call": "none: no single PyTorch call computes "
+                                "the scan or its gradient",
+                "route": ("K4" if kind == "mamba2_ssd" else "K5")
+                + " forward + the recomputed chunked form's gradient "
+                  "(torch.autograd.grad), float32",
+                "bytes": nbytes, "flops": products + other,
+                "products": products, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
     entries["gaussian_blur"] = blur_case((32, 224, 224, 3), 9, 2.0)
     rows.append(entries["gaussian_blur"])
     rows.append(blur_case((1, 224, 224, 3), 9, 2.0))
@@ -1073,6 +1217,19 @@ def phase_kernels():
     rows.append(attn_case(2, 4096, 4096, 16, 8, 128, library=True))
     rows.append(attn_grad_case(2, 4096, 16, 8, 128, torch.float32))
     rows.append(attn_grad_case(1, 4096, 36, 36, 64, torch.bfloat16))
+    # the scans' training slice (phase 16): K4 forward + backward at
+    # zamba2-2.7b's microbatch (1 x 4,096, 80 heads of 64, one group of
+    # state 64, float32), K5 at rwkv6-1.6b's (2 x 4,096, 32 heads of 64)
+    # in bfloat16 (its training dtype) and float32, and K3 forward +
+    # backward at zamba2's shared attention (1 x 4,096, 32 heads of 80,
+    # float32)
+    rows.append(scan_grad_case("mamba2_ssd", (1, 4096, 80, 64, 1, 64),
+                               torch.float32))
+    rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
+                               torch.bfloat16))
+    rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
+                               torch.float32))
+    rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -1401,34 +1558,60 @@ def _model_udf_arms(launches, arch, kernel, device, reduced, n_images):
 
 # ------------------------------------------------- phases 9 and 10
 def train_step_products(cfg, batch, seq) -> int:
-    """Matrix-product operations of one remat training step of a dense
-    config over ``batch`` x ``seq`` tokens: each layer's weights 2
-    operations a token forward, 2 again when remat recomputes the layer
-    and 4 backward; the head 2 + 4 (not recomputed); attention 4D a
-    visible pair and head forward, 4D recomputed and 10D backward."""
-    hd = cfg.resolved_head_dim
+    """Matrix-product operations of one remat training step over
+    ``batch`` x ``seq`` tokens: each layer's weights 2 operations a
+    token forward, 2 again when remat recomputes the layer and 4
+    backward; the head 2 + 4 (not recomputed); attention 4D a visible
+    pair and head forward, 4D recomputed and 10D backward; a scan's
+    products per step (SSD's and WKV6's readout and update, 4NP or 4KV)
+    forward, again recomputed, and 10NP or 10KV backward
+    (:func:`ssd_grad_work`, :func:`wkv_grad_work`).  Dense blocks,
+    zamba2's Mamba2 layers with its shared attention block at every
+    application, rwkv6's time and channel mix."""
+    from repro_torch.models.lm import family_kind, hybrid_shape
     d = cfg.d_model
-    layer = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
-             + 3 * d * cfg.d_ff)
     tokens = batch * seq
     pairs = visible_pairs(seq, seq, 0, True)
-    return (8 * tokens * layer * cfg.num_layers
-            + 6 * tokens * d * cfg.padded_vocab
-            + 18 * pairs * hd * cfg.num_heads * batch * cfg.num_layers)
+    head = 6 * tokens * d * cfg.padded_vocab
+    kind = family_kind(cfg)
+    if kind == "rwkv":
+        f, L, Dl = cfg.d_ff, cfg.rwkv_mix_lora, cfg.rwkv_decay_lora
+        H, K = cfg.rwkv_nheads, cfg.rwkv_head_dim
+        layer = 6 * d * d + 10 * d * L + 2 * d * Dl + 2 * d * f
+        scan = 18 * K * K * H * tokens
+        return 8 * tokens * layer * cfg.num_layers + head \
+            + scan * cfg.num_layers
+    hd = cfg.resolved_head_dim
+    block = (2 * d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+             + 3 * d * cfg.d_ff)
+    attn = 18 * pairs * hd * cfg.num_heads * batch
+    if kind == "tblock":
+        return (8 * tokens * block * cfg.num_layers + head
+                + attn * cfg.num_layers)
+    di, N, G = cfg.mamba_d_inner, cfg.ssm_state, cfg.mamba_ngroups
+    H, P = cfg.mamba_nheads, cfg.mamba_head_dim
+    mamba = d * (2 * di + 2 * G * N + H) + di * d
+    scan = 18 * N * P * H * tokens
+    n_app, _ = hybrid_shape(cfg)
+    return (8 * tokens * mamba * cfg.num_layers + scan * cfg.num_layers
+            + n_app * (8 * tokens * block + attn) + head)
 
 
-def _train_run(label, launches, arch, device, **kw):
+def _train_run(label, launches, arch, device, kernels=("flash_attention",),
+               **kw):
     """``launch.train.run`` once on the card: its step walls, tokens/s,
-    peak device memory and K3's launches, printed and returned."""
+    peak device memory and the launches of each kernel, printed and
+    returned; on the card each of ``kernels`` must have launched."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch import train
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    before = launches["flash_attention"].count
+    before = {k: c.count for k, c in launches.items()}
     r = train.run(arch, device=device, log_every=1, **kw)
-    r["flash_launches"] = launches["flash_attention"].count - before
+    r["launches"] = {k: c.count - before[k] for k, c in launches.items()}
+    r["flash_launches"] = r["launches"]["flash_attention"]
     r["peak_memory_bytes"] = (torch.cuda.max_memory_allocated() if on_card
                               else 0)
     cfg = get_arch(arch, reduced=kw.get("reduced", True))
@@ -1438,17 +1621,19 @@ def _train_run(label, launches, arch, device, **kw):
     products = train_step_products(cfg, kw["batch"], kw["seq"])
     r["bound_ms"] = products / PRODUCT_FLOP_S[
         "torch." + kw["compute_dtype"]] * 1e3
+    counts = ", ".join(f"{k} {r['launches'][k]}" for k in kernels)
     print(f"  {label}: steps from {r['start_step']}, losses {r['losses']}, "
           f"grad norms {r['grad_norms']}; step ms {r['step_ms']}; tokens/s "
           f"{r['tokens_per_s']}; peak device memory "
-          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; flash_attention "
-          f"launches {r['flash_launches']}; least step time "
-          f"{r['bound_ms']:.3f} ms ({products / 1e12:.3f} TFLOP of products)",
-          flush=True)
+          f"{r['peak_memory_bytes'] / 2**30:.3f} GiB; launches {counts}; "
+          f"least step time {r['bound_ms']:.3f} ms "
+          f"({products / 1e12:.3f} TFLOP of products)", flush=True)
     check(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
-          f"{label}: finite losses and gradient norms")
-    check(not on_card or r["flash_launches"] > 0,
-          f"{label}: flash_attention launched ({r['flash_launches']})")
+          f"{label}: finite losses and gradient norms (so every leaf's "
+          "gradient norm is finite)")
+    for k in kernels:
+        check(not on_card or r["launches"][k] > 0,
+              f"{label}: {k} launched ({r['launches'][k]})")
     return r
 
 
@@ -1655,6 +1840,316 @@ def phase_training(launches, device="cuda", reduced=False, seq=4096):
           f"moment of the embedding: {embed_rel:.3g} <= "
           f"{TRAIN_BF16_EMBED_M_RTOL}")
     del bf16, f32
+    return out
+
+
+def leaf_grads_from_m(m, b1) -> dict:
+    """Each leaf's gradient norm after one step from zero moments, read
+    from its first moment (m = (1 - b1) · clipped gradient), by path."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + (k,), v)
+        else:
+            out["/".join(prefix)] = float(node.double().norm()) / (1 - b1)
+    walk((), m)
+    return out
+
+
+def check_leaf_grads(label, norms, upstream) -> None:
+    """Every leaf's gradient norm finite and none all zero, the leaves
+    upstream of a scan named: a dropped gradient would leave them 0."""
+    bad = {k: v for k, v in norms.items() if not math.isfinite(v)}
+    zero = sorted(k for k, v in norms.items() if v == 0.0)
+    ups = {k: v for k, v in norms.items()
+           if any(k.endswith("/" + u) for u in upstream)}
+    missing = [u for u in upstream
+               if not any(k.endswith("/" + u) for k in norms)]
+    print(f"  {label}: {len(norms)} leaves; upstream of the scan: "
+          + ", ".join(f"{k} {v:.4g}" for k, v in sorted(ups.items())),
+          flush=True)
+    check(not bad, f"{label}: every leaf's gradient norm finite ({bad})")
+    check(not zero, f"{label}: no leaf's gradient all zero ({zero})")
+    check(not missing and all(v > 0 for v in ups.values()),
+          f"{label}: the {len(ups)} leaves upstream of the scan have "
+          f"gradients (missing: {missing})")
+
+
+SSD_UPSTREAM = ("in_proj", "conv_w", "conv_b", "dt_bias", "A_log", "D")
+WKV_UPSTREAM = ("w_r", "w_k", "w_v", "decay_base", "decay_w1", "decay_w2",
+                "u", "mix_w1", "mix_w2", "mu", "mu_base")
+
+
+def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
+                        host_seq=1536):
+    """Phase 16: the hybrid and rwkv families in training, K4 and K5
+    under their autograd Functions.  (a) one ``make_train_step`` step of
+    zamba2-2.7b at full width cut to 2 hybrid groups (12 layers), 1 x
+    ``host_seq`` tokens, float32 compute and gradients, on the card and
+    on the host from one state (loss, gradient norm, each leaf's largest
+    |Δparam|, the moments), each leaf's gradient on the card finite and
+    not all zero; (b) ``launch.train.run`` of zamba2-2.7b at full width,
+    1 x ``seq`` tokens, float32: 2 steps; (c) the same for rwkv6-1.6b at
+    full width, 4 x ``seq`` as 2 microbatches of 2, bfloat16 compute;
+    (d) one step of rwkv6-1.6b cut to 2 layers at the bfloat16 defaults,
+    1 x ``seq``, each leaf's gradient finite and not all zero.
+    ``device``, ``reduced``, ``seq`` and ``host_seq`` let a host without
+    a card rehearse it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dataio import lm_token_stream
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_leaves, tree_map
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+    out = {}
+    width = "reduced" if reduced else "full width"
+
+    # -- (a) card against host
+    cfg = get_arch(ARCH, reduced)
+    cfg = cfg.replace(num_layers=2 * cfg.shared_attn_every)
+    print(f"phase 16a: one train step of {cfg.name} at {width}, 2 hybrid "
+          f"groups ({cfg.num_layers} layers), 1 x {host_seq} tokens, "
+          "float32, on the card and on the host", flush=True)
+    api = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=100,
+                       compute_dtype="float32", grad_reduce_dtype="float32")
+    step = make_train_step(api, tcfg, REPLICATED)
+    host = init_train_state(api, torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(device, copy=True), host)
+    toks = torch.from_numpy(lm_token_stream(1, host_seq, cfg.vocab_size, 0))
+    before = {k: c.count for k, c in launches.items()}
+    t0 = time.perf_counter()
+    card, mc = step(card, {"tokens": toks.to(device)})
+    card_loss = float(mc["loss"])
+    card_s = time.perf_counter() - t0
+    counts = {k: c.count - before[k] for k, c in launches.items()}
+    t0 = time.perf_counter()
+    host, mh = step(host, {"tokens": toks})
+    host_s = time.perf_counter() - t0
+    lr, b1, eps = mh["lr"], tcfg.b1, tcfg.eps
+    loss_rel = abs(card_loss / float(mh["loss"]) - 1)
+    norm_rel = abs(float(mc["grad_norm"]) / float(mh["grad_norm"]) - 1)
+    moment_rel = {k: moment_diff(card[k], host[k]) for k in ("m", "v")}
+    dp_leaf, excess = {}, 0.0
+    paths = list(leaf_grads_from_m(host["m"], b1))
+    for path, pc, ph, m_c, m_h in zip(paths, *(tree_leaves(st[k]) for k, st
+                                               in (("params", card),
+                                                   ("params", host),
+                                                   ("m", card),
+                                                   ("m", host)))):
+        dp = (pc.cpu() - ph).abs()
+        allowed = lr * (1e-3 + (m_c.cpu() - m_h).abs() / ((1 - b1) * eps))
+        dp_leaf[path] = float(dp.max()) / lr
+        excess = max(excess, float((dp - allowed).max()))
+    norms = leaf_grads_from_m(card["m"], b1)
+    out["card_vs_host"] = {
+        "card_ms": card_s * 1e3, "host_ms": host_s * 1e3,
+        "loss": [card_loss, float(mh["loss"])], "loss_rel": loss_rel,
+        "grad_norm": [float(mc["grad_norm"]), float(mh["grad_norm"])],
+        "grad_norm_rel": norm_rel, "max_param_diff_over_lr": dp_leaf,
+        "moment_diff_over_leaf_max": moment_rel, "launches": counts,
+        "leaf_grad_norms": norms}
+    print(f"  card {card_s * 1e3:.3f} ms, host {host_s * 1e3:.3f} ms; loss "
+          f"{card_loss} / {float(mh['loss'])} (rel {loss_rel:.3g}); grad norm "
+          f"rel {norm_rel:.3g}; max |Δm|, |Δv| over the leaf's largest "
+          f"{moment_rel['m']:.3g}, {moment_rel['v']:.3g}; launches "
+          f"{counts}", flush=True)
+    print("  max |Δparam| / lr per leaf: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in dp_leaf.items()), flush=True)
+    n_app = cfg.num_layers // cfg.shared_attn_every
+    if device == "cuda":
+        check(counts["mamba2_ssd"] == 2 * cfg.num_layers,
+              "K4 launched forward and under remat in every Mamba2 layer "
+              f"({counts['mamba2_ssd']} == {2 * cfg.num_layers})")
+        check(host_seq <= 1024 or counts["flash_attention"] == 2 * n_app,
+              "K3 launched forward and under remat at every shared-block "
+              f"application ({counts['flash_attention']} == {2 * n_app})")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"card vs host loss: {loss_rel:.3g} <= {TRAIN_LOSS_RTOL}")
+    check(norm_rel <= TRAIN_NORM_RTOL,
+          f"card vs host grad norm: {norm_rel:.3g} <= {TRAIN_NORM_RTOL}")
+    check(excess <= 1e-7, "card vs host parameters within "
+          f"lr (1e-3 + |Δm| / ((1 - b1) eps)) (+1e-7): excess {excess:.3g}")
+    check_leaf_grads("16a on the card", norms, SSD_UPSTREAM)
+    del card, host
+
+    # -- (b) zamba2-2.7b at full width, float32
+    print(f"phase 16b: launch.train.run {ARCH} at {width}, 1 x {seq} "
+          "tokens, float32", flush=True)
+    out["zamba2"] = _train_run(
+        "2 steps", launches, ARCH, device, steps=2, reduced=reduced,
+        batch=1, seq=seq, compute_dtype="float32",
+        kernels=("mamba2_ssd", "flash_attention"))
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (c) rwkv6-1.6b at full width, bfloat16 compute
+    print(f"phase 16c: launch.train.run {RWKV_ARCH} at {width}, 4 x {seq} "
+          "tokens as 2 microbatches, bfloat16 compute", flush=True)
+    out["rwkv6"] = _train_run(
+        "2 steps", launches, RWKV_ARCH, device, steps=2, reduced=reduced,
+        batch=4, seq=seq, microbatches=2, compute_dtype="bfloat16",
+        kernels=("rwkv6_scan",))
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (d) rwkv6-1.6b cut to 2 layers, one step at the bfloat16
+    # defaults: every leaf's gradient, those upstream of K5 among them
+    cfg = get_arch(RWKV_ARCH, reduced).replace(num_layers=2)
+    print(f"phase 16d: one train step of {cfg.name} at {width}, 2 layers, "
+          f"1 x {seq} tokens, at the bfloat16 defaults", flush=True)
+    api = get_model(cfg)
+    tcfg = TrainConfig()
+    state = init_train_state(api, torch.Generator(device=device)
+                             .manual_seed(0))
+    toks = torch.from_numpy(lm_token_stream(1, seq, cfg.vocab_size, 0))
+    before = launches["rwkv6_scan"].count
+    state, m = make_train_step(api, tcfg, REPLICATED)(
+        state, {"tokens": toks.to(device)})
+    k5 = launches["rwkv6_scan"].count - before
+    out["rwkv6_leaves"] = {"loss": float(m["loss"]),
+                           "grad_norm": float(m["grad_norm"]),
+                           "launches": k5,
+                           "leaf_grad_norms": leaf_grads_from_m(state["m"],
+                                                                tcfg.b1)}
+    print(f"  loss {float(m['loss'])}, grad norm {float(m['grad_norm'])}, "
+          f"rwkv6_scan launches {k5}", flush=True)
+    check(math.isfinite(float(m["loss"])), "16d: finite loss")
+    check(device != "cuda" or k5 == 2 * cfg.num_layers,
+          f"K5 launched forward and under remat in every layer ({k5})")
+    check_leaf_grads("16d", out["rwkv6_leaves"]["leaf_grad_norms"],
+                     WKV_UPSTREAM)
+    del state
+    return out
+
+
+def phase_distribution(device="cuda"):
+    """Phase 17: the distribution substrate on one card.  The host mesh
+    clamps ``model_par=2`` to the one rank, so ``model_serve.run`` and
+    ``train.run`` of reduced qwen3-0.6b at ``model_par=2`` equal their
+    ``model_par=1`` runs bit for bit; then, through a one-rank process
+    group (NCCL on the card, a file store under ``build/``, destroyed at
+    the end): the int8 compressed mean and the reducer on a (1, 7·5)
+    leaf and two steps of error feedback against their numpy formulas,
+    and ``remesh_tree`` of a qwen3 train state onto the one-card mesh.
+    Multi-rank runs are the CPU ``gloo`` tests' only: the script runs
+    on one card, and NCCL takes no two ranks on one card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.elastic import remesh_tree
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch import model_serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.training.train_step import (init_train_state,
+                                                 train_state_axes)
+    print("phase 17: the distribution substrate on one card", flush=True)
+    out = {}
+    mesh = make_host_mesh(model=2)
+    check(mesh.shape == (1, 1) and mesh.axis_names == ("data", "model"),
+          f"make_host_mesh(model=2) on one rank: {mesh.shape}")
+    kw = dict(reduced=True, requests=4, prompt_len=16, gen=4, device=device)
+    one = model_serve.run(LONG_ARCH, model_par=1, **kw)["generated"]
+    two = model_serve.run(LONG_ARCH, model_par=2, **kw)["generated"]
+    check(np.array_equal(one, two), "model_serve.run at model_par=2 equals "
+          "model_par=1 (the reference's clamp)")
+    kw = dict(reduced=True, steps=2, batch=4, seq=64, device=device,
+              log_every=100)
+    one = train.run(LONG_ARCH, model_par=1, **kw)
+    two = train.run(LONG_ARCH, model_par=2, **kw)
+    out["train_model_par"] = {"losses": [one["losses"], two["losses"]],
+                              "grad_norms": [one["grad_norms"],
+                                             two["grad_norms"]]}
+    check(one["losses"] == two["losses"]
+          and one["grad_norms"] == two["grad_norms"],
+          f"train.run at model_par=2 equals model_par=1 bit for bit "
+          f"({two['losses']})")
+
+    store = os.path.join(ROOT, "build", "chip_smoke_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method="file://" + store, rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh()
+        check(mesh.device_mesh is not None and mesh.size == 1,
+              f"a one-rank {dist.get_backend()} group gives the (1, 1) mesh "
+              "with its DeviceMesh")
+        rng = np.random.default_rng(0)
+        g = rng.standard_normal((1, 7, 5)).astype(np.float32)
+
+        def q8(x):
+            scale = np.float32(max(np.abs(x).max(), np.float32(1e-12))
+                               / np.float32(127.0))
+            return np.clip(np.round(x / scale), -127, 127) * scale
+
+        want = q8(q8(g.reshape(1, 35)))     # one rank: both phases
+        got = compression.compressed_psum_int8(
+            torch.from_numpy(g.reshape(1, 35)).to(device)).cpu().numpy()
+        red = compression.make_compressed_grad_reducer(mesh)(
+            {"w": torch.from_numpy(g).to(device)})["w"].cpu().numpy()
+        step = np.abs(want).max() / 127
+        err = max(float(np.abs(got - want).max()),
+                  float(np.abs(red.reshape(1, 35) - want).max()))
+        check(err <= step, f"compressed_psum_int8 and the reducer on a "
+              f"(1, 7*5) leaf against the numpy formula: {err:.3g} <= one "
+              f"int8 step {step:.3g}")
+        grads = {"w": torch.from_numpy(g).to(device)}
+        ef = compression.ErrorFeedback.init(grads)
+        e_np, ef_err = np.zeros_like(g), 0.0
+        for _ in range(2):
+            sent, ef = compression.ErrorFeedback.apply(grads, ef)
+            c = g + e_np
+            s_np = q8(c)
+            e_np = c - s_np
+            ef_err = max(ef_err, float(np.abs(sent["w"].cpu().numpy()
+                                              - s_np).max()),
+                         float(np.abs(ef["w"].cpu().numpy() - e_np).max()))
+        check(ef_err <= step, f"two steps of ErrorFeedback against the numpy "
+              f"formula: {ef_err:.3g} <= {step:.3g}")
+        from torch.distributed.tensor import DTensor
+        cfg = get_arch(LONG_ARCH, reduced=True)
+        api = get_model(cfg)
+        state = init_train_state(api, torch.Generator(device=device)
+                                 .manual_seed(0))
+        axes = train_state_axes(api)
+        rules = dict(default_rules(), **(cfg.sharding_overrides or {}))
+        moved = remesh_tree(state, axes, mesh, rules)
+        from repro_torch.distributed.sharding import tree_to_shardings
+        from repro_torch.models.lm import tree_leaves
+        want = tree_leaves(tree_to_shardings(state, axes, mesh, rules))
+        triples = list(zip(tree_leaves(state), tree_leaves(moved), want))
+        ok = all(isinstance(b, DTensor) and list(b.placements) == pl
+                 and torch.equal(b.to_local(), a) for a, b, pl in triples)
+        check(ok, f"remesh_tree of a {cfg.name} train state onto the "
+              f"one-card mesh: {len(triples)} leaves as DTensors with their "
+              "specs' placements, each shard the whole leaf")
+        out.update({"psum_err": err, "error_feedback_err": ef_err,
+                    "remeshed_leaves": len(triples),
+                    "backend": dist.get_backend()})
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    print("  multi-rank results (the 8-rank reducer, the 4-rank "
+          "data-parallel train.run, the 2-rank model_serve.run, remesh on "
+          "a 2 x 2 mesh) come from the CPU gloo tests only "
+          "(tests/test_torch_distributed_ranks.py): this script runs on one "
+          "card", flush=True)
     return out
 
 
@@ -2161,6 +2656,33 @@ def main() -> int:
     check(counts["flash_attention"] > 0, "flash_attention launched on the "
           f"training path ({counts['flash_attention']})")
     path_launches["flash_attention"] += counts["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- training the hybrid and rwkv families (K4 and K5 under their
+    # Functions, K3 at zamba2's shared attention): counts zeroed just
+    # before, read just after
+    for c in launches.values():
+        c.reset()
+    t0 = time.monotonic()
+    details["scan_training"] = phase_scan_training(launches)
+    details["scan_training"]["phase_s"] = time.monotonic() - t0
+    counts = {k: c.count for k, c in launches.items()}
+    print(f"  phase 16: {details['scan_training']['phase_s']:.3f} s; "
+          f"launches {counts}", flush=True)
+    for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+        check(counts[name] > 0, f"{name} launched on the scan families' "
+              f"training path ({counts[name]})")
+        path_launches[name] += counts[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the distribution substrate on one card
+    t0 = time.monotonic()
+    details["distribution"] = phase_distribution()
+    details["distribution"]["phase_s"] = time.monotonic() - t0
+    print(f"  phase 17: {details['distribution']['phase_s']:.3f} s",
+          flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,7 +3,9 @@ them with ``repro_torch.configs.base``; select one with
 ``get_arch("<id>")``.
 """
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ArchConfig,
+    ShapeConfig,
     get_arch,
     list_archs,
 )

@@ -1,4 +1,4 @@
-"""Architecture configuration.
+"""Architecture and input-shape configuration.
 
 One ``ArchConfig`` per ported architecture lives in
 ``repro_torch/configs/<id>.py`` with the *exact* published dimensions;
@@ -22,6 +22,29 @@ from typing import Any, Mapping, Optional
 
 def pad_to(x: int, multiple: int) -> int:
     return int(math.ceil(x / multiple) * multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input-shape cell: ``train_*`` runs ``train_step``,
+    ``prefill_*`` the prefill half of serving, ``decode_*`` / ``long_*``
+    ``serve_step`` (one new token against a cache of ``seq_len``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

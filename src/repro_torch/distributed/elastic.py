@@ -1,15 +1,21 @@
-"""Elastic topology changes for the engine shards of the query path.
+"""Elastic topology changes: continue after the worker pool grows or
+shrinks (node failure shrinks it; recovery/scale-up grows it).
 
-:func:`migration_moves` is the pure planning half of a cluster
-rebalance — given each key's owner list under the old and new
-consistent-hash ring, it yields the minimal copy/drop set per moved
-key.  ``repro_torch.cluster.ShardedEngine`` executes the plan through
-its ordinary Add/remove paths; the remote-pool analogue is
-``RemoteServerPool.scale_to``.
+Two layers share this module:
 
-The device-mesh half of the reference module (re-laying a sharded
-parameter tree onto a new mesh, shrinking a batch to a mesh's data
-extent) needs a mesh, and comes with the distribution slice.
+- **Device meshes** (training/serving): :func:`remesh_tree` re-lays a
+  tree of tensors onto a new mesh by re-deriving every leaf's placements
+  from the same logical axes under the new mesh (divisibility-demoted
+  where the new axis sizes require) and ``distribute_tensor``-ing it.
+  With the atomic checkpoints this is the restart path: resume(ckpt) ->
+  remesh to the surviving topology -> continue.
+
+- **Engine shards** (query path): :func:`migration_moves` is the pure
+  planning half of a cluster rebalance — given each key's owner list
+  under the old and new consistent-hash ring, it yields the minimal
+  copy/drop set per moved key.  ``repro_torch.cluster.ShardedEngine``
+  executes the plan through its ordinary Add/remove paths; the
+  remote-pool analogue is ``RemoteServerPool.scale_to``.
 """
 from __future__ import annotations
 
@@ -17,6 +23,33 @@ import dataclasses
 from typing import Any, Callable, Iterable, Iterator, Sequence
 
 
+def remesh_tree(tree: Any, axes_tree: Any, new_mesh, rules):
+    """Re-shard ``tree`` (same structure as ``axes_tree``) onto
+    ``new_mesh``: each leaf becomes a DTensor with the placements its
+    logical axes give there.  A one-rank mesh without a ``DeviceMesh``
+    (no process group) leaves the tree as it is."""
+    if new_mesh.device_mesh is None:
+        if new_mesh.size != 1:
+            raise ValueError(f"a mesh of {new_mesh.size} ranks needs its "
+                             "DeviceMesh (a process group of that size)")
+        return tree
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import (map_with_axes,
+                                                  tree_to_shardings)
+    shardings = tree_to_shardings(tree, axes_tree, new_mesh, rules)
+    return map_with_axes(lambda leaf, pl: distribute_tensor(
+        leaf, new_mesh.device_mesh, pl), tree, shardings)
+
+
+def shrink_batch_for_mesh(global_batch: int, mesh) -> int:
+    """Largest batch <= global_batch divisible by the mesh's DP extent —
+    keeps per-rank shapes static after losing nodes."""
+    dp = mesh.batch_extent
+    return max((global_batch // dp) * dp, dp)
+
+
+# ------------------------------------------------- shard-set rebalance
 @dataclasses.dataclass(frozen=True)
 class Move:
     """One key's rebalance delta.  ``copy_to`` shards need a fresh copy

@@ -195,7 +195,8 @@ def refuse_grad(what: str, *tensors) -> None:
     output would carry no ``grad_fn``, and every parameter upstream of
     it would silently miss its share of the gradient.  A kernel with a
     backward runs under a ``torch.autograd.Function`` (flash attention's
-    in ``flash_vjp``), whose forward autograd does not record."""
+    in ``flash_vjp``, SSD's and WKV6's beside their wrappers), whose
+    forward autograd does not record."""
     import torch
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

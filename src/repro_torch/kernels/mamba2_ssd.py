@@ -13,6 +13,14 @@ are read by group — never repeated to heads — and x, B and C through
 their batch and time strides, so the model's slices of the
 in-projection go in without a copy.  The plain version is
 :func:`repro_torch.kernels.ref.mamba2_ssd_chunked`.
+
+:func:`mamba2_ssd` is the differentiable route (``kernels/ops.py``
+takes it on both devices): a ``torch.autograd.Function`` whose forward
+is the kernel on a CUDA tensor and the plain chunked form on a CPU
+tensor, and whose backward recomputes the plain chunked form under
+autograd and differentiates it (:func:`ref.recomputed_vjp`), the
+gradient the JAX package takes of ``mamba2_ssd_chunked_jnp`` off the
+TPU.  The backward is the same PyTorch code on every device.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 launches = _build.LaunchCounter("mamba2_ssd")
 
@@ -108,3 +116,40 @@ def mamba2_ssd_cuda(
     _build.check(err, "mamba2_ssd")
     launches.add()
     return y, h_out
+
+
+class MambaSSD(torch.autograd.Function):
+    """Autograd's view of the SSD scan: the kernel (or the plain chunked
+    form) forward, the recomputed plain chunked form's gradient
+    backward.  Saves only the inputs; either output's cotangent may be
+    absent (a training step never reads the final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, state, chunk):
+        if x.is_cuda:
+            y, h = mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+        else:
+            y, h = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, state,
+                                          chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D, state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        grads = ref.recomputed_vjp(
+            ref.mamba2_ssd_chunked, ctx.saved_tensors,
+            ctx.needs_input_grad[:7], (dy, dh), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def mamba2_ssd(x, dt, A, Bm, Cm, D=None, state=None, *, chunk: int = 128):
+    """Differentiable chunked SSD: ``(y in x's dtype, final state
+    (B,H,P,N) float32)``, the chunk ``min(chunk, max(T, 8))`` (the TPU
+    wrapper's rule) on both passes."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel and no plain path for tensors on "
+                         f"{x.device}")
+    return MambaSSD.apply(x, dt, A, Bm, Cm, D, state,
+                          min(chunk, max(x.shape[1], 8)))

@@ -13,8 +13,8 @@ from repro_torch.kernels import flash_vjp
 from repro_torch.kernels import preprocess as pp
 from repro_torch.kernels import ref
 from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
-from repro_torch.kernels.mamba2_ssd import mamba2_ssd_cuda
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+from repro_torch.kernels import mamba2_ssd as ssd
+from repro_torch.kernels import rwkv6_scan as wkv
 
 
 def _on_cuda(img: torch.Tensor) -> bool:
@@ -91,18 +91,17 @@ def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):
     """Chunked RWKV6 WKV scan: r/k/w (B,T,H,K), v (B,T,H,V) -> (y in r's
     dtype, final state (B,H,K,V) float32).  A CPU tensor takes the
     chunked closed form (what the JAX package runs off the TPU), a CUDA
-    tensor the WKV6 kernel (K5)."""
-    if not _on_cuda(r):
-        return ref.rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
-    return rwkv6_scan_cuda(r, k, v, w, u, state, chunk=chunk)
+    tensor the WKV6 kernel (K5); both under ``rwkv6_scan.RwkvWKV``, whose
+    backward differentiates the chunked form."""
+    return wkv.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
 
 
 # ---------------------------------------------------------------- mamba
 def mamba2_ssd(x, dt, A, Bm, Cm, D=None, state=None, *, chunk: int = 128):
     """Chunked Mamba2 SSD scan: x (B,T,H,P) -> (y in x's dtype, final
     state (B,H,P,N) float32).  The chunk follows the TPU wrapper's rule
-    ``min(chunk, max(T, 8))`` on both routes."""
-    chunk = min(chunk, max(x.shape[1], 8))
-    if not _on_cuda(x):
-        return ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, state, chunk=chunk)
-    return mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+    ``min(chunk, max(T, 8))`` on both routes: the kernel (K4) on a CUDA
+    tensor, the chunked form on a CPU tensor, both under
+    ``mamba2_ssd.MambaSSD``, whose backward differentiates the chunked
+    form."""
+    return ssd.mamba2_ssd(x, dt, A, Bm, Cm, D, state, chunk=chunk)

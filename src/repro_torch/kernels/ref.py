@@ -4,7 +4,8 @@ oracle each CUDA kernel is held against on the card.
 Every plain version of the JAX package's ``ref.py``: attention (naive,
 chunked online softmax and grouped single-token decode), the Gaussian
 blur, the RWKV6 WKV scan and the Mamba2 SSD scan (each sequential and
-chunked).
+chunked), and :func:`recomputed_vjp`, the backward of the scans'
+``autograd.Function`` classes.
 """
 from __future__ import annotations
 
@@ -378,3 +379,34 @@ def mamba2_ssd_chunked(
     if D is not None:
         y = y + D[None, None, :, None].to(f32) * x.to(f32)[:, :T]
     return y.to(x.dtype), h
+
+
+# ===================================================================
+# the scans' backward
+# ===================================================================
+def recomputed_vjp(plain, inputs, needs, cotangents, **kw) -> list:
+    """The gradients of ``plain(*inputs, **kw)`` for the inputs whose
+    ``needs`` flag is set (``None`` for the others, and for inputs that
+    are ``None``), against ``cotangents``, one per output (``None``: no
+    cotangent, read as zeros).  The plain version is recomputed under
+    ``torch.enable_grad()`` on detached copies of the inputs and
+    differentiated by ``torch.autograd.grad``: each gradient comes back
+    in its input's dtype.  The backward of the SSD and WKV6 Functions,
+    as the JAX package differentiates the same chunked forms by
+    autodiff off the TPU."""
+    leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip(inputs, needs)]
+    wrt = [t for t in leaves if t is not None and t.requires_grad]
+    if not wrt:
+        return [None] * len(leaves)
+    with torch.enable_grad():
+        outs = plain(*leaves, **kw)
+    pairs = [(o, g) for o, g in zip(outs, cotangents)
+             if g is not None and o.requires_grad]
+    grads = (torch.autograd.grad([o for o, _ in pairs], wrt,
+                                 [g for _, g in pairs], allow_unused=True)
+             if pairs else [None] * len(wrt))
+    found = dict(zip(map(id, wrt), grads))
+    return [None if t is None or not t.requires_grad
+            else (torch.zeros_like(t) if found[id(t)] is None
+                  else found[id(t)]) for t in leaves]

@@ -17,6 +17,16 @@ still.  The cumulative log-decays are a warp scan, the next sub-chunk
 is staged by ``cp.async`` while this one computes, and the tail stops
 at T (a 3-token call does one sub-chunk).  What bounds it on an H100 is
 its bytes.  The plain version is :func:`repro_torch.kernels.ref.rwkv6_chunked`.
+
+:func:`rwkv6_scan` is the differentiable route (``kernels/ops.py``
+takes it on both devices): a ``torch.autograd.Function`` whose forward
+is the kernel on a CUDA tensor and the plain chunked form on a CPU
+tensor, and whose backward recomputes the plain chunked form under
+autograd and differentiates it (:func:`ref.recomputed_vjp`), the
+gradient the JAX package takes of ``rwkv6_chunked_jnp`` off the TPU.
+The recompute takes the forward's mix of dtypes (a bfloat16 model's r,
+k, v and u beside float32 w), and each gradient comes back in its
+input's dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 launches = _build.LaunchCounter("rwkv6_scan")
 
@@ -111,3 +121,37 @@ def rwkv6_scan_cuda(
     _build.check(err, "rwkv6_scan")
     launches.add()
     return y, s_out
+
+
+class RwkvWKV(torch.autograd.Function):
+    """Autograd's view of the WKV6 scan: the kernel (or the plain
+    chunked form) forward, the recomputed plain chunked form's gradient
+    backward.  Saves only the inputs; either output's cotangent may be
+    absent (a training step never reads the final state)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        if r.is_cuda:
+            y, s = rwkv6_scan_cuda(r, k, v, w, u, state, chunk=chunk)
+        else:
+            y, s = ref.rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        grads = ref.recomputed_vjp(
+            ref.rwkv6_chunked, ctx.saved_tensors, ctx.needs_input_grad[:6],
+            (dy, ds), chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):
+    """Differentiable chunked WKV6: ``(y in r's dtype, final state
+    (B,H,K,V) float32)``."""
+    if r.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel and no plain path for tensors on "
+                         f"{r.device}")
+    return RwkvWKV.apply(r, k, v, w, u, state, chunk)

@@ -1,1 +1,3 @@
-"""Launchers: so far the model-serve launcher (``model_serve``)."""
+"""Launchers: model serving (``model_serve``), the wire front end
+(``serve``), training (``train``), meshes (``mesh``) and the input-spec
+stand-ins (``specs``)."""

@@ -6,9 +6,13 @@
 This is the device-side half of the query engine's model-UDF path: the
 engine's Thread_3 coalesces entities into request batches and this layer
 runs prefill once + a decode loop with a cache updated in place.  It
-runs on the CUDA card unless asked for the CPU (``--device cpu``), and
-on one device (``model_par=1``): meshes come with the distribution
-slice.
+runs on the CUDA card unless asked for the CPU (``--device cpu``).  The
+mesh is the JAX package's host mesh over the ranks of the default
+process group, ``model_par`` clamped to them: on one rank
+``model_par=2`` runs unsharded.  Several ranks serve data-parallel: each
+prefills and decodes its rows of the requests, and the generated tokens
+are gathered in request order.  Started by ``torchrun``, the launcher
+initialises the process group from its environment.
 """
 from __future__ import annotations
 
@@ -17,10 +21,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.core.boundary import resolve_device
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import ShardingCtx, local_rows
+from repro_torch.launch.mesh import make_host_mesh, process_group_from_env
 from repro_torch.models import get_model
 from repro_torch.models.registry import token_start
 from repro_torch.serving.serve_step import make_serve_fns, sample_token
@@ -40,55 +46,62 @@ def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
     port's seeded init.  Times are host wall clock around work that ends
     in a device synchronise; the first call of a process includes its
     one-time set-up (kernel library load, cuBLAS handles)."""
-    if model_par != 1:
-        raise NotImplementedError(
-            "model_par > 1 needs a mesh, which comes with the "
-            "training/distribution slice")
-    dev = resolve_device(device)
-    cfg = get_arch(arch, reduced=reduced)
-    sh = ShardingCtx(mesh=None)
-    model = get_model(cfg)
-    if params is None:
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
+    with process_group_from_env(device):
+        dev = resolve_device(device)
+        cfg = get_arch(arch, reduced=reduced)
+        mesh = make_host_mesh(model=model_par)
+        sh = ShardingCtx(mesh=mesh if mesh.size > 1 else None)
+        model = get_model(cfg)
+        if params is None:
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
 
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(1, cfg.vocab_size, (requests, prompt_len))
-    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
-    P = token_start(cfg)
-    if P:
-        batch["patch_embeds"] = torch.full((requests, P, cfg.d_model), 0.01,
-                                           device=dev)
-    if cfg.is_encoder_decoder:
-        batch["frames"] = torch.full(
-            (requests, cfg.encoder_seq_len, cfg.d_model), 0.01, device=dev)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(1, cfg.vocab_size, (requests, prompt_len))
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(dev)}
+        P = token_start(cfg)
+        if P:
+            batch["patch_embeds"] = torch.full((requests, P, cfg.d_model),
+                                               0.01, device=dev)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.full(
+                (requests, cfg.encoder_seq_len, cfg.d_model), 0.01,
+                device=dev)
+        n = mesh.batch_extent
+        split = n > 1 and requests % n == 0
+        if split:   # this rank's block of the requests
+            batch = local_rows(batch, n, dist.get_rank())
 
-    prefill_fn, serve_step = make_serve_fns(model, sh)
-    max_cache = P + prompt_len + gen + 1
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, batch, max_cache)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+        prefill_fn, serve_step = make_serve_fns(model, sh)
+        max_cache = P + prompt_len + gen + 1
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(params, batch, max_cache)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
 
-    gen_rng = None
-    if temperature > 0.0:
-        gen_rng = torch.Generator(device=dev).manual_seed(0)
-    tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
-    toks = []
-    t1 = time.perf_counter()
-    for i in range(gen):
-        toks.append(tok)
-        logits, cache = serve_step(params, tok, cache, P + prompt_len + i)
+        gen_rng = None
+        if temperature > 0.0:
+            gen_rng = torch.Generator(device=dev).manual_seed(0)
         tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
-    _sync(dev)
-    t_decode = time.perf_counter() - t1
-    out = torch.cat(toks, dim=1)
-    return {
-        "prefill_s": t_prefill,
-        "decode_s": t_decode,
-        "tokens_per_s": requests * gen / max(t_decode, 1e-9),
-        "generated": out.cpu().numpy(),
-    }
+        toks = []
+        t1 = time.perf_counter()
+        for i in range(gen):
+            toks.append(tok)
+            logits, cache = serve_step(params, tok, cache, P + prompt_len + i)
+            tok = sample_token(logits, gen_rng, temperature, cfg.vocab_size)
+        _sync(dev)
+        t_decode = time.perf_counter() - t1
+        out = torch.cat(toks, dim=1)
+        if split:   # every rank's rows, in request order
+            parts = [torch.empty_like(out) for _ in range(n)]
+            dist.all_gather(parts, out)
+            out = torch.cat(parts)
+        return {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "tokens_per_s": requests * gen / max(t_decode, 1e-9),
+            "generated": out.cpu().numpy(),
+        }
 
 
 def main():

@@ -3,14 +3,23 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 20
 
-It trains on the CUDA card unless asked for the CPU (``--device cpu``),
-on one device: the JAX package's production mesh and ``model_par > 1``
-come with the distribution slice.  Features: seeded init, the train
-step with remat and sequential microbatches, WSD/cosine/linear/constant
+It trains on the CUDA card unless asked for the CPU (``--device cpu``).
+The mesh is the JAX package's: the production mesh, or the host mesh
+over the ranks of the default process group with ``model_par`` clamped
+to them (on one rank ``model_par=2`` runs unsharded, as the reference
+runs it on one device).  Several ranks train data-parallel; a model
+axis above one rank needs tensor parallelism and raises.  Started by
+``torchrun``, the launcher initialises the process group from its
+environment (NCCL on the card, gloo on the CPU):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch qwen3-0.6b --reduced --device cpu --steps 20
+
+Every rank builds the same global batch and keeps its rows; only rank 0
+prints and writes checkpoints.  Features: seeded init, the train step
+with remat and sequential microbatches, WSD/cosine/linear/constant
 schedules, a prefetching loader, periodic atomic checkpoints and
-automatic restart from the latest one.  On the card an arch whose
-forward runs the Mamba2 SSD or RWKV6 WKV kernel (the hybrid and rwkv
-families) is refused up front: those kernels have no backward yet.
+automatic restart from the latest one.
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core.boundary import resolve_device
 from repro_torch.dataio import ShardedLoader, lm_token_stream
 from repro_torch.distributed.fault import TrainSupervisor
-from repro_torch.distributed.sharding import REPLICATED
+from repro_torch.distributed.sharding import ShardingCtx, default_rules
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     process_group_from_env, rank)
 from repro_torch.models import get_model
-from repro_torch.models.lm import family_kind
 from repro_torch.training import TrainConfig, make_train_step
 from repro_torch.training.train_step import init_train_state
 
@@ -63,64 +73,63 @@ def run(arch: str, *, reduced=True, steps=100, batch=8, seq=128,
     ``ckpt_dir``, if any).  Returns the losses and gradient norms, the
     step it started from, each step's wall time (host clock, to a
     device synchronise) and the total seconds."""
-    if mesh_kind == "production":
-        raise NotImplementedError(
-            "the production mesh comes with the distribution slice; "
-            "use mesh_kind='host'")
-    if model_par != 1:
-        raise NotImplementedError(
-            "model_par > 1 needs a mesh, which comes with the distribution "
-            "slice")
-    dev = resolve_device(device)
-    cfg = get_arch(arch, reduced=reduced)
-    if dev.type == "cuda" and family_kind(cfg) in ("hybrid", "rwkv"):
-        raise NotImplementedError(
-            f"{cfg.name}: the Mamba2 SSD and RWKV6 WKV kernels have no "
-            "backward on the card yet (a later kernel slice brings an "
-            "autograd.Function around each); train it with device='cpu'")
-    model = get_model(cfg)
-    tcfg = TrainConfig(learning_rate=lr, total_steps=steps,
-                       warmup_steps=max(steps // 20, 5), schedule=schedule,
-                       compute_dtype=compute_dtype,
-                       microbatches=microbatches, remat=True)
-    step_fn = make_train_step(model, tcfg, REPLICATED)
+    with process_group_from_env(device):
+        dev = resolve_device(device)
+        cfg = get_arch(arch, reduced=reduced)
+        mesh = (make_production_mesh() if mesh_kind == "production"
+                else make_host_mesh(model=model_par))
+        rules = dict(default_rules())
+        if cfg.sharding_overrides:
+            rules.update(cfg.sharding_overrides)
+        sh = ShardingCtx(mesh=mesh if mesh.size > 1 else None, rules=rules)
+        lead = rank() == 0
+        model = get_model(cfg)
+        tcfg = TrainConfig(learning_rate=lr, total_steps=steps,
+                           warmup_steps=max(steps // 20, 5),
+                           schedule=schedule, compute_dtype=compute_dtype,
+                           microbatches=microbatches, remat=True)
+        step_fn = make_train_step(model, tcfg, sh)
 
-    state = init_train_state(model, torch.Generator(device=dev).manual_seed(0))
-    start = 0
-    sup = None
-    if ckpt_dir:
-        sup = TrainSupervisor(ckpt_dir, save_every=save_every)
-        state, start = sup.resume(state)
-        if start:
-            print(f"[train] resumed from step {start}")
+        state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(0))
+        start = 0
+        sup = None
+        if ckpt_dir:
+            sup = TrainSupervisor(ckpt_dir, save_every=save_every)
+            state, start = sup.resume(state)
+            if start and lead:
+                print(f"[train] resumed from step {start}")
 
-    loader = ShardedLoader(make_batch_fn(cfg, batch, seq), start_step=start)
-    losses, grad_norms, step_s = [], [], []
-    t0 = time.time()
-    try:
-        for i, (_, np_batch) in zip(range(start, steps), loader):
-            t_step = time.perf_counter()
-            batch_t = {k: torch.from_numpy(v).to(dev)
-                       for k, v in np_batch.items()}
-            state, metrics = step_fn(state, batch_t)
-            loss = float(metrics["loss"])
-            _sync(dev)
-            step_s.append(time.perf_counter() - t_step)
-            losses.append(loss)
-            grad_norms.append(float(metrics["grad_norm"]))
-            if (i + 1) % log_every == 0 or i == start:
-                dt = time.time() - t0
-                print(f"[train] step {i+1}/{steps} loss={loss:.4f} "
-                      f"lr={float(metrics['lr']):.2e} "
-                      f"gnorm={float(metrics['grad_norm']):.2f} ({dt:.1f}s)")
-            if sup:
-                sup.maybe_save(i + 1, state)
-    finally:
-        loader.stop()
-    return {"losses": losses, "final_loss": losses[-1] if losses else None,
-            "grad_norms": grad_norms, "steps": len(losses),
-            "start_step": start, "step_s": step_s,
-            "seconds": time.time() - t0}
+        loader = ShardedLoader(make_batch_fn(cfg, batch, seq),
+                               start_step=start)
+        losses, grad_norms, step_s = [], [], []
+        t0 = time.time()
+        try:
+            for i, (_, np_batch) in zip(range(start, steps), loader):
+                t_step = time.perf_counter()
+                batch_t = {k: torch.from_numpy(v).to(dev)
+                           for k, v in np_batch.items()}
+                state, metrics = step_fn(state, batch_t)
+                loss = float(metrics["loss"])
+                _sync(dev)
+                step_s.append(time.perf_counter() - t_step)
+                losses.append(loss)
+                grad_norms.append(float(metrics["grad_norm"]))
+                if lead and ((i + 1) % log_every == 0 or i == start):
+                    dt = time.time() - t0
+                    print(f"[train] step {i+1}/{steps} loss={loss:.4f} "
+                          f"lr={float(metrics['lr']):.2e} "
+                          f"gnorm={float(metrics['grad_norm']):.2f} "
+                          f"({dt:.1f}s)")
+                if sup and lead:
+                    sup.maybe_save(i + 1, state)
+        finally:
+            loader.stop()
+        return {"losses": losses,
+                "final_loss": losses[-1] if losses else None,
+                "grad_norms": grad_norms, "steps": len(losses),
+                "start_step": start, "step_s": step_s,
+                "seconds": time.time() - t0, "rank": rank()}
 
 
 def main():
@@ -146,7 +155,9 @@ def main():
               mesh_kind=a.mesh, model_par=a.model_par,
               microbatches=a.microbatches, compute_dtype=a.dtype,
               schedule=a.schedule, device=a.device)
-    print(f"[train] done: {out['steps']} steps, final loss {out['final_loss']:.4f}")
+    if out["rank"] == 0:
+        print(f"[train] done: {out['steps']} steps, final loss "
+              f"{out['final_loss']:.4f}")
 
 
 if __name__ == "__main__":

@@ -120,6 +120,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     return {"k": z(max_seq), "v": z(max_seq), "xk": z(Se), "xv": z(Se)}
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_cache`'s tree."""
+    kv = ("layers", "batch", "cache_seq", "cache_heads", None)
+    enc_kv = ("layers", "batch", None, "cache_heads", None)
+    return {"k": kv, "v": kv, "xk": enc_kv, "xv": enc_kv}
+
+
 def prefill(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
             max_cache: int, cache_dtype=None) -> tuple[torch.Tensor, dict]:
     """Encode the frames + prefill the decoder tokens -> (last logits

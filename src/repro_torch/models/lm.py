@@ -197,6 +197,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     }
 
 
+def cache_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of every leaf of :func:`init_cache`'s tree."""
+    kind = family_kind(cfg)
+    kv_ax = ("layers", "batch", "cache_seq", "cache_heads", None)
+    if kind == "tblock":
+        return {"k": kv_ax, "v": kv_ax}
+    if kind == "rwkv":
+        return {"tm_x": ("layers", "batch", "embed"),
+                "cm_x": ("layers", "batch", "embed"),
+                "wkv": ("layers", "batch", "ssm_heads", None, None)}
+    return {
+        "conv": ("layers", "layers", "batch", None, "ssm_inner"),
+        "ssm": ("layers", "layers", "batch", "ssm_heads", None, None),
+        "k": kv_ax, "v": kv_ax,
+    }
+
+
 # ======================================================================
 # embedding / head
 # ======================================================================

@@ -15,8 +15,11 @@ combine puts each assignment's contribution back in its token's order
 (the inverse of the sort) and sums the ``K`` of a token, so the result
 does not depend on the order of atomic adds.
 
-Expert parallelism over a mesh (the reference's
-``apply_moe_ep_shardmap``) comes with the distribution slice.
+Expert parallelism over a mesh's model axis (the reference's
+``apply_moe_ep_shardmap``) is not ported: a mesh runs data parallelism
+only (``ShardingCtx`` refuses a model axis above one rank), where each
+rank routes its own rows over replicated experts, its capacity and aux
+loss counted over those rows.
 """
 from __future__ import annotations
 
@@ -96,10 +99,6 @@ def dispatch(top_e: torch.Tensor, E: int, C: int):
 def apply_moe(p: dict, x: torch.Tensor, *, cfg: ArchConfig, sh: ShardingCtx,
               capacity_factor: float | None = None):
     """Returns (output (B,S,D), aux load-balancing loss scalar)."""
-    if sh.mesh is not None:
-        raise NotImplementedError(
-            "expert parallelism over a mesh comes with the distribution "
-            "slice")
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S

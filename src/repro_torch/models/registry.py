@@ -3,8 +3,8 @@
 ``get_model(cfg)`` returns callables the serving and launch layers use
 without knowing the family (dense, moe, vlm, rwkv, hybrid or the
 encoder-decoder): init / forward / loss / prefill / decode_step /
-init_cache, and the logical-axis tree of the parameters (what the
-sharding rules map onto a mesh).  A ``vit_stub`` model's batch carries
+init_cache, and the logical-axis trees of the parameters and of the
+cache (what the sharding rules map onto a mesh).  A ``vit_stub`` model's batch carries
 ``patch_embeds`` (B, P, d), an encoder-decoder's ``frames`` (B, Se, d).
 """
 from __future__ import annotations
@@ -29,6 +29,7 @@ class ModelAPI:
     prefill: Callable[..., tuple[torch.Tensor, dict]]
     decode_step: Callable[..., tuple[torch.Tensor, dict]]
     init_cache: Callable[..., dict]
+    cache_axes: Callable[[], dict]
 
 
 def token_start(cfg: ArchConfig) -> int:
@@ -83,7 +84,8 @@ def _lm_api(cfg: ArchConfig) -> ModelAPI:
 
     return ModelAPI(cfg=cfg, init=init, param_axes=lambda: lm.lm_axes(cfg),
                     forward=forward, loss=loss, prefill=prefill,
-                    decode_step=decode_step, init_cache=init_cache)
+                    decode_step=decode_step, init_cache=init_cache,
+                    cache_axes=lambda: lm.cache_axes(cfg))
 
 
 # ------------------------------------------------------------- enc-dec
@@ -116,4 +118,5 @@ def _encdec_api(cfg: ArchConfig) -> ModelAPI:
     return ModelAPI(cfg=cfg, init=init,
                     param_axes=lambda: encdec.encdec_axes(cfg),
                     forward=forward, loss=loss, prefill=prefill,
-                    decode_step=decode_step, init_cache=init_cache)
+                    decode_step=decode_step, init_cache=init_cache,
+                    cache_axes=lambda: encdec.cache_axes(cfg))

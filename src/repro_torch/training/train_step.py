@@ -13,12 +13,24 @@ The step updates the state's tensors in place and returns the same
 state, as the JAX package's launcher donates it to its jitted step: at
 full width a second copy of the parameters and both moments would not
 fit beside the first.
+
+Data parallelism: on a mesh of several ranks (``sh.mesh``, whose model
+axis is 1) each rank takes its rows of each microbatch, the rows the
+reference's ``"batch" -> ("pod", "data")`` sharding puts on its data
+index (every row when they do not split evenly, as the reference's
+divisibility demotion replicates them).  Each rank's gradients, loss
+and metrics are weighted by its share of the microbatch's tokens and
+summed over the ranks after the float32 accumulation, before the
+``grad_reduce_dtype`` rounding; clipping and AdamW then run alike on
+every rank.  The result is one rank's step on the global batch, up to
+the order of the sums.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import ShardingCtx, local_rows
 from repro_torch.models.lm import tree_leaves, tree_like, tree_map
 from repro_torch.models.registry import ModelAPI
 from repro_torch.training.optimizer import (
@@ -66,29 +78,36 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
 
+    dp = _DataParallel.of(sh)
+
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         step = int(state["step"]) + 1
         mb = max(int(tcfg.microbatches), 1)
-        if mb == 1:
-            loss, metrics, grads = value_and_grad(state["params"], batch)
-        else:
-            # sequential microbatches: gradients accumulate in float32 and
-            # the remat residuals only ever hold B/mb sequences
-            grads, loss = None, 0.0
-            for i in range(mb):
-                part = {k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
-                        for k, v in batch.items()}
-                l, metrics, g = value_and_grad(state["params"], part)
-                if grads is None:
-                    grads = [x.to(f32) for x in g]
-                else:
-                    for acc, x in zip(grads, g):
-                        acc.add_(x.to(f32))
-                loss = loss + l
-                del g
+        # sequential microbatches: gradients accumulate in float32 and
+        # the remat residuals only ever hold B/mb sequences
+        grads, loss = None, 0.0
+        for i in range(mb):
+            part = batch if mb == 1 else {
+                k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
+                for k, v in batch.items()}
+            if dp is not None:
+                part = local_rows(part, dp.n, dp.index)
+            l, metrics, g = value_and_grad(state["params"], part)
+            if dp is not None:
+                l, metrics, g = dp.weigh(l, metrics, g)
+            if grads is None:
+                grads = g if mb == 1 else [x.to(f32) for x in g]
+            else:
+                for acc, x in zip(grads, g):
+                    acc.add_(x.to(f32))
+            loss = loss + l
+            del g
+        if mb > 1:
             for g in grads:
                 g.div_(mb)
             loss = loss / mb
+        if dp is not None:
+            loss, metrics = dp.reduce(grads, loss, metrics)
         if tcfg.grad_reduce_dtype != "float32":
             grads = [g.to(rdtype) for g in grads]
 
@@ -110,3 +129,44 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
         return state, metrics
 
     return train_step
+
+
+class _DataParallel:
+    """This rank's share of a data-parallel step over the default
+    process group (the mesh's ranks; its model axis is 1, so its batch
+    extent is every rank)."""
+
+    def __init__(self, n: int, index: int):
+        self.n, self.index = n, index
+
+    @classmethod
+    def of(cls, sh: ShardingCtx):
+        mesh = sh.mesh
+        if mesh is None or mesh.size == 1:
+            return None
+        if mesh.device_mesh is None:
+            raise ValueError(f"a mesh of {mesh.size} ranks needs its "
+                             "DeviceMesh (a process group of that size)")
+        return cls(mesh.batch_extent, dist.get_rank())
+
+    def weigh(self, loss, metrics, grads):
+        """Scale this rank's loss, ``ce``, ``aux`` and gradients by its
+        share of the microbatch's tokens; ``ntok`` becomes the
+        microbatch's."""
+        ntok = metrics["ntok"].detach().clone()
+        dist.all_reduce(ntok)
+        w = metrics["ntok"] / ntok
+        metrics = dict(metrics, ce=metrics["ce"] * w, aux=metrics["aux"] * w,
+                       ntok=ntok)
+        for g in grads:
+            g.mul_(w.to(g.dtype))
+        return loss * w, metrics, grads
+
+    def reduce(self, grads, loss, metrics):
+        """Sum the weighted gradients, loss and metrics over the ranks."""
+        for g in grads:
+            dist.all_reduce(g)
+        sums = torch.stack([loss, metrics["ce"], metrics["aux"]]).to(
+            torch.float32)
+        dist.all_reduce(sums)
+        return sums[0], dict(metrics, ce=sums[1], aux=sums[2])

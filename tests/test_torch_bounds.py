@@ -25,6 +25,10 @@ def _ssd(B, T, H, P, G, N, itemsize, dtype):
     return cs.bound(*cs.ssd_work(B, T, H, P, G, N, itemsize), dtype)
 
 
+def _grad(work, *args, dtype):
+    return cs.bound(*work(*args), dtype)
+
+
 def _blur(shape, ksize):
     nbytes, flops = cs.blur_work(shape, ksize)
     return cs.bound(nbytes, 0, flops, F32)
@@ -90,6 +94,17 @@ def _preprocess(shape=(32, 250, 250, 3), kw=None):
     ("K2 (1,1080,1920,3) lanczos3 to 8x8", 0.007450, "bytes"),
     # K1 at C1's IQ3: one 64x64 face a launch in the remote servers
     ("K1 (1,64,64,3) k5", 0.000029, "bytes"),
+    # forward + backward at the training shapes: K3 at qwen3's
+    # microbatch (f32) and minicpm's (bf16), 14D a visible pair and head;
+    # K3 at zamba2's shared attention (1,4096,32,80) f32; K4 at zamba2's
+    # (1,4096,80,64) f32, 14NP a step; K5 at rwkv6's (2,4096,32,64) in
+    # bf16 and f32, whose bytes outlast its 14KV a step
+    ("K3 fwd+bwd f32 (2,4096,16,8,128)", 2.916084, "products"),
+    ("K3 fwd+bwd bf16 (1,4096,36,64)", 0.273659, "products"),
+    ("K3 fwd+bwd f32 (1,4096,32,80)", 1.822552, "products"),
+    ("K4 fwd+bwd f32 (1,4096,80,64)", 0.114899, "products"),
+    ("K5 fwd+bwd bf16 (2,4096,32,64)", 0.120200, "bytes"),
+    ("K5 fwd+bwd f32 (2,4096,32,64)", 0.200330, "bytes"),
 ])
 def test_bound_of_each_kernel_row(row, want_ms, want_by):
     got = {
@@ -123,6 +138,21 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
         "K2 (1,1080,1920,3) lanczos3 to 8x8": lambda: _preprocess(
             (1, 1080, 1920, 3), cs.K2_WIDE),
         "K1 (1,64,64,3) k5": lambda: _blur((1, 64, 64, 3), 5),
+        "K3 fwd+bwd f32 (2,4096,16,8,128)": lambda: _grad(
+            cs.attn_grad_work, 2, 4096, 4096, 16, 8, 128, 0, True, 4,
+            dtype=F32),
+        "K3 fwd+bwd bf16 (1,4096,36,64)": lambda: _grad(
+            cs.attn_grad_work, 1, 4096, 4096, 36, 36, 64, 0, True, 2,
+            dtype=BF16),
+        "K3 fwd+bwd f32 (1,4096,32,80)": lambda: _grad(
+            cs.attn_grad_work, 1, 4096, 4096, 32, 32, 80, 0, True, 4,
+            dtype=F32),
+        "K4 fwd+bwd f32 (1,4096,80,64)": lambda: _grad(
+            cs.ssd_grad_work, 1, 4096, 80, 64, 1, 64, 4, dtype=F32),
+        "K5 fwd+bwd bf16 (2,4096,32,64)": lambda: _grad(
+            cs.wkv_grad_work, 2, 4096, 32, 64, 64, 2, dtype=BF16),
+        "K5 fwd+bwd f32 (2,4096,32,64)": lambda: _grad(
+            cs.wkv_grad_work, 2, 4096, 32, 64, 64, 4, dtype=F32),
     }[row]()
     assert got[1] == want_by
     assert got[0] == pytest.approx(want_ms, abs=5e-7)
@@ -167,3 +197,35 @@ def test_scans_count_their_products_per_step():
     _, products, other = cs.wkv_work(16, 512, 32, 64, 64, 2)
     assert products == 4 * 64 * 64 * 16 * 512 * 32
     assert other == (64 * 64 + 3 * 64 + 2 * 64) * 16 * 512 * 32
+
+
+@pytest.mark.parametrize("arch,batch,dtype,tflop,least_ms", [
+    ("qwen3-0.6b", 4, F32, 107.674696, 652.573915),
+    ("minicpm-2b", 1, BF16, 100.892179, 102.014337),
+    ("zamba2-2.7b", 1, F32, 108.258184, 656.110208),
+    ("rwkv6-1.6b", 4, BF16, 188.531884, 190.628801),
+])
+def test_train_step_products_of_each_family(arch, batch, dtype, tflop,
+                                            least_ms):
+    """A remat training step's products at 4,096 tokens a row (the least
+    step times of ``PERF.md`` §5): dense blocks; zamba2's Mamba2 layers,
+    their scans (18NP a step: forward, recompute, backward) and its
+    shared attention at each of 9 applications; rwkv6's time and channel
+    mix and its scans (18KV a step)."""
+    from repro_torch.configs import get_arch
+    products = cs.train_step_products(get_arch(arch), batch, 4096)
+    assert products / 1e12 == pytest.approx(tflop, abs=5e-7)
+    assert products / cs.PRODUCT_FLOP_S[dtype] * 1e3 == pytest.approx(
+        least_ms, abs=5e-6)
+
+
+def test_scan_gradients_count_their_products_per_step():
+    """Forward 4NP (4KV) and backward 10NP (10KV) a step, with SSD's
+    C·B and x terms on both passes."""
+    B, T, H, P, N = 1, 4096, 80, 64, 64
+    _, products, _ = cs.ssd_grad_work(B, T, H, P, 1, N, 4)
+    assert products == (4 * N + 4 * P + 14 * N * P) * B * T * H
+    _, fwd, _ = cs.ssd_work(B, T, H, P, 1, N, 4)
+    assert products - fwd == (2 * N + 2 * P + 10 * N * P) * B * T * H
+    _, products, _ = cs.wkv_grad_work(2, 4096, 32, 64, 64, 2)
+    assert products == 14 * 64 * 64 * 2 * 4096 * 32

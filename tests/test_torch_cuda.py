@@ -20,6 +20,13 @@ float32 from the same inputs and round the output once, so they may
 land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
 sixth of a typical output (about 0.03 for a row over 4096 keys).
 
+K4's and K5's autograd Functions: the forward within the kernel's own
+tolerance above, the gradients within 1e-5 of each gradient's largest
+magnitude of autograd through the plain chunked form on the card (the
+same float32 backward; a bfloat16 gradient one bfloat16 step, 2^-7
+relative, beyond that).  Reduced zamba2 and rwkv6 trained on the card
+agree with the host in loss (1e-5) and gradient norm (1e-4).
+
 Reduced granite-moe, whisper and internvl2 on the card agree with the
 same model on the host to 3e-4 (the JAX package's tolerance between
 its prefill or decode and its forward).
@@ -946,9 +953,104 @@ def test_kernels_without_a_backward_refuse_a_gradient(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
 def test_train_launcher_refuses_the_scan_families_on_the_card(cuda, arch):
+    """No longer refused: the launcher trains the hybrid and rwkv
+    families on the card, K4 or K5 forward and under remat beneath their
+    Functions' backward; and one step from one state (the host's, copied
+    to the card: the card's generator draws other numbers) agrees with
+    the same step on the host in loss (1e-5 relative) and gradient norm
+    (1e-4: float32 sums in other orders, the kernels' 3xTF32 products of
+    about 22 bits)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import REPLICATED
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="no backward on the card"):
-        train.run(arch, reduced=True, steps=1, batch=1, seq=8)
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_map
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train_step import init_train_state
+    counter = (mamba2_ssd if arch == "zamba2-2.7b" else rwkv6_scan).launches
+    cfg = get_arch(arch, reduced=True)
+    before = counter.count
+    run = train.run(arch, reduced=True, steps=2, batch=2, seq=24,
+                    log_every=100)
+    assert counter.count - before == 2 * 2 * cfg.num_layers  # fwd + remat
+    assert np.isfinite(run["losses"]).all()
+    api = get_model(cfg)
+    step = make_train_step(api, TrainConfig(
+        compute_dtype="float32", grad_reduce_dtype="float32"), REPLICATED)
+    host = init_train_state(api, torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(cuda, copy=True), host)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    card, mc = step(card, {"tokens": toks.to(cuda)})
+    host, mh = step(host, {"tokens": toks})
+    np.testing.assert_allclose(float(mc["loss"]), float(mh["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mc["grad_norm"]),
+                               float(mh["grad_norm"]), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,with_state", [
+    ("ssd", torch.float32, False), ("ssd", torch.float32, True),
+    ("ssd", torch.bfloat16, False), ("wkv", torch.float32, False),
+    ("wkv", torch.float32, True), ("wkv", torch.bfloat16, False)])
+def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
+                                                             dtype,
+                                                             with_state):
+    """K4's and K5's Functions on the card: the forward is the kernel
+    (one launch, output within the kernel's own tolerance of the plain
+    version), the backward launches nothing and equals autograd through
+    the plain chunked form on the same tensors (the same float32
+    backward: 1e-5 of each gradient's largest magnitude; a bfloat16
+    gradient one bfloat16 step, 2^-7 relative, beyond that), each
+    gradient in its input's dtype."""
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    if kind == "ssd":
+        x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(7, 2, 300, 8, 64, 2, 64, cuda,
+                                              dtype)
+        inputs = [x, dt, A, Bm, Cm, D] + ([h0] if with_state else [])
+        counter = mamba2_ssd.launches
+
+        def fn(*t):
+            return mamba2_ssd.mamba2_ssd(*t)
+
+        def plain(*t):
+            return ref.mamba2_ssd_chunked(*t)
+        tol = (SSD_TOL, 0.0) if dtype == torch.float32 else (SSD_BF16_ATOL,
+                                                             SSD_BF16_RTOL)
+    else:
+        r, k, v, w, u, s0 = _wkv_inputs(7, 2, 300, 8, 64, cuda, dtype)
+        inputs = [r, k, v, w, u] + ([s0] if with_state else [])
+        counter = rwkv6_scan.launches
+        fn, plain = rwkv6_scan.rwkv6_scan, ref.rwkv6_chunked
+        tol = (WKV_TOL, 0.0) if dtype == torch.float32 else (SSD_BF16_ATOL,
+                                                             SSD_BF16_RTOL)
+    rng = np.random.default_rng(8)
+    dy = torch.from_numpy(rng.standard_normal(tuple(inputs[0].shape))
+                          .astype(np.float32)).to(cuda, dtype)
+    dh = torch.from_numpy(rng.standard_normal(
+        (2, 8, 64, 64)).astype(np.float32)).to(cuda)
+
+    def run(forward):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        y, h = forward(*leaves)
+        outs, cts = ([y, h], [dy, dh]) if with_state else ([y], [dy])
+        return y.detach(), torch.autograd.grad(outs, leaves, cts)
+
+    before = counter.count
+    y, got = run(fn)
+    assert counter.count == before + 1
+    y_p, want = run(plain)
+    assert counter.count == before + 1
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol[0],
+                               rtol=tol[1])
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == inputs[i].dtype
+        top = float(w.float().abs().max())
+        rtol = 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(g.float(), w.float(), atol=1e-5 * top,
+                                   rtol=rtol, msg=f"gradient {i}")
 
 
 @pytest.mark.cuda

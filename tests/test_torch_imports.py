@@ -41,6 +41,11 @@ TRAINING = {"repro_torch.training", "repro_torch.training.optimizer",
             "repro_torch.launch.train", "repro_torch.kernels.flash_vjp",
             "repro_torch.configs.minicpm_2b", "repro_torch.configs.granite_8b",
             "repro_torch.configs.qwen1p5_32b"}
+# the distribution slice's modules
+DISTRIBUTION = {"repro_torch.distributed", "repro_torch.distributed.sharding",
+                "repro_torch.distributed.compression",
+                "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.model_serve"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
@@ -54,6 +59,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     walked = set(names.split(","))
     assert SCALE_OUT <= walked, SCALE_OUT - walked
     assert TRAINING <= walked, TRAINING - walked
+    assert DISTRIBUTION <= walked, DISTRIBUTION - walked
     assert bad == "[]", bad
     # chip_smoke.main's own imports, as listed there
     for path in ("chip_smoke.py", os.path.join("benchmarks",

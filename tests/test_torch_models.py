@@ -457,21 +457,21 @@ def test_group_batcher_matches_sequential_greedy():
 
 # ------------------------------------------------- what is not ported
 def test_unported_paths_raise_instead_of_running_something_else():
-    """What is still to come (meshes, ``model_par > 1``, the production
-    mesh) raises and names its slice; an unknown arch raises.  Every
-    assigned architecture is ported: the dense configs minicpm-2b,
-    granite-8b and qwen1.5-32b are parity cases of ``ARCHS``."""
+    """What is still to come raises and names its slice: a mesh whose
+    model axis is above one rank needs tensor parallelism, and the
+    production mesh needs its 256 ranks; an unknown arch raises.  Every
+    assigned architecture is ported (the dense configs minicpm-2b,
+    granite-8b and qwen1.5-32b are parity cases of ``ARCHS``), and
+    ``model_par=2`` on one rank runs unsharded (the reference's clamp,
+    held in ``tests/test_torch_training.py``)."""
+    from repro_torch.distributed.sharding import Mesh
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        ShardingCtx(mesh=object())
-    from repro_torch.launch.model_serve import run
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        run("qwen3-0.6b", model_par=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
+        ShardingCtx(mesh=Mesh(("data", "model"), (2, 2)))
+    assert ShardingCtx(mesh=Mesh(("data", "model"), (4, 1))).mesh.size == 4
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        train.run("qwen3-0.6b", model_par=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(ValueError, match="256 ranks"):
         train.run("qwen3-0.6b", mesh_kind="production", device="cpu")
     cfg = get_arch("qwen3-0.6b", reduced=True)
     with pytest.raises(ValueError, match="top-level keys"):

@@ -111,6 +111,38 @@ def test_phase_10_rehearsed_on_the_cpu():
                                                     "scaleout_k2"]
 
 
+def test_phase_16_rehearsed_on_the_cpu():
+    """Phase 16 on reduced configs: zamba2 cut to 2 hybrid groups, host
+    against host (the card's copy is a CPU copy), both families through
+    ``launch.train.run``, and every leaf's gradient of rwkv6 cut to 2
+    layers finite and not all zero."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    launches = {"flash_attention": fa.launches,
+                "mamba2_ssd": mamba2_ssd.launches,
+                "rwkv6_scan": rwkv6_scan.launches}
+    out = cs.phase_scan_training(launches, device="cpu", reduced=True,
+                                 seq=40, host_seq=24)
+    assert out["card_vs_host"]["loss_rel"] == 0.0
+    assert out["card_vs_host"]["grad_norm_rel"] == 0.0
+    assert len(out["zamba2"]["losses"]) == len(out["rwkv6"]["losses"]) == 2
+    norms = out["rwkv6_leaves"]["leaf_grad_norms"]
+    assert all(0.0 < v < float("inf") for v in norms.values())
+    assert any(k.endswith("/u") for k in norms)
+
+
+def test_phase_17_rehearsed_on_the_cpu():
+    """Phase 17 through a one-rank gloo group in place of NCCL: the
+    clamp, the int8 mean and error feedback against numpy (exact on the
+    CPU), remesh onto the one-rank mesh; the group is destroyed."""
+    out = cs.phase_distribution(device="cpu")
+    assert out["psum_err"] == 0.0 and out["error_feedback_err"] == 0.0
+    assert out["backend"] == "gloo" and out["remeshed_leaves"] > 0
+    assert not torch.distributed.is_initialized()
+    losses = out["train_model_par"]["losses"]
+    assert losses[0] == losses[1]
+
+
 def test_phase_15_rehearsed_on_the_cpu():
     """Phase 15's four parts on reduced configs: card-against-host
     becomes host against host, the resumed run must match the straight

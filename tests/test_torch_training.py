@@ -419,11 +419,28 @@ def test_launcher_trains_and_restarts_from_its_checkpoint():
 
 
 def test_launcher_refusals_name_their_slice():
+    """The launcher builds the reference's meshes: ``model_par=2``
+    without a process group is clamped to the one rank and trains
+    exactly as ``model_par=1`` does; the production mesh raises, naming
+    the ranks it needs; the hybrid and rwkv families are no longer
+    refused (their scans have a backward on every device), and train
+    here as on the card."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    kw = dict(reduced=True, steps=2, batch=2, seq=16, device="cpu")
+    one = train.run("qwen3-0.6b", model_par=1, **kw)
+    two = train.run("qwen3-0.6b", model_par=2, **kw)
+    assert one["losses"] == two["losses"]
+    assert one["grad_norms"] == two["grad_norms"]
+    with pytest.raises(ValueError, match="256 ranks"):
         train.run("qwen3-0.6b", mesh_kind="production", device="cpu")
-    with pytest.raises(NotImplementedError, match="distribution slice"):
-        train.run("qwen3-0.6b", model_par=2, device="cpu")
+    with pytest.raises(ValueError, match="512 ranks"):
+        from repro_torch.launch.mesh import make_production_mesh
+        make_production_mesh(multi_pod=True)
+    src = open(train.__file__).read()
+    assert "family_kind" not in src and "no backward" not in src
+    for arch in ("zamba2-2.7b", "rwkv6-1.6b"):
+        r = train.run(arch, **kw)
+        assert r["steps"] == 2 and all(np.isfinite(r["losses"]))
 
 
 def test_loader_prefetches_in_order_and_stops():
