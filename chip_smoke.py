@@ -128,8 +128,24 @@ Phases (any failed check exits non-zero, before the result line):
    qwen3-0.6b at ``model_par=2`` equal their ``model_par=1`` runs bit
    for bit; through a one-rank NCCL group, the int8 compressed mean,
    its reducer and error feedback against their numpy formulas, and
-   ``remesh_tree`` of a train state onto the one-card mesh.  Multi-rank
-   results come from the CPU gloo tests only.
+   ``remesh_tree`` of a train state onto the one-card mesh;
+18. tensor and expert parallelism with two ranks sharing the card (two
+   processes in a gloo group over a file store under ``build/``, CUDA
+   tensors on the one card; NCCL takes no two ranks on one card), each
+   run at ``model_par=2`` against the same run at ``model_par=1`` in
+   the parent: ``model_serve.run`` of qwen3-0.6b and zamba2-2.7b (2 x
+   1,536 tokens + 15 generated, 1,552 slots: the caches split by
+   slots, decode combining the ranks' partial softmaxes) and of
+   rwkv6-1.6b (4 x 512 + 4), granite-moe-1b-a400m's ``prefill`` under
+   its prefill rules (the EP route: 16 experts a rank, 2 x 1,536 at
+   capacity factor E/K), one ``train.run`` step of qwen3-0.6b (1 x
+   2,048, float32) and zamba2's ``prefill`` under its
+   ``sharding_overrides`` (1 x 1,536: the cache split by heads); at
+   full depth.  Logits within ``LOGIT_TOL``, the greedy tokens equal,
+   loss and gradient norm within 1e-5 and 1e-4 relative; each rank's
+   K3, K4 and K5 launches, peak memory and parameter bytes (equal to
+   what the reference's rules give, ``tp_runs``' ``param_bytes``), and
+   the walls.
 
 Phase 5 also holds K4's and K5's Functions (forward + backward) at the
 training shapes of phase 16 against autograd through the plain chunked
@@ -139,12 +155,15 @@ attention, with times and bounds.
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
 zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15,
-16, 9 and 10 (run in that order, phase 17 after 16) and read just after
-it (phase 6 must have launched K4, and K3 past 1024 slots; phase 7 K5;
-phases 8 and 11–15 K3; phase 16 K3, K4 and K5; phase 9 K1 and K2;
-phase 10 K1).  K1's and K2's launches in the kernels line are the sum
-over phases 2–4, 9 and 10, K3's over phases 6–8 and 11–16, K4's over
-phases 6 and 16, K5's over phases 7 and 16.
+16, 9 and 10 (run in that order, phases 17 and 18 after 16) and read
+just after it (phase 6 must have launched K4, and K3 past 1024 slots;
+phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5; phase 9 K1
+and K2; phase 10 K1).  Phase 18's ranks zero their own counts before
+each run and read them after it (each run's kernels must have launched
+on each rank); the parent's ``model_par=1`` runs, the comparison, count
+in none.  K1's and K2's launches in the kernels line are the sum over
+phases 2–4, 9 and 10, K3's over phases 6–8, 11–16 and 18, K4's over
+phases 6, 16 and 18, K5's over phases 7, 16 and 18.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
 limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -196,6 +215,8 @@ K4_BF16_ATOL, K4_BF16_RTOL = 5e-2, 2.0 ** -7
 # the JAX package's 3e-4 at reduced width, widened for 54 layers of
 # float32 products of length up to 10240 summed in other orders
 MODEL_TOL = 1e-3
+LOGIT_TOL = 3e-4     # tests/test_torch_models.py's: model_par=2 vs 1
+TP_LOSS_RTOL, TP_NORM_RTOL = 1e-5, 1e-4
 # WKV6 kernel vs plain, float32, absolute: sums over 64 steps of decayed
 # products in another order, on outputs up to about 10
 K5_TOL = 5e-4
@@ -1230,6 +1251,24 @@ def phase_kernels():
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
                                torch.float32))
     rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32))
+    # K4's forward alone at phase 16's training shape (1 x 4,096, 80
+    # heads of 64), then the shapes each rank of phase 18 launches
+    # (model_par=2): qwen3-0.6b's prefill (2 x 1,536 rows, 8 q and 4 kv
+    # heads of 128; the cache split by slots, so the keys are the new
+    # prefix), zamba2-2.7b's shared attention (16 heads of 80) and SSD
+    # (40 heads), rwkv6-1.6b's WKV (4 x 512, 16 heads), granite-moe's
+    # attention (8 and 4 heads of 64), qwen3's train step (1 x 2,048:
+    # K3 forward, then forward + recomputing backward) and zamba2's
+    # prefill into a cache split by heads (1 x 1,536 rows, 1,537 slots)
+    rows.append(ssd_case(1, 4096, 80, 64, 1, 64))
+    rows.append(attn_case(2, 1536, 1536, 8, 4, 128, library=True))
+    rows.append(attn_case(2, 1536, 1536, 16, 16, 80, library=True))
+    rows.append(ssd_case(2, 1536, 40, 64, 1, 64))
+    rows.append(wkv_case(4, 512, 16, 64))
+    rows.append(attn_case(2, 1536, 1536, 8, 4, 64, library=True))
+    rows.append(attn_case(1, 2048, 2048, 8, 4, 128, library=True))
+    rows.append(attn_grad_case(1, 2048, 8, 4, 128, torch.float32))
+    rows.append(attn_case(1, 1536, 1537, 16, 16, 80, library=True))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -1335,6 +1374,7 @@ def serve_once(arch, reduced, requests, prompt_len, gen, device, vocab,
                         prompt_len=prompt_len, gen=gen, device=device,
                         params=params)
     gen_toks = r.pop("generated")
+    r.pop("logits")
     r["generated_ok"] = bool(gen_toks.shape == (requests, gen)
                              and (gen_toks >= 0).all()
                              and (gen_toks < vocab).all())
@@ -2038,8 +2078,9 @@ def phase_distribution(device="cuda"):
     the end): the int8 compressed mean and the reducer on a (1, 7·5)
     leaf and two steps of error feedback against their numpy formulas,
     and ``remesh_tree`` of a qwen3 train state onto the one-card mesh.
-    Multi-rank runs are the CPU ``gloo`` tests' only: the script runs
-    on one card, and NCCL takes no two ranks on one card."""
+    Runs over several ranks are phase 18's (two gloo ranks sharing the
+    card: NCCL takes no two ranks on one card) and the CPU gloo
+    tests'."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2145,11 +2186,335 @@ def phase_distribution(device="cuda"):
         dist.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
-    print("  multi-rank results (the 8-rank reducer, the 4-rank "
-          "data-parallel train.run, the 2-rank model_serve.run, remesh on "
-          "a 2 x 2 mesh) come from the CPU gloo tests only "
-          "(tests/test_torch_distributed_ranks.py): this script runs on one "
-          "card", flush=True)
+    print("  the 8-rank reducer, the 4-rank data-parallel train.run and "
+          "remesh on a 2 x 2 mesh are the CPU gloo tests' "
+          "(tests/test_torch_distributed_ranks.py); two ranks on this card "
+          "run in phase 18", flush=True)
+    return out
+
+
+# ---- phase 18: tensor and expert parallelism, two ranks on one card
+TP_RANKS = 2
+TP_TIMEOUT_S = 600
+
+
+def tp_runs(reduced=False) -> list[dict]:
+    """Phase 18's runs at ``model_par=2``: ``kind`` serve goes through
+    ``launch.model_serve.run`` (default rules), prefill through the
+    model's ``prefill`` (the rules named), train through
+    ``launch.train.run``; ``kernels`` are those each rank must launch;
+    ``param_bytes`` is what a rank's float32 parameter shards hold at
+    ``model_par=2`` by the reference's rules and spec arithmetic
+    (``tests/test_torch_tensor_parallel.py`` derives each from the JAX
+    package).  ``reduced`` gives the CPU rehearsal's sizes."""
+    if reduced:
+        serve = dict(requests=2, prompt_len=20, gen=3)      # 24 slots
+        return [
+            dict(name="qwen3_serve", kind="serve", arch=LONG_ARCH, **serve,
+                 kernels=("flash_attention",), param_bytes=214528),
+            dict(name="zamba2_serve", kind="serve", arch=ARCH, **serve,
+                 kernels=("mamba2_ssd",), param_bytes=2054080),
+            dict(name="rwkv6_serve", kind="serve", arch=RWKV_ARCH,
+                 requests=4, prompt_len=8, gen=4, kernels=("rwkv6_scan",),
+                 param_bytes=361472),
+            dict(name="moe_ep_prefill", kind="prefill", arch=MOE_ARCH,
+                 batch=2, seq=20, slots=22, ep=True,
+                 kernels=("flash_attention",), param_bytes=513280),
+            dict(name="qwen3_train", kind="train", arch=LONG_ARCH, batch=1,
+                 seq=32, kernels=("flash_attention",)),
+            dict(name="zamba2_heads_prefill", kind="prefill", arch=ARCH,
+                 batch=1, seq=20, slots=21, overrides=True,
+                 kernels=("mamba2_ssd",), param_bytes=2054080),
+        ]
+    serve = dict(requests=2, prompt_len=1536, gen=15)       # 1,552 slots
+    return [
+        dict(name="qwen3_serve", kind="serve", arch=LONG_ARCH, **serve,
+             kernels=("flash_attention",), param_bytes=1192493056),
+        dict(name="zamba2_serve", kind="serve", arch=ARCH, **serve,
+             kernels=("flash_attention", "mamba2_ssd"),
+             param_bytes=4892864640),
+        dict(name="rwkv6_serve", kind="serve", arch=RWKV_ARCH, requests=4,
+             prompt_len=512, gen=4, kernels=("rwkv6_scan",),
+             param_bytes=3245375488),
+        dict(name="moe_ep_prefill", kind="prefill", arch=MOE_ARCH, batch=2,
+             seq=1536, slots=1538, ep=True, kernels=("flash_attention",),
+             param_bytes=2671972352),
+        dict(name="qwen3_train", kind="train", arch=LONG_ARCH, batch=1,
+             seq=2048, kernels=("flash_attention",)),
+        dict(name="zamba2_heads_prefill", kind="prefill", arch=ARCH,
+             batch=1, seq=1536, slots=1537, overrides=True,
+             kernels=("flash_attention", "mamba2_ssd"),
+             param_bytes=4892864640),
+    ]
+
+
+def tp_run(run, device, reduced, model_par):
+    """One of phase 18's runs at ``model_par`` on the default group's
+    ranks (none: one rank).  Returns its numpy outputs (full-vocabulary
+    logits, greedy tokens; loss and gradient norm) and what the ranks
+    report: the cache leaves' local against full shapes, the parameter
+    bytes held, the wall time."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (Layout, ShardingCtx,
+                                                  default_rules)
+    from repro_torch.launch import model_serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.lm import tree_leaves
+    from repro_torch.models.registry import HostGenerator, vocab_split
+    t0 = time.perf_counter()
+    cfg = get_arch(run["arch"], reduced=reduced)
+    out, info = {}, {}
+    if run["kind"] == "train":
+        r = train.run(run["arch"], reduced=reduced, steps=1,
+                      batch=run["batch"], seq=run["seq"],
+                      model_par=model_par, device=device, log_every=100)
+        out["loss"] = np.float64(r["losses"][0])
+        out["grad_norm"] = np.float64(r["grad_norms"][0])
+        info["step_s"] = r["step_s"][0]
+        info["wall_s"] = time.perf_counter() - t0
+        return out, info
+    if run["kind"] == "serve":
+        r = model_serve.run(run["arch"], reduced=reduced,
+                            requests=run["requests"],
+                            prompt_len=run["prompt_len"], gen=run["gen"],
+                            model_par=model_par, device=device)
+        out["logits"], out["tokens"] = r["logits"], r["generated"]
+        info["prefill_s"], info["decode_s"] = r["prefill_s"], r["decode_s"]
+        cache_shapes, param_bytes = r["cache_shapes"], r["param_bytes"]
+        mesh = make_host_mesh(model=model_par)
+        sh = ShardingCtx(mesh=mesh if mesh.size > 1 else None)
+        slots = run["prompt_len"] + run["gen"] + 1
+        rows = run["requests"] // mesh.batch_extent
+    else:
+        rules = default_rules()
+        if run.get("overrides"):
+            rules.update(cfg.sharding_overrides or {})
+        if run.get("ep"):
+            cfg = cfg.replace(**no_drop_moe(run["arch"], reduced))
+            rules.update(cfg.sharding_overrides or {})
+            rules.update(cfg.prefill_sharding_overrides)
+        mesh = make_host_mesh(model=model_par)
+        sh = ShardingCtx(mesh=mesh if mesh.size > 1 else None, rules=rules)
+        api = get_model(cfg)
+        params = api.init((torch.Generator if mesh.size == 1
+                           else HostGenerator)(device=device).manual_seed(0))
+        params = Layout(sh, params, api.param_axes()).local(params, device)
+        toks = np.random.default_rng(4).integers(
+            1, cfg.vocab_size, (run["batch"], run["seq"])).astype(np.int32)
+        with torch.no_grad():
+            t1 = time.perf_counter()
+            logits, cache = api.prefill(
+                params, {"tokens": torch.from_numpy(toks).to(device)}, sh,
+                run["slots"])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            info["prefill_s"] = time.perf_counter() - t1
+            if vocab_split(cfg, sh) is not None:
+                logits = sh.gather(logits, -1)
+        out["logits"] = logits.float().cpu().numpy()
+        slots, rows = run["slots"], run["batch"]
+        cache_shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params))
+        del params, cache
+        if run.get("ep"):
+            from repro_torch.models.moe import _use_shardmap_ep
+            info["ep_route"] = _use_shardmap_ep(cfg, sh)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    info["wall_s"] = time.perf_counter() - t0
+    api = get_model(cfg)
+    full = api.init_cache(rows, slots, torch.float32, device="meta")
+    info["cache"] = {k: [list(full[k].shape), list(v)]
+                     for k, v in cache_shapes.items()}
+    info["cache_split_dims"] = {k: [d for d, (a, b) in enumerate(zip(*s))
+                                    if a != b]
+                                for k, s in info["cache"].items()}
+    info["param_bytes"] = param_bytes
+    return out, info
+
+
+def tp_compare(run, got, ref) -> dict:
+    """A run at ``model_par=2`` against its ``model_par=1`` run:
+    logits (absolute), greedy tokens (equal), loss and gradient norm
+    (relative)."""
+    import numpy as np
+    res = {}
+    if "logits" in ref:
+        res["logits_err"] = float(np.abs(got["logits"] - ref["logits"]).max())
+        res["logits_ok"] = (got["logits"].shape == ref["logits"].shape
+                            and res["logits_err"] <= LOGIT_TOL)
+    if "tokens" in ref:
+        res["tokens_equal"] = bool(np.array_equal(got["tokens"],
+                                                  ref["tokens"]))
+    if "loss" in ref:
+        res["loss_rel"] = float(abs(got["loss"] - ref["loss"])
+                                / abs(ref["loss"]))
+        res["grad_norm_rel"] = float(abs(got["grad_norm"] - ref["grad_norm"])
+                                     / abs(ref["grad_norm"]))
+        res["train_ok"] = (res["loss_rel"] <= TP_LOSS_RTOL
+                           and res["grad_norm_rel"] <= TP_NORM_RTOL)
+    return res
+
+
+def tp_rank_main(rank: int, store: str, device: str, reduced: bool) -> int:
+    """One rank of phase 18: a gloo group with the other rank over a
+    file store in ``store``, tensors on ``device`` (the one card), every
+    run of :func:`tp_runs` at ``model_par=2``, each against the parent's
+    ``model_par=1`` outputs in ``store``; the results go to
+    ``store/rank_<r>.json``.  The kernels are the ones phase 1 built."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as ssd
+    from repro_torch.kernels import rwkv6_scan as wkv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"flash_attention": fa.launches, "mamba2_ssd": ssd.launches,
+                "rwkv6_scan": wkv.launches}
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        for name in counters:
+            if not _build.library_path(name).exists():
+                raise SmokeFailure(f"rank {rank}: {name} is not built")
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        store, "group"), rank=rank, world_size=TP_RANKS)
+    results = {}
+    try:
+        for run in tp_runs(reduced):
+            for c in counters.values():
+                c.reset()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            got, info = tp_run(run, device, reduced, TP_RANKS)
+            ref = dict(np.load(os.path.join(store, run["name"] + ".npz")))
+            info.update(tp_compare(run, got, ref))
+            info["launches"] = {k: c.count for k, c in counters.items()}
+            if device == "cuda":
+                info["peak_bytes"] = torch.cuda.max_memory_allocated()
+            results[run["name"]] = info
+            del got
+            gc.collect()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(store, f"rank_{rank}.json"), "w") as f:
+            json.dump(results, f)
+    return 0
+
+
+def phase_tensor_parallel(device="cuda", reduced=False):
+    """Phase 18: tensor and expert parallelism with two ranks sharing the
+    one card.  The parent first runs every run of :func:`tp_runs` at
+    ``model_par=1`` and writes its outputs to a store directory under
+    ``build/``; then two rank processes (``chip_smoke.py --tp-rank``)
+    meet in a gloo group over a file store there, hold CUDA tensors on
+    the card, load the kernels phase 1 built, and run every run at
+    ``model_par=2``, each against the parent's outputs: logits within
+    ``LOGIT_TOL``, the greedy tokens equal, the train step's loss and
+    gradient norm within ``TP_LOSS_RTOL`` and ``TP_NORM_RTOL``.  Each
+    rank's K3, K4 and K5 launches, peak memory and parameter bytes
+    (equal to the reference's rules', ``param_bytes``) are printed, and the walls (the
+    two ranks time-share the card: no speed-up is claimed).  The card
+    must be in the Default compute mode, which lets two processes hold
+    contexts on it."""
+    import numpy as np
+    import torch
+    print("phase 18: tensor and expert parallelism, two ranks on one card",
+          flush=True)
+    if device == "cuda":
+        mode = subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True
+        ).stdout.strip().splitlines()[0]
+        check(mode == "Default", f"the card's compute mode is {mode!r}; "
+              "two ranks on one card need 'Default'")
+    store = os.path.join(ROOT, "build", "tp_store")
+    if os.path.exists(store):
+        import shutil
+        shutil.rmtree(store)
+    os.makedirs(store)
+    out = {"runs": {}}
+    for run in tp_runs(reduced):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ref, info = tp_run(run, device, reduced, 1)
+        np.savez(os.path.join(store, run["name"] + ".npz"), **ref)
+        info["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                              if device == "cuda" else None)
+        out["runs"][run["name"]] = {"model_par_1": info}
+        print(f"  {run['name']} at model_par=1: " + json.dumps(
+            {k: v for k, v in info.items() if k.endswith("_s")}), flush=True)
+        gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         store, device, "reduced" if reduced else "full"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=ROOT) for r in range(TP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    out["ranks_s"] = time.monotonic() - t0
+    codes = [p.returncode for p in procs]
+    if codes != [0] * TP_RANKS:
+        for r, log in enumerate(logs):
+            print(f"  rank {r} exited {codes[r]}:\n" + log[-4000:], flush=True)
+    check(codes == [0] * TP_RANKS, f"phase 18's ranks exited {codes}")
+    launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6_scan": 0}
+    for r in range(TP_RANKS):
+        with open(os.path.join(store, f"rank_{r}.json")) as f:
+            res = json.load(f)
+        for run in tp_runs(reduced):
+            info = res[run["name"]]
+            out["runs"][run["name"]][f"rank_{r}"] = info
+            what = f"phase 18 {run['name']} rank {r}"
+            print(f"  {what}: " + json.dumps(info), flush=True)
+            if "logits_ok" in info:
+                check(info["logits_ok"], f"{what}: logits within {LOGIT_TOL} "
+                      f"of model_par=1 ({info['logits_err']:.3g})")
+            if "tokens_equal" in info:
+                check(info["tokens_equal"], f"{what}: greedy tokens equal "
+                      "model_par=1's")
+            if "train_ok" in info:
+                check(info["train_ok"], f"{what}: loss {info['loss_rel']:.3g}"
+                      f" <= {TP_LOSS_RTOL}, grad norm "
+                      f"{info['grad_norm_rel']:.3g} <= {TP_NORM_RTOL} "
+                      "relative to model_par=1")
+            if "param_bytes" in info:
+                check(info["param_bytes"] == run["param_bytes"],
+                      f"{what}: parameter bytes {info['param_bytes']} equal "
+                      f"the reference's rules' {run['param_bytes']}")
+            if run.get("ep"):
+                check(info["ep_route"], f"{what}: the EP route ran")
+            for k, n in info["launches"].items():
+                launches[k] += n
+            if device == "cuda":
+                for k in run["kernels"]:
+                    check(info["launches"][k] > 0,
+                          f"{what}: {k} launched ({info['launches'][k]})")
+    out["launches"] = launches
+    print(f"  phase 18 ranks: {out['ranks_s']:.3f} s (two ranks "
+          f"time-sharing one {device} device); launches {launches}",
+          flush=True)
     return out
 
 
@@ -2539,6 +2904,9 @@ def nvidia_smi_line() -> str:
 
 def main() -> int:
     import torch
+    if len(sys.argv) == 6 and sys.argv[1] == "--tp-rank":
+        return tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                            sys.argv[5] == "reduced")
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2683,6 +3051,20 @@ def main() -> int:
     details["distribution"]["phase_s"] = time.monotonic() - t0
     print(f"  phase 17: {details['distribution']['phase_s']:.3f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- tensor and expert parallelism, two ranks sharing the card: the
+    # ranks' counts start at 0 in their processes and are read there at
+    # the end of each run (the parent's model_par=1 runs are the
+    # comparison and count in none)
+    t0 = time.monotonic()
+    details["tensor_parallel"] = phase_tensor_parallel()
+    details["tensor_parallel"]["phase_s"] = time.monotonic() - t0
+    print(f"  phase 18: {details['tensor_parallel']['phase_s']:.3f} s",
+          flush=True)
+    for name, n in details["tensor_parallel"]["launches"].items():
+        path_launches[name] += n
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -7,8 +7,11 @@ Two layers share this module:
   tree of tensors onto a new mesh by re-deriving every leaf's placements
   from the same logical axes under the new mesh (divisibility-demoted
   where the new axis sizes require) and ``distribute_tensor``-ing it.
-  With the atomic checkpoints this is the restart path: resume(ckpt) ->
-  remesh to the surviving topology -> continue.
+  A tree of DTensors (a sharded state, as :meth:`sharding.Layout.dtensors`
+  makes of local shards) is first gathered whole, so a state moves from
+  one mesh to another, e.g. from (1, 2) to (2, 1).  With the atomic
+  checkpoints this is the restart path: resume(ckpt) -> remesh to the
+  surviving topology -> continue.
 
 - **Engine shards** (query path): :func:`migration_moves` is the pure
   planning half of a cluster rebalance — given each key's owner list
@@ -24,19 +27,23 @@ from typing import Any, Callable, Iterable, Iterator, Sequence
 
 
 def remesh_tree(tree: Any, axes_tree: Any, new_mesh, rules):
-    """Re-shard ``tree`` (same structure as ``axes_tree``) onto
-    ``new_mesh``: each leaf becomes a DTensor with the placements its
-    logical axes give there.  A one-rank mesh without a ``DeviceMesh``
-    (no process group) leaves the tree as it is."""
+    """Re-shard ``tree`` (same structure as ``axes_tree``; full tensors
+    or DTensors on another mesh) onto ``new_mesh``: each leaf becomes a
+    DTensor with the placements its logical axes give there.  A
+    one-rank mesh without a ``DeviceMesh`` (no process group) leaves
+    the tree as it is."""
     if new_mesh.device_mesh is None:
         if new_mesh.size != 1:
             raise ValueError(f"a mesh of {new_mesh.size} ranks needs its "
                              "DeviceMesh (a process group of that size)")
         return tree
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     from repro_torch.distributed.sharding import (map_with_axes,
                                                   tree_to_shardings)
+    tree = map_with_axes(lambda leaf, _: leaf.full_tensor()
+                         if isinstance(leaf, DTensor) else leaf,
+                         tree, axes_tree)
     shardings = tree_to_shardings(tree, axes_tree, new_mesh, rules)
     return map_with_axes(lambda leaf, pl: distribute_tensor(
         leaf, new_mesh.device_mesh, pl), tree, shardings)

@@ -10,8 +10,8 @@ into any offload :class:`~repro_torch.query.dispatch.Backend` and into
 :class:`~repro_torch.core.remote.RemoteServer`.  The
 :class:`HeartbeatMonitor` below detects the silent deaths.
 
-The training-side checkpoint/restart supervisor of the JAX package
-belongs to the training layer and is not part of this package yet.
+:class:`TrainSupervisor` is the training side's checkpoint/restart
+loop, for a train state whole or sharded over a mesh.
 """
 from __future__ import annotations
 
@@ -236,20 +236,33 @@ class HeartbeatMonitor:
 
 
 class TrainSupervisor:
-    """Checkpoint-every-N + restart-from-latest orchestration."""
+    """Checkpoint-every-N + restart-from-latest orchestration.  With a
+    ``layout`` (``sharding.Layout`` of the train state) the state is
+    this rank's shards: a save gathers the full leaves on every rank and
+    rank 0 writes them, in the layout either package restores; a resume
+    reads the full leaves and keeps this rank's shards."""
 
-    def __init__(self, ckpt_dir: str, save_every: int = 50, keep: int = 3):
+    def __init__(self, ckpt_dir: str, save_every: int = 50, keep: int = 3,
+                 layout=None):
         self.ckpt_dir = ckpt_dir
         self.save_every = save_every
         self.keep = keep
+        self.layout = layout
 
     def maybe_save(self, step: int, state) -> str | None:
+        """Every rank calls it (a sharded save gathers); only rank 0
+        writes."""
         # deferred import: the query-path fault layer above must not pay
         # for the checkpoint stack at import time
         from repro_torch.checkpoint import save_checkpoint
-        if step % self.save_every == 0 and step > 0:
-            return save_checkpoint(self.ckpt_dir, step, state, keep=self.keep)
-        return None
+        from repro_torch.launch.mesh import rank
+        if step % self.save_every or step <= 0:
+            return None
+        if self.layout is not None:
+            state = self.layout.full(state)
+        if rank() != 0:
+            return None
+        return save_checkpoint(self.ckpt_dir, step, state, keep=self.keep)
 
     def resume(self, template):
         """Returns (state, start_step); fresh start if no checkpoint.  The
@@ -259,4 +272,6 @@ class TrainSupervisor:
         if step is None:
             return template, 0
         state, step = restore_checkpoint(self.ckpt_dir, template)
+        if self.layout is not None:
+            state = self.layout.local(state)
         return state, int(step)

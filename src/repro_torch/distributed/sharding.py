@@ -23,10 +23,17 @@ are dropped so the same rules work on one-rank meshes.
 The spec arithmetic (:func:`logical_to_spec`, :func:`safe_spec`,
 :func:`tree_to_specs`) reads only a mesh's axis names and shape, so it
 runs on a :class:`Mesh` of any shape whether or not the world has its
-ranks; only :func:`tree_to_shardings`'s use in ``elastic.remesh_tree``
-and :func:`constrain` on a DTensor need the ``DeviceMesh`` behind it.
-What executes on a mesh today is data parallelism (a ``model`` axis of
-1): :class:`ShardingCtx` refuses a wider model axis.
+ranks.  What executes on a mesh is data parallelism over ``data`` and
+tensor and expert parallelism over ``model``: every rank holds the
+local shard of each leaf that its spec names (:func:`local_shard`,
+:class:`Layout`), and the model's apply functions compute on those
+local tensors with the explicit collectives of :class:`ShardingCtx`
+(``reduce``, ``copy``, ``gather`` over one mesh axis's process group),
+not on DTensor's propagation: the kernels are custom ops, the MoE's
+sorts and the caches' in-place writes need no rules, and a gloo group
+carries only ``all_reduce`` and ``broadcast`` on CUDA tensors.  DTensors
+appear only where ``elastic.remesh_tree`` makes them, and a context's
+sharding constraint (``sh(x, *axes)``) is the identity.
 """
 from __future__ import annotations
 
@@ -226,39 +233,159 @@ def tree_to_shardings(param_tree: Any, spec_tree: Any, mesh: Mesh,
                       spec_tree)
 
 
-def constrain(x, axes: Sequence[str | None], rules: LogicalRules,
-              mesh: Mesh | None):
-    """The sharding constraint of ``axes``: the identity off a mesh, on a
-    mesh of one rank and on a plain tensor; a DTensor is redistributed
-    to the spec's placements."""
-    if mesh is None or mesh.size == 1:
-        return x
-    from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
-    spec = safe_spec(x.shape, axes, rules, mesh)
-    return x.redistribute(mesh.device_mesh, placements(spec, mesh))
+def _entry_names(entry) -> tuple[str, ...]:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def local_shard(full, spec: P, mesh: Mesh, coords: Mapping[str, int]):
+    """Rank ``coords``' shard of the ``full`` leaf under ``spec``: each
+    split dim narrowed to the block of its mesh axes' flat index (the
+    first-named axis outermost, as DTensor splits over mesh dims in
+    order), copied so the full leaf can be freed.  A leaf with nothing
+    split is returned as it is."""
+    sizes = mesh.sizes
+    out = full
+    for d, entry in enumerate(spec):
+        names = _entry_names(entry)
+        if not names:
+            continue
+        n, i = 1, 0
+        for a in names:
+            n, i = n * sizes[a], i * sizes[a] + coords.get(a, 0)
+        per = full.shape[d] // n
+        out = out.narrow(d, i * per, per)
+    return out if out is full else out.clone()
+
+
+class Axis:
+    """One mesh axis's process group as this rank sees it: ``size``
+    ranks, this one at ``index``.  The collectives return new tensors.
+    NCCL runs its own all-gather and reduce-scatter; on gloo, which
+    carries only ``all_reduce`` and ``broadcast`` for CUDA tensors, an
+    all-gather is the sum of a zero buffer holding this rank's block in
+    place, and a reduce-scatter the block of a full sum."""
+
+    def __init__(self, group, size: int, index: int):
+        import torch.distributed as dist
+        self.group, self.size, self.index = group, size, index
+        self.nccl = dist.get_backend(group) == "nccl"
+
+    def all_reduce(self, x):
+        import torch.distributed as dist
+        out = x.clone()
+        dist.all_reduce(out, group=self.group)
+        return out
+
+    def all_gather(self, x, dim: int):
+        import torch
+        import torch.distributed as dist
+        dim %= x.ndim
+        if self.nccl:
+            buf = x.new_empty((self.size, *x.shape))
+            dist.all_gather_into_tensor(buf, x.contiguous(), group=self.group)
+            return torch.cat(buf.unbind(0), dim=dim)
+        shape = list(x.shape)
+        shape[dim] *= self.size
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, self.index * x.shape[dim], x.shape[dim]).copy_(x)
+        dist.all_reduce(buf, group=self.group)
+        return buf
+
+    def block(self, x, dim: int):
+        """This rank's block of ``x`` along ``dim``."""
+        per = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * per, per)
+
+    def reduce_scatter(self, x, dim: int):
+        import torch
+        import torch.distributed as dist
+        if self.nccl:
+            dim %= x.ndim
+            parts = torch.stack(x.chunk(self.size, dim=dim)).contiguous()
+            out = parts.new_empty(parts.shape[1:])
+            dist.reduce_scatter_tensor(out, parts, group=self.group)
+            return out
+        return self.block(self.all_reduce(x), dim).contiguous()
+
+
+def _functions():
+    """The autograd Functions over an :class:`Axis` (Megatron's f and
+    g, and the gather to a replicated tensor), made at first use so the
+    module imports without torch."""
+    import torch
+
+    class Reduce(torch.autograd.Function):
+        """Forward the sum over the axis; backward the identity (the
+        sum feeds computation that every rank repeats alike)."""
+        @staticmethod
+        def forward(ctx, x, axis):
+            return axis.all_reduce(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    class Copy(torch.autograd.Function):
+        """Forward the identity; backward the sum over the axis (the
+        value feeds computation that differs by rank)."""
+        @staticmethod
+        def forward(ctx, x, axis):
+            ctx.axis = axis
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.axis.all_reduce(g), None
+
+    class Gather(torch.autograd.Function):
+        """Forward the all-gather along ``dim``; backward this rank's
+        block of the gradient (the full tensor feeds computation that
+        every rank repeats alike), or with ``summed`` the reduce-scatter
+        of it (the full tensor feeds computation that differs by
+        rank)."""
+        @staticmethod
+        def forward(ctx, x, axis, dim, summed):
+            ctx.axis, ctx.dim, ctx.summed = axis, dim, summed
+            return axis.all_gather(x, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            if ctx.summed:
+                return ctx.axis.reduce_scatter(g, ctx.dim), None, None, None
+            return ctx.axis.block(g, ctx.dim), None, None, None
+
+    return Reduce, Copy, Gather
+
+
+_FUNCTIONS: list = []
+
+
+def _fn(i: int):
+    if not _FUNCTIONS:
+        _FUNCTIONS.extend(_functions())
+    return _FUNCTIONS[i]
 
 
 @dataclasses.dataclass
 class ShardingCtx:
-    """Carried through model apply functions: mesh + active rules.
-    ``mesh=None`` means one device and no constraints.  A mesh whose
-    ``model`` axis is above one rank needs tensor-parallel execution,
-    which is not ported: it raises."""
+    """Carried through model apply functions: mesh + active rules, and
+    this rank's place on the mesh.  ``mesh=None`` means one device and
+    no collectives.  On a mesh with its ``DeviceMesh`` the context
+    gives this rank's coordinates (``data_index``, ``model_index``), the
+    :class:`Axis` of each mesh axis, and the collectives the apply
+    functions place by hand; each is the identity when its axis has one
+    rank, so a one-rank run takes exactly the single-device code."""
     mesh: Mesh | None = None
     rules: LogicalRules = dataclasses.field(default_factory=default_rules)
-
-    def __post_init__(self):
-        if self.mesh is not None and self.mesh.sizes.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a mesh {self.mesh.sizes} with a model axis above one rank "
-                "needs tensor-parallel execution (the state and activations "
-                "as DTensors), which comes with the tensor-parallel slice; "
-                "use model_par=1 (data parallelism over the ranks)")
+    _axes: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
 
     def __call__(self, x, *axes: str | None):
-        return constrain(x, axes, self.rules, self.mesh)
+        """The reference's sharding constraint of ``x`` to ``axes``: the
+        identity, since every tensor here is already this rank's local
+        block (the calls mark where the reference constrains)."""
+        return x
 
     def with_overrides(self, overrides: Mapping[str, Any] | None
                        ) -> "ShardingCtx":
@@ -266,7 +393,134 @@ class ShardingCtx:
             return self
         rules = dict(self.rules)
         rules.update(overrides)
-        return ShardingCtx(mesh=self.mesh, rules=rules)
+        return ShardingCtx(mesh=self.mesh, rules=rules, _axes=self._axes)
+
+    # ---- this rank on the mesh
+    def size(self, name: str) -> int:
+        return 1 if self.mesh is None else self.mesh.sizes.get(name, 1)
+
+    @property
+    def tp(self) -> int:
+        """Ranks of the ``model`` axis."""
+        return self.size("model")
+
+    @property
+    def coords(self) -> dict[str, int]:
+        if self.mesh is None or self.mesh.size == 1:
+            return {}
+        if "coords" not in self._axes:
+            dm = self.mesh.device_mesh
+            if dm is None:
+                raise ValueError(f"a mesh of {self.mesh.size} ranks needs its "
+                                 "DeviceMesh (a process group of that size)")
+            self._axes["coords"] = dict(zip(self.mesh.axis_names,
+                                            dm.get_coordinate()))
+        return self._axes["coords"]
+
+    @property
+    def model_index(self) -> int:
+        return self.coords.get("model", 0)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's index over the ``batch`` axes (pod x data)."""
+        c = self.coords
+        return c.get("pod", 0) * self.size("data") + c.get("data", 0)
+
+    def axis(self, name: str) -> Axis | None:
+        """The process group of mesh axis ``name``; ``None`` when it has
+        one rank."""
+        if self.size(name) == 1:
+            return None
+        if name not in self._axes:
+            dm = self.mesh.device_mesh
+            self._axes[name] = Axis(dm.get_group(name), self.size(name),
+                                    self.coords[name])
+        return self._axes[name]
+
+    # ---- the collectives, autograd-aware, over one axis
+    def reduce(self, x, axis: str = "model"):
+        """The sum over ``axis`` (a row-parallel product's partial sums);
+        its gradient passes through."""
+        a = self.axis(axis)
+        return x if a is None else _fn(0).apply(x, a)
+
+    def copy(self, x, axis: str = "model"):
+        """``x`` entering computation that differs by rank: the identity,
+        whose gradient is summed over ``axis``."""
+        a = self.axis(axis)
+        return x if a is None else _fn(1).apply(x, a)
+
+    def gather(self, x, dim: int, axis: str = "model",
+               summed: bool = False):
+        """The blocks of ``x`` along ``dim`` from every rank of ``axis``,
+        in rank order.  The gradient keeps this rank's block; with
+        ``summed`` (the full tensor feeds computation that differs by
+        rank) it is the reduce-scatter of every rank's gradient."""
+        a = self.axis(axis)
+        if a is None:
+            return self.copy(x, axis) if summed else x
+        return _fn(2).apply(x, a, dim, summed)
+
+    # ---- the rules for one dim
+    def split(self, logical: str, size: int, axis: str = "model") -> bool:
+        """Whether a dim of ``size`` under the logical axis ``logical`` is
+        split over mesh axis ``axis`` (alone), as :func:`safe_spec` puts
+        it."""
+        if self.mesh is None or self.size(axis) == 1:
+            return False
+        spec = safe_spec((size,), (logical,), self.rules, self.mesh)
+        return bool(spec) and _entry_names(spec[0]) == (axis,)
+
+
+class Layout:
+    """The specs of a tree of full leaves (tensors or shapes) under a
+    context's mesh and rules, and the moves between full and local
+    trees: :meth:`local` narrows each full leaf to this rank's shard,
+    :meth:`full` gathers each local leaf back over the axes that split
+    it (every rank of the mesh takes part)."""
+
+    def __init__(self, sh: ShardingCtx, full_tree, axes_tree):
+        self.sh = sh
+        self.specs = (None if sh.mesh is None else
+                      tree_to_specs(full_tree, axes_tree, sh.mesh, sh.rules))
+
+    def local(self, full_tree, device=None):
+        """Each leaf's shard on this rank, moved to ``device`` when one
+        is given (a full tree on the host reaches the card a shard at a
+        time); on one rank the tree as it is."""
+        if self.specs is None or self.sh.mesh.size == 1:
+            return full_tree
+        coords = self.sh.coords
+
+        def cut(leaf, spec):
+            out = local_shard(leaf, spec, self.sh.mesh, coords)
+            return out if device is None else out.to(device)
+        return map_with_axes(cut, full_tree, self.specs)
+
+    def dtensors(self, local_tree):
+        """The local shards as DTensors on the mesh's ``DeviceMesh``."""
+        from torch.distributed.tensor import DTensor
+        mesh = self.sh.mesh
+        return map_with_axes(lambda leaf, spec: DTensor.from_local(
+            leaf, mesh.device_mesh, placements(spec, mesh), run_check=False),
+            local_tree, self.specs)
+
+    def full(self, local_tree):
+        if self.specs is None or self.sh.mesh.size == 1:
+            return local_tree
+
+        def gather(leaf, spec):
+            for d, entry in enumerate(spec):
+                names = [a for a in _entry_names(entry)
+                         if self.sh.size(a) > 1]
+                if len(names) > 1:
+                    raise NotImplementedError(
+                        f"a dim split over {names} at once")
+                if names:
+                    leaf = self.sh.axis(names[0]).all_gather(leaf, d)
+            return leaf
+        return map_with_axes(gather, local_tree, self.specs)
 
 
 REPLICATED = ShardingCtx(mesh=None)

@@ -10,7 +10,9 @@ answer one query over the same data.
 A model's state is its parameters: :func:`params_from_jax` turns the JAX
 package's parameter tree (an LM's or an encoder-decoder's) (as numpy arrays) into the port's, so both
 packages compute the same function in the parity tests, and
-:func:`train_state_from_jax` does the same for a train state.
+:func:`train_state_from_jax` does the same for a train state.  Given a
+mesh (and rules), either gives this rank's shards of the tree, as its
+specs name them.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def ingest_reference_state(engine, entities: Iterable[tuple]) -> list[str]:
             for eid, kind, data, props in entities]
 
 
-def params_from_jax(tree, cfg, device="cuda") -> dict:
+def params_from_jax(tree, cfg, device="cuda", mesh=None, rules=None) -> dict:
     """The JAX package's parameter tree of a model of ``cfg`` — nested
     dicts whose leaves convert with ``np.asarray``, per-layer leaves
     stacked as its ``init_lm`` and ``init_encdec`` stack them (``blocks``
@@ -48,7 +50,9 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
     port's parameters on ``device`` (the CUDA card unless the caller
     asks for the CPU).  The port keeps the same layout, so leaves carry
     over one for one; the top-level keys and the stacked axes are
-    checked against ``cfg``."""
+    checked against ``cfg``.  With a ``mesh`` (a ``sharding.Mesh`` with
+    its ``DeviceMesh``), this rank's shards under ``rules`` (default:
+    the default rules)."""
     import torch
 
     from repro_torch.core.boundary import resolve_device
@@ -100,18 +104,27 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
                 raise ValueError(f"{cfg.name}: moe {name!r} is stacked as "
                                  f"{shape}, not (layers, experts) "
                                  f"{(cfg.num_layers, cfg.num_experts)}")
-    return out
+    if mesh is None:
+        return out
+    from repro_torch.distributed.sharding import (Layout, ShardingCtx,
+                                                  default_rules)
+    from repro_torch.models import get_model
+    sh = ShardingCtx(mesh=mesh, rules=default_rules() if rules is None
+                     else rules)
+    return Layout(sh, out, get_model(cfg).param_axes()).local(out)
 
 
-def train_state_from_jax(state, cfg, device="cuda") -> dict:
+def train_state_from_jax(state, cfg, device="cuda", mesh=None,
+                         rules=None) -> dict:
     """The JAX package's train state (``params``, the AdamW moments ``m``
     and ``v``, which mirror the params' tree, and the int32 ``step``), as
-    numpy-convertible leaves, as the port's train state on ``device``."""
+    numpy-convertible leaves, as the port's train state on ``device``
+    (this rank's shards with a ``mesh``, as :func:`params_from_jax`)."""
     import torch
 
     from repro_torch.core.boundary import resolve_device
 
-    out = {k: params_from_jax(state[k], cfg, device)
+    out = {k: params_from_jax(state[k], cfg, device, mesh, rules)
            for k in ("params", "m", "v")}
     out["step"] = torch.tensor(int(np.asarray(state["step"])),
                                dtype=torch.int32, device=resolve_device(device))

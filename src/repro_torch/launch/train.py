@@ -5,18 +5,26 @@
 
 It trains on the CUDA card unless asked for the CPU (``--device cpu``).
 The mesh is the JAX package's: the production mesh, or the host mesh
-over the ranks of the default process group with ``model_par`` clamped
-to them (on one rank ``model_par=2`` runs unsharded, as the reference
-runs it on one device).  Several ranks train data-parallel; a model
-axis above one rank needs tensor parallelism and raises.  Started by
-``torchrun``, the launcher initialises the process group from its
-environment (NCCL on the card, gloo on the CPU):
+over the ranks of the default process group, (ranks / model_par,
+model_par) as (data, model), with ``model_par`` clamped to them (on one
+rank ``model_par=2`` runs unsharded, as the reference runs it on one
+device).  The rules are the defaults with the config's
+``sharding_overrides``; each rank holds the local shards of the train
+state that they name, trains data-parallel over ``data`` and
+tensor-parallel over ``model``.  On more than one rank the seeded
+parameters are drawn on the card one leaf at a time and held whole in
+host memory (``registry.HostGenerator``), each rank's shards go to its
+card and the moments are made there from them: a rank's card holds its
+shards and one full leaf at most, its host the whole parameter tree.  Started by ``torchrun``, the launcher
+initialises the process group from its environment (NCCL on the card,
+gloo on the CPU); a caller's group is left as it is:
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --arch qwen3-0.6b --reduced --device cpu --steps 20
 
-Every rank builds the same global batch and keeps its rows; only rank 0
-prints and writes checkpoints.  Features: seeded init, the train step
+Every rank builds the same global batch and keeps its data index's
+rows; only rank 0 prints, and a checkpoint is written by rank 0 as full
+leaves gathered from every rank's shards.  Features: seeded init, the train step
 with remat and sequential microbatches, WSD/cosine/linear/constant
 schedules, a prefetching loader, periodic atomic checkpoints and
 automatic restart from the latest one.
@@ -33,12 +41,15 @@ from repro_torch.configs import get_arch
 from repro_torch.core.boundary import resolve_device
 from repro_torch.dataio import ShardedLoader, lm_token_stream
 from repro_torch.distributed.fault import TrainSupervisor
-from repro_torch.distributed.sharding import ShardingCtx, default_rules
+from repro_torch.distributed.sharding import (Layout, ShardingCtx,
+                                              default_rules)
 from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
                                      process_group_from_env, rank)
 from repro_torch.models import get_model
+from repro_torch.models.registry import HostGenerator, param_shapes
 from repro_torch.training import TrainConfig, make_train_step
-from repro_torch.training.train_step import init_train_state
+from repro_torch.training.train_step import (init_train_state,
+                                             train_state_axes)
 
 
 def make_batch_fn(cfg, batch, seq):
@@ -90,12 +101,21 @@ def run(arch: str, *, reduced=True, steps=100, batch=8, seq=128,
                            microbatches=microbatches, remat=True)
         step_fn = make_train_step(model, tcfg, sh)
 
-        state = init_train_state(
-            model, torch.Generator(device=dev).manual_seed(0))
+        # on more than one rank each leaf is drawn on the card, held on
+        # the host, and this rank's shard of it goes back to the card
+        gen = (torch.Generator if mesh.size == 1 else HostGenerator)(
+            device=dev).manual_seed(0)
+        shapes = param_shapes(model)
+        cut = Layout(sh, shapes, model.param_axes())
+        state = init_train_state(model, gen,
+                                 place=lambda p: cut.local(p, dev))
+        layout = Layout(sh, {"params": shapes, "m": shapes, "v": shapes,
+                             "step": state["step"]}, train_state_axes(model))
         start = 0
         sup = None
         if ckpt_dir:
-            sup = TrainSupervisor(ckpt_dir, save_every=save_every)
+            sup = TrainSupervisor(ckpt_dir, save_every=save_every,
+                                  layout=layout)
             state, start = sup.resume(state)
             if start and lead:
                 print(f"[train] resumed from step {start}")
@@ -121,7 +141,7 @@ def run(arch: str, *, reduced=True, steps=100, batch=8, seq=128,
                           f"lr={float(metrics['lr']):.2e} "
                           f"gnorm={float(metrics['grad_norm']):.2f} "
                           f"({dt:.1f}s)")
-                if sup and lead:
+                if sup:
                     sup.maybe_save(i + 1, state)
         finally:
             loader.stop()

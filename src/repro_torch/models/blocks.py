@@ -105,7 +105,7 @@ def apply_tblock(
                                cfg=cfg, sh=sh)
     else:
         h = mlp.apply_mlp(p["mlp"], _norm(x, p, "ln2", cfg, norm), sh=sh,
-                          kind=mlp_kind)
+                          kind=mlp_kind, cfg=cfg)
     x = x + rs * h
     return sh(x, "batch", "seq", "embed"), new_cache, aux
 

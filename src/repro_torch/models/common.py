@@ -1,4 +1,6 @@
-"""Shared building blocks: initializers, norms, positions, the loss."""
+"""Shared building blocks: initializers, norms, positions, the loss, and
+the tensor-parallel products (a local product, then the sum over the
+model axis where the contracted dim is split)."""
 from __future__ import annotations
 
 import math
@@ -33,15 +35,17 @@ def normal(gen: torch.Generator, shape, dtype, std: float | None = None):
     """Truncated-normal init in [-3, 3] standard deviations; default std
     = 1/sqrt(fan_in), fan_in = shape[0] for a matrix.  Drawn by inverse
     transform (uniform in [phi(-3), phi(3)], then erfinv) on the
-    generator's device, in float32, then cast."""
+    generator's device (a :class:`registry.HostGenerator`'s card), in
+    float32, then cast and put on ``gen.device``."""
     if std is None:
         fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
         std = fan_in ** -0.5
     lo, hi = _phi(-3.0), _phi(3.0)
-    t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    t = torch.empty(shape, dtype=torch.float32,
+                    device=getattr(gen, "draws_on", gen.device))
     t.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
     t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0).mul_(std)
-    return t.to(dtype)
+    return t.to(gen.device, dtype)
 
 
 def zeros(shape, dtype, device=None):
@@ -96,24 +100,38 @@ def sinusoidal_positions(positions: torch.Tensor, dim: int,
 
 # ------------------------------------------------------------------ loss
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       vocab_size: int, mask: torch.Tensor | None = None
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       vocab_size: int, mask: torch.Tensor | None = None,
+                       sh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Masked token-mean cross entropy in float32 over (..., V_padded)
     logits -> (loss, token count, at least 1).  Padded vocabulary slots
     get ``-1e30`` before the log-sum-exp, so they stay out of the
-    normaliser."""
+    normaliser.  ``sh``, when given, is the context whose model axis
+    splits the vocabulary: the logits hold this rank's block, and the
+    loss takes the vocab-parallel form (the per-rank log-sum-exps
+    gathered and combined, the target's logit summed from its owner)."""
     logits = logits.to(torch.float32)
-    v_pad = logits.shape[-1]
-    if v_pad > vocab_size:
-        bias = torch.zeros(v_pad, dtype=torch.float32, device=logits.device)
-        bias[vocab_size:] = -1e30
-        logits = logits + bias
-    logz = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None].to(
-        device=logits.device, dtype=torch.int64))[..., 0]
+    v_loc = logits.shape[-1]
+    v0 = 0
+    parallel = sh is not None and sh.tp > 1
+    if parallel:
+        v0 = sh.model_index * v_loc
+    if v0 + v_loc > vocab_size:
+        ids = torch.arange(v0, v0 + v_loc, device=logits.device)
+        logits = logits + torch.where(ids < vocab_size, 0.0, -1e30)
+    labels = labels[..., None].to(device=logits.device, dtype=torch.int64)
+    if parallel:
+        lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+        logz = torch.logsumexp(sh.gather(lse, -1), dim=-1)
+        local = labels - v0
+        mine = (local >= 0) & (local < v_loc)
+        picked = torch.gather(logits, -1, local.clamp(0, v_loc - 1))
+        picked = sh.reduce(torch.where(mine, picked, 0.0))[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels)[..., 0]
     nll = logz - picked
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
+        mask = torch.ones(labels.shape[:-1], dtype=torch.float32,
                           device=logits.device)
     mask = mask.to(device=logits.device, dtype=torch.float32)
     total = torch.clamp(mask.sum(), min=1.0)
@@ -132,3 +150,21 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
+
+
+# ------------------------------------------------------- tensor parallel
+def col_parallel(x: torch.Tensor, w: torch.Tensor, sh, split: bool
+                 ) -> torch.Tensor:
+    """``x @ w`` where ``w`` holds this rank's block of output columns
+    (``split``): the replicated ``x`` enters through ``sh.copy``, so its
+    gradient sums every rank's share."""
+    return dot(sh.copy(x) if split else x, w)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, sh, split: bool
+                 ) -> torch.Tensor:
+    """``x @ w`` where ``x`` and ``w`` hold this rank's block of the
+    contracted dim (``split``): the local product, then its sum over the
+    model axis."""
+    y = dot(x, w)
+    return sh.reduce(y) if split else y

@@ -11,6 +11,9 @@ per-layer views, and the caches — self-attention ``k``/``v`` of
 are preallocated stacked tensors written in place.  On a card the
 encoder's self-attention over more than 1024 frames and the decoder's
 cross-attention over them take the flash route (K3, not causal).
+Under tensor parallelism the encoder, the decoder's self- and
+cross-attention and the tied vocab-parallel embedding go through the
+same functions as the decoder-only models (``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models import attention, blocks, common
-from repro_torch.models.lm import (layer, prepend_axis, run_body,
-                                  stack_init, unstack)
+from repro_torch.models.lm import (cache_slots, kv_layer, layer,
+                                  local_cache, prepend_axis, run_body,
+                                  stack_init, unstack, vocab_head,
+                                  vocab_lookup)
 
 _BLOCK = dict(mlp_kind="gelu", norm="layer")
 
@@ -76,17 +81,18 @@ def encode(params, frames, cfg: ArchConfig, sh: ShardingCtx,
 
 
 def _dec_embed(params, tokens, cfg, sh, offset=0):
-    h = params["embed"][tokens.to(params["embed"].device)]
+    h = vocab_lookup(params["embed"], tokens, cfg, sh)
     pos = common.sinusoidal_positions(
         torch.arange(tokens.shape[1], device=h.device) + offset, cfg.d_model,
         h.dtype)
     return sh(h + pos[None], "batch", "seq", "embed")
 
 
-def _logits(params, h, cfg):
+def _logits(params, h, cfg, sh):
     h = common.layer_norm(h, params["dec_norm"], params["dec_norm_b"],
                           cfg.norm_eps)
-    return common.dot(h, params["embed"].T)  # whisper ties the decoder embedding
+    # whisper ties the decoder embedding
+    return vocab_head(h, params["embed"].T, cfg, sh)
 
 
 def forward(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
@@ -101,15 +107,19 @@ def forward(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
                                    enc=enc, **_BLOCK)[0]
     for bp in unstack(params["dec_blocks"]):
         h = run_body(body, remat, h, bp, enc)
-    logits = sh(_logits(params, h, cfg), "batch", "seq", "vocab")
+    logits = sh(_logits(params, h, cfg, sh), "batch", "seq", "vocab")
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.float32, device=None, enc_len: int | None = None
-               ) -> dict:
+               dtype=torch.float32, device=None, enc_len: int | None = None,
+               sh: ShardingCtx | None = None) -> dict:
     """Self-attention ``k``/``v`` of ``max_seq`` slots and cross-attention
-    ``xk``/``xv`` of ``enc_len`` (default ``cfg.encoder_seq_len``)."""
+    ``xk``/``xv`` of ``enc_len`` (default ``cfg.encoder_seq_len``); under
+    a model axis above one rank, this rank's shards of them."""
+    if sh is not None and sh.tp > 1:
+        full = init_cache(cfg, batch, max_seq, dtype, "meta", enc_len)
+        return local_cache(full, cache_axes(cfg), sh, max_seq, device)
     hd = cfg.resolved_head_dim
     L, H = cfg.num_layers, cfg.num_kv_heads
     Se = cfg.encoder_seq_len if enc_len is None else enc_len
@@ -134,29 +144,30 @@ def prefill(params, frames, tokens, cfg: ArchConfig, sh: ShardingCtx,
     enc = encode(params, frames, cfg, sh)
     h = _dec_embed(params, tokens, cfg, sh)
     cache = init_cache(cfg, tokens.shape[0], max_cache,
-                       cache_dtype or h.dtype, h.device, enc.shape[1])
+                       cache_dtype or h.dtype, h.device, enc.shape[1], sh=sh)
     for li in range(cfg.num_layers):
         bp = layer(params["dec_blocks"], li)
         h, _, _ = blocks.apply_tblock(
             bp, h, cfg=cfg, sh=sh, causal=True, enc=enc,
-            kv_cache={"k": cache["k"][li], "v": cache["v"][li]},
+            kv_cache={"k": cache["k"][li], "v": cache["v"][li],
+                      "slots": max_cache},
             cache_index=0, **_BLOCK)
         xc = attention.make_cross_cache(bp["xattn"], enc, cfg, sh)
         cache["xk"][li] = xc["k"]
         cache["xv"][li] = xc["v"]
-    return _logits(params, h[:, -1:], cfg)[:, 0], cache
+    return _logits(params, h[:, -1:], cfg, sh)[:, 0], cache
 
 
 def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
                 sh: ShardingCtx) -> tuple[torch.Tensor, dict]:
     """tokens (B,1); returns (logits (B,Vp), the cache, updated in place)."""
     cache_index = int(cache_index)
+    slots = cache_slots(cache)
     h = _dec_embed(params, tokens, cfg, sh, offset=cache_index)
     for li in range(cfg.num_layers):
         h, _, _ = blocks.apply_tblock(
             layer(params["dec_blocks"], li), h, cfg=cfg, sh=sh, causal=True,
-            kv_cache={"k": cache["k"][li], "v": cache["v"][li]},
-            cache_index=cache_index,
+            kv_cache=kv_layer(cache, li, slots), cache_index=cache_index,
             cross_cache={"k": cache["xk"][li], "v": cache["xv"][li]},
             **_BLOCK)
-    return _logits(params, h, cfg)[:, 0], cache
+    return _logits(params, h, cfg, sh)[:, 0], cache

@@ -10,6 +10,14 @@ and caches are preallocated stacked tensors written in place (the JAX
 package threads them through the scan and donates them, which computes
 the same thing).  ``max_seq`` sizes no rwkv cache: its state is O(1)
 in the sequence length, as in the reference.
+
+Under tensor parallelism each rank holds the local shards of the
+parameters and of the cache that their specs name (a :class:`Cache`
+remembers its global slot count, which a block of slots does not
+show).  The embedding is a vocab-parallel lookup (each rank looks up
+the ids in its rows, zero elsewhere, then one sum over the model
+axis), the head gives this rank's block of the vocabulary, and the
+residual stream stays replicated over the model axis between blocks.
 """
 from __future__ import annotations
 
@@ -166,8 +174,53 @@ def lm_axes(cfg: ArchConfig) -> dict:
 # ======================================================================
 # caches
 # ======================================================================
+class Cache(dict):
+    """A cache tree and ``slots``, its global slot count (a rank's block
+    of a cache split by slots holds ``slots / tp`` of them)."""
+
+    def __init__(self, leaves: dict, slots: int):
+        super().__init__(leaves)
+        self.slots = slots
+
+
+def local_cache(full: dict, axes: dict, sh: ShardingCtx, slots: int,
+                device=None) -> "Cache":
+    """The zero cache on ``device`` that this rank holds of the ``full``
+    tree (a meta tree whose batch dim is already this rank's rows):
+    each dim its spec splits over the model axis cut to its block."""
+    from repro_torch.distributed.sharding import safe_spec
+
+    def one(leaf, ax):
+        spec = tuple(safe_spec(leaf.shape, ax, sh.rules, sh.mesh))
+        shape = [n // sh.tp if e == "model" else n
+                 for n, e in zip(leaf.shape, spec + (None,) * leaf.ndim)]
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+    return Cache({k: one(v, axes[k]) for k, v in full.items()}, slots)
+
+
+def cache_slots(cache) -> int | None:
+    """A cache's global slot count; ``None`` for a plain dict (nothing is
+    split: every leaf holds every slot)."""
+    return getattr(cache, "slots", None)
+
+
+def kv_layer(cache, i, slots):
+    """Layer ``i``'s self-attention cache, with the global slot count
+    when the cache knows it."""
+    kv = {"k": cache["k"][i], "v": cache["v"][i]}
+    if slots is not None:
+        kv["slots"] = slots
+    return kv
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None,
+               sh: ShardingCtx | None = None) -> dict:
+    """The zero cache of ``batch`` rows and ``max_seq`` slots; under a
+    model axis above one rank, this rank's shards of it."""
+    if sh is not None and sh.tp > 1:
+        full = init_cache(cfg, batch, max_seq, dtype, device="meta")
+        return local_cache(full, cache_axes(cfg), sh, max_seq, device)
     kind = family_kind(cfg)
     hd = cfg.resolved_head_dim
     if kind == "tblock":
@@ -217,11 +270,30 @@ def cache_axes(cfg: ArchConfig) -> dict:
 # ======================================================================
 # embedding / head
 # ======================================================================
+def vocab_lookup(table, tokens, cfg: ArchConfig, sh: ShardingCtx):
+    """``table[tokens]``; a table split by vocabulary rows looks up the
+    ids in this rank's rows, zero for the rest, and sums over the model
+    axis."""
+    ids = tokens.to(table.device)
+    if not sh.split("vocab", cfg.padded_vocab):
+        return table[ids]
+    n = table.shape[0]
+    local = ids.long() - sh.model_index * n
+    mine = ((local >= 0) & (local < n))[..., None]
+    return sh.reduce(torch.where(mine, table[local.clamp(0, n - 1)], 0.0))
+
+
+def vocab_head(h, w, cfg: ArchConfig, sh: ShardingCtx):
+    """``h @ w`` for a (d, V) head ``w``: this rank's block of the
+    vocabulary when ``w``'s columns are split."""
+    return common.col_parallel(h, w, sh, sh.split("vocab", cfg.padded_vocab))
+
+
 def embed_tokens(p, tokens, cfg: ArchConfig, sh: ShardingCtx,
                  extra_embeds=None) -> torch.Tensor:
     """Token embeddings, with ``extra_embeds`` (B, P, d) — a vlm's patch
     embeddings — prepended before the positions are added."""
-    h = p["embed"][tokens.to(p["embed"].device)]
+    h = vocab_lookup(p["embed"], tokens, cfg, sh)
     if cfg.scale_emb != 1.0:
         h = h * cfg.scale_emb
     if extra_embeds is not None:
@@ -259,8 +331,10 @@ def _rwkv_layers(params, h, cfg, sh, cache):
 
 
 def lm_head(p, h, cfg: ArchConfig, sh: ShardingCtx) -> torch.Tensor:
-    """h (B,S,d) -> logits (B,S,Vp); expects h already final-normed."""
-    logits = (h @ p["embed"].T) if cfg.tie_embeddings else (h @ p["lm_head"])
+    """h (B,S,d) -> logits (B,S,Vp), or this rank's block of the
+    vocabulary when the head is split; expects h already final-normed."""
+    logits = vocab_head(h, p["embed"].T if cfg.tie_embeddings
+                        else p["lm_head"], cfg, sh)
     if cfg.dim_model_base:
         logits = logits / (cfg.d_model / cfg.dim_model_base)
     return sh(logits, "batch", "seq", "vocab")
@@ -323,15 +397,16 @@ def prefill(params, tokens, cfg: ArchConfig, sh: ShardingCtx, max_cache: int,
     positions = torch.arange(S, device=h.device)
     if kind == "rwkv":
         # token-shift states in the activations' dtype, as in the reference
-        cache = init_cache(cfg, B, max_cache, h.dtype, device=h.device)
+        cache = init_cache(cfg, B, max_cache, h.dtype, device=h.device, sh=sh)
         h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, cache)
         h_last = _final_norm(params, h[:, -1:], cfg)
         return lm_head(params, h_last, cfg, sh)[:, 0], cache
-    cache = init_cache(cfg, B, max_cache, cache_dtype, device=h.device)
+    cache = init_cache(cfg, B, max_cache, cache_dtype, device=h.device,
+                       sh=sh)
 
     if kind == "tblock":
         for li in range(cfg.num_layers):
-            kv = {"k": cache["k"][li], "v": cache["v"][li]}
+            kv = kv_layer(cache, li, max_cache)
             h, _, _ = blocks.apply_tblock(
                 layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
                 positions=positions, use_moe=cfg.is_moe, kv_cache=kv,
@@ -342,7 +417,7 @@ def prefill(params, tokens, cfg: ArchConfig, sh: ShardingCtx, max_cache: int,
         n_app, group = hybrid_shape(cfg)
         for g in range(n_app):
             sp = layer(params["shared"], g % cfg.num_shared_blocks)
-            kv = {"k": cache["k"][g], "v": cache["v"][g]}
+            kv = kv_layer(cache, g, max_cache)
             h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
                                           positions=positions, kv_cache=kv,
                                           cache_index=0)
@@ -368,6 +443,7 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
     Returns (logits (B,Vp), the cache, updated in place)."""
     kind = family_kind(cfg)
     cache_index = int(cache_index)
+    slots = cache_slots(cache)
     h = embed_tokens(params, tokens, cfg, sh)
     if cfg.pos_scheme == "sinusoidal":
         # embed_tokens added position 0; replace with cache_index position
@@ -383,7 +459,7 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
         h = _rwkv_layers(params, _ln0(params, h, cfg), cfg, sh, cache)
     elif kind == "tblock":
         for li in range(cfg.num_layers):
-            kv = {"k": cache["k"][li], "v": cache["v"][li]}
+            kv = kv_layer(cache, li, slots)
             h, _, _ = blocks.apply_tblock(
                 layer(params["blocks"], li), h, cfg=cfg, sh=sh, causal=True,
                 positions=positions, use_moe=cfg.is_moe, kv_cache=kv,
@@ -392,7 +468,7 @@ def decode_step(params, tokens, cache, cache_index: int, cfg: ArchConfig,
         n_app, group = hybrid_shape(cfg)
         for g in range(n_app):
             sp = layer(params["shared"], g % cfg.num_shared_blocks)
-            kv = {"k": cache["k"][g], "v": cache["v"][g]}
+            kv = kv_layer(cache, g, slots)
             h, _, _ = blocks.apply_tblock(sp, h, cfg=cfg, sh=sh, causal=True,
                                           positions=positions, kv_cache=kv,
                                           cache_index=cache_index)

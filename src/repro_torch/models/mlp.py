@@ -1,4 +1,8 @@
-"""Feed-forward layers: SwiGLU (llama-family) and GELU (whisper)."""
+"""Feed-forward layers: SwiGLU (llama-family) and GELU (whisper).
+
+Under tensor parallelism ``ff`` is column-parallel (each rank holds a
+block of the hidden columns) and the down projection row-parallel:
+one sum over the model axis per layer."""
 from __future__ import annotations
 
 import torch
@@ -36,12 +40,17 @@ def axes_mlp(cfg: ArchConfig, kind: str = "swiglu") -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, *, sh: ShardingCtx,
-              kind: str = "swiglu") -> torch.Tensor:
+              kind: str = "swiglu", cfg: ArchConfig | None = None
+              ) -> torch.Tensor:
+    if cfg is None and sh.tp > 1:
+        raise ValueError("a tensor-parallel MLP needs its cfg (d_ff)")
+    split = cfg is not None and sh.split("ff", cfg.d_ff)
+    xc = sh.copy(x) if split else x
     if kind == "swiglu":
-        h = common.swiglu(common.dot(x, p["w_gate"]), common.dot(x, p["w_up"]))
+        h = common.swiglu(common.dot(xc, p["w_gate"]), common.dot(xc, p["w_up"]))
         h = sh(h, "batch", "seq", "act_ff")
-        return common.dot(h, p["w_down"])
+        return common.row_parallel(h, p["w_down"], sh, split)
     # the exact erf form, as the reference's gelu(approximate=False)
-    h = F.gelu(common.dot(x, p["w_in"]) + p["b_in"])
+    h = F.gelu(common.dot(xc, p["w_in"]) + p["b_in"])
     h = sh(h, "batch", "seq", "act_ff")
-    return common.dot(h, p["w_out"]) + p["b_out"]
+    return common.row_parallel(h, p["w_out"], sh, split) + p["b_out"]

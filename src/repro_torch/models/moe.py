@@ -15,11 +15,18 @@ combine puts each assignment's contribution back in its token's order
 (the inverse of the sort) and sums the ``K`` of a token, so the result
 does not depend on the order of atomic adds.
 
-Expert parallelism over a mesh's model axis (the reference's
-``apply_moe_ep_shardmap``) is not ported: a mesh runs data parallelism
-only (``ShardingCtx`` refuses a model axis above one rank), where each
-rank routes its own rows over replicated experts, its capacity and aux
-loss counted over those rows.
+On a mesh the expert weights are the shards their specs name.  With
+the default rules (``experts`` on ``data``, ``expert_ff`` on ``model``)
+the experts are gathered over the data axis, whose ranks route other
+rows, and ``expert_ff`` is tensor-parallel: each rank computes its
+block of every expert's hidden columns and the down projection's
+partial outputs are summed over the model axis.  With ``experts`` on
+``model`` and ``expert_ff`` on ``data`` (the MoE configs' train and
+prefill overrides) :func:`apply_moe_ep_shardmap` runs the reference's
+expert parallelism: each model rank owns E/tp experts, routes its data
+rows to its own experts only (a per-rank capacity, the drop slot
+``E_loc``), and one sum over the model axis combines the partial
+outputs.
 """
 from __future__ import annotations
 
@@ -83,22 +90,64 @@ def dispatch(top_e: torch.Tensor, E: int, C: int):
     argsort by expert, ``slot`` the flat row ``e * C + pos`` of each
     kept assignment in the (E*C, D) buffer and the drop row ``E * C``
     of each dropped one, ``keep`` whether its position in its expert is
-    below ``C``."""
+    below ``C`` (a choice of ``E`` itself, the expert-parallel route's
+    drop slot, is never kept)."""
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = torch.bincount(sorted_e, minlength=E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(flat_e.numel(), device=flat_e.device) - starts[sorted_e]
-    keep = pos < C
+    keep = (pos < C) & (sorted_e < E)
     slot = torch.where(keep, sorted_e * C + pos,
                        torch.full_like(pos, E * C))
     return order, slot, keep
 
 
+def _experts(p, cfg: ArchConfig, sh: ShardingCtx, dims):
+    """The expert weights with the dims that ``dims`` names (leaf ->
+    (logical axis, dim)) gathered over the data axis where their specs
+    split them there: the data ranks route other rows, so each one's
+    gradient share is summed back."""
+    out = []
+    for name in ("w_gate", "w_up", "w_down"):
+        w = p[name]
+        logical, dim = dims[name]
+        size = {"experts": cfg.num_experts, "expert_ff": cfg.d_ff}[logical]
+        if sh.split(logical, size, axis="data"):
+            w = sh.gather(w, dim, axis="data", summed=True)
+        out.append(w)
+    return out
+
+
+def _ffn(buf, wg, wu, wd, sh: ShardingCtx, split: bool):
+    """The grouped SwiGLU of an (E, C, D) buffer; ``split``: the weights
+    hold this rank's block of ``expert_ff``, the partial outputs summed
+    over the model axis."""
+    bc = sh.copy(buf) if split else buf
+    h = common.swiglu(torch.bmm(bc, wg), torch.bmm(bc, wu))
+    h = sh(h, "experts", None, "act_ff")
+    out = torch.bmm(h, wd)
+    return sh.reduce(out) if split else out
+
+
+def _combine(out, slot, order, weights, T, K):
+    """Each kept assignment's output row times its weight, back in token
+    order, the ``K`` of a token summed (the drop row reads zero)."""
+    D = out.shape[-1]
+    out = torch.cat([out.reshape(-1, D), out.new_zeros((1, D))])
+    contrib = out[slot] * weights.reshape(-1)[order][:, None]
+    per_choice = torch.empty_like(contrib)
+    per_choice[order] = contrib
+    return per_choice.view(T, K, D).sum(dim=1)
+
+
 def apply_moe(p: dict, x: torch.Tensor, *, cfg: ArchConfig, sh: ShardingCtx,
               capacity_factor: float | None = None):
     """Returns (output (B,S,D), aux load-balancing loss scalar)."""
+    if _use_shardmap_ep(cfg, sh):
+        return apply_moe_ep_shardmap(p, x, cfg=cfg, sh=sh,
+                                     capacity_factor=capacity_factor)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = B * S
@@ -113,15 +162,60 @@ def apply_moe(p: dict, x: torch.Tensor, *, cfg: ArchConfig, sh: ShardingCtx,
     buf[slot] = xf[token_of]
     buf = sh(buf[:E * C].view(E, C, D), "experts", None, "embed")
 
-    # ---- grouped expert FFN (SwiGLU)
-    h = common.swiglu(torch.bmm(buf, p["w_gate"]), torch.bmm(buf, p["w_up"]))
-    h = sh(h, "experts", None, "act_ff")
-    out = torch.cat([torch.bmm(h, p["w_down"]).reshape(E * C, D),
-                     x.new_zeros((1, D))])     # the drop row reads zero
-
-    # ---- combine: back to token order, then the K choices summed
-    contrib = out[slot] * top_w.reshape(-1)[order][:, None]
-    per_choice = torch.empty_like(contrib)
-    per_choice[order] = contrib
-    y = per_choice.view(T, K, D).sum(dim=1)
+    # ---- grouped expert FFN (SwiGLU), then the combine
+    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": ("experts", 0),
+                                       "w_up": ("experts", 0),
+                                       "w_down": ("experts", 0)})
+    out = _ffn(buf, wg, wu, wd, sh, sh.split("expert_ff", cfg.d_ff))
+    y = _combine(out, slot, order, top_w, T, K)
     return y.reshape(B, S, D), aux
+
+
+def apply_moe_ep_shardmap(p, x, *, cfg: ArchConfig, sh: ShardingCtx,
+                          capacity_factor=None):
+    """Expert parallelism on the model axis (the reference's shard_map
+    schedule, on local tensors): each model rank owns E/tp experts
+    (its ``experts`` block; ``expert_ff`` regathered over ``data`` when
+    that axis has several ranks) and routes its LOCAL tokens — its data
+    rows, replicated over ``model`` — to its OWN experts only, with a
+    per-rank capacity and ``E_loc`` as the drop slot; the partial
+    outputs are summed over ``model``, the one collective of the layer,
+    and ``aux`` is averaged over ``model`` (equal there) and ``data``."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    E_loc = E // sh.tp
+    col = sh.model_index
+    T = B * S
+    C = capacity(cfg, T, capacity_factor)
+    xf = x.reshape(T, D)
+    top_w, top_e, aux = route(p["router"], xf, cfg)
+    owned = (top_e // E_loc) == col
+    local_e = torch.where(owned, top_e - col * E_loc,
+                          torch.full_like(top_e, E_loc))
+    weights = sh.copy(top_w) * owned.to(top_w.dtype)
+    order, slot, _ = dispatch(local_e, E_loc, C)
+    token_of = order // K
+
+    buf = x.new_zeros((E_loc * C + 1, D))
+    buf[slot] = sh.copy(xf)[token_of]
+    buf = buf[:E_loc * C].view(E_loc, C, D)
+    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": ("expert_ff", 2),
+                                       "w_up": ("expert_ff", 2),
+                                       "w_down": ("expert_ff", 1)})
+    out = _ffn(buf, wg, wu, wd, sh, False)
+    y = sh.reduce(_combine(out, slot, order, weights, T, K))
+    n = sh.size("data")
+    if n > 1:
+        aux = sh.copy(sh.reduce(aux, "data"), "data") / n
+    return y.reshape(B, S, D), aux
+
+
+def _use_shardmap_ep(cfg: ArchConfig, sh: ShardingCtx) -> bool:
+    """The reference's choice: a mesh with a ``model`` axis that divides
+    the experts, under rules that put ``experts`` on ``model`` and
+    ``expert_ff`` on ``data``."""
+    if sh.mesh is None or sh.rules.get("experts") != "model":
+        return False
+    sizes = sh.mesh.sizes
+    return ("model" in sizes and cfg.num_experts % sizes["model"] == 0
+            and sh.rules.get("expert_ff") == "data")

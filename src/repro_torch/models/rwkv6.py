@@ -1,5 +1,19 @@
 """RWKV6 ("Finch") block: token-shift ddlerp mixing, data-dependent decay
-(LoRA), WKV6 linear-attention scan, and squared-ReLU channel mix."""
+(LoRA), WKV6 linear-attention scan, and squared-ReLU channel mix.
+
+Under tensor parallelism ``w_r``, ``w_k``, ``w_v`` and ``w_g`` are split
+by heads (column-parallel), so K5 runs on each rank's H/tp heads; the
+token-shift mixing and its LoRAs run replicated, and the decay, ``u``
+and the per-head group norm's weights, all replicated leaves, give the
+rank's heads.  ``w_o`` is row-parallel, and so is the channel mix
+(``c_k`` column-, ``c_v`` row-parallel).  ``c_r`` is split by its output
+columns like the heads, but it gates the replicated output of ``c_v``:
+the rank computes its columns and they are gathered over the model
+axis (an activation of (B, S, d), against gathering the d x d weight).
+The cache's ``wkv`` state is replicated by its spec (``ssm_heads`` is
+not split): each rank scans from its heads of it, and the new state is
+gathered.
+"""
 from __future__ import annotations
 
 import torch
@@ -94,6 +108,18 @@ def apply_rwkv6(
     B, S, d = x.shape
     H, K = cfg.rwkv_nheads, cfg.rwkv_head_dim
     caching = cache is not None
+    tp = sh.tp
+    split = sh.split("heads_fused", d)
+    if split and H % tp:
+        raise ValueError(f"{cfg.name}: {H} heads do not split over {tp} "
+                         "ranks")
+    nh = H // tp if split else H
+    h0 = sh.model_index * nh if split else 0
+    mine = slice(h0 * K, (h0 + nh) * K)
+
+    def local(t):
+        """This rank's heads' channels of a replicated (..., d) value."""
+        return sh.copy(t)[..., mine] if split else t
 
     # ---- time mix ------------------------------------------------------
     xn = common.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.norm_eps)
@@ -106,23 +132,25 @@ def apply_rwkv6(
     mixed = xn[None] + xx[None] * (p["mu"][:, None, None] + lora)
     xr, xk, xv, xw, xg = mixed
 
-    r = (xr @ p["w_r"]).reshape(B, S, H, K)
-    k = (xk @ p["w_k"]).reshape(B, S, H, K)
-    v = (xv @ p["w_v"]).reshape(B, S, H, K)
-    g = F.silu(xg @ p["w_g"])
+    r = common.col_parallel(xr, p["w_r"], sh, split).reshape(B, S, nh, K)
+    k = common.col_parallel(xk, p["w_k"], sh, split).reshape(B, S, nh, K)
+    v = common.col_parallel(xv, p["w_v"], sh, split).reshape(B, S, nh, K)
+    g = F.silu(common.col_parallel(xg, p["w_g"], sh, split))
     ww = p["decay_base"] + (torch.tanh(xw @ p["decay_w1"])
                             @ p["decay_w2"]).to(torch.float32)
-    w = torch.exp(-torch.exp(ww)).reshape(B, S, H, K)  # in (0,1)
+    w = torch.exp(-torch.exp(local(ww))).reshape(B, S, nh, K)  # in (0,1)
+    u = sh.copy(p["u"])[h0:h0 + nh] if split else p["u"]
 
-    state0 = cache["wkv"] if caching else None
+    state0 = cache["wkv"][:, h0:h0 + nh] if caching else None
     if caching and S == 1:
-        y, wkv_new = kref.rwkv6_scan_ref(r, k, v, w, p["u"], state0)
+        y, wkv_new = kref.rwkv6_scan_ref(r, k, v, w, u, state0)
     else:
-        y, wkv_new = kops.rwkv6_scan(r, k, v, w, p["u"], state0)
-    y = y.reshape(B, S, d)
-    y = common.group_norm(y, p["gn_s"], p["gn_b"], H, eps=64e-5)
+        y, wkv_new = kops.rwkv6_scan(r, k, v, w, u, state0)
+    y = y.reshape(B, S, nh * K)
+    y = common.group_norm(y, local(p["gn_s"]), local(p["gn_b"]), nh,
+                          eps=64e-5)
     y = sh(y * g, "batch", "seq", "act_heads")
-    x = x + y @ p["w_o"]
+    x = x + common.row_parallel(y, p["w_o"], sh, split)
 
     # ---- channel mix ----------------------------------------------------
     xn2 = common.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.norm_eps)
@@ -130,11 +158,15 @@ def apply_rwkv6(
     xx2 = _shift(xn2, prev2) - xn2
     ck_in = xn2 + xx2 * p["cmu_k"]
     cr_in = xn2 + xx2 * p["cmu_r"]
-    kk = torch.square(F.relu(ck_in @ p["c_k"]))
+    ff = sh.split("ff", cfg.d_ff)
+    kk = torch.square(F.relu(common.col_parallel(ck_in, p["c_k"], sh, ff)))
     kk = sh(kk, "batch", "seq", "act_ff")
-    x = x + torch.sigmoid(cr_in @ p["c_r"]) * (kk @ p["c_v"])
+    gate = common.col_parallel(cr_in, p["c_r"], sh, split)
+    gate = sh.gather(gate, -1) if split else gate
+    x = x + torch.sigmoid(gate) * common.row_parallel(kk, p["c_v"], sh, ff)
 
     new_cache = None
     if caching:
-        new_cache = {"tm_x": xn[:, -1], "cm_x": xn2[:, -1], "wkv": wkv_new}
+        new_cache = {"tm_x": xn[:, -1], "cm_x": xn2[:, -1],
+                     "wkv": sh.gather(wkv_new, 1) if split else wkv_new}
     return x, new_cache

@@ -77,11 +77,27 @@ def init_moments(params) -> tuple[dict, dict]:
     return tree_map(zeros, params), tree_map(zeros, params)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+def global_norm(tree, groups=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  ``groups``
+    (one per leaf, in leaf order) names the process-group axes whose
+    ranks hold the other shards of a split leaf: the squares of the
+    leaves split alike are summed over those axes, and a replicated
+    leaf (an empty group) is counted once."""
     leaves = tree_leaves(tree) if isinstance(tree, dict) else list(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves))
+    if groups is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in leaves))
+    sums: dict = {}
+    for g, axes in zip(leaves, groups):
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        key = tuple(axes)
+        sums[key] = sq if key not in sums else sums[key] + sq
+    total = 0.0
+    for axes, sq in sums.items():
+        for axis in axes:
+            sq = axis.all_reduce(sq)
+        total = total + sq
+    return torch.sqrt(total)
 
 
 def bias_corrections(step, cfg: TrainConfig) -> tuple[float, float]:

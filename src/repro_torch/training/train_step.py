@@ -14,15 +14,23 @@ state, as the JAX package's launcher donates it to its jitted step: at
 full width a second copy of the parameters and both moments would not
 fit beside the first.
 
-Data parallelism: on a mesh of several ranks (``sh.mesh``, whose model
-axis is 1) each rank takes its rows of each microbatch, the rows the
-reference's ``"batch" -> ("pod", "data")`` sharding puts on its data
-index (every row when they do not split evenly, as the reference's
-divisibility demotion replicates them).  Each rank's gradients, loss
-and metrics are weighted by its share of the microbatch's tokens and
-summed over the ranks after the float32 accumulation, before the
-``grad_reduce_dtype`` rounding; clipping and AdamW then run alike on
-every rank.  The result is one rank's step on the global batch, up to
+Parallelism: on a mesh of several ranks (``sh.mesh``) the state holds
+each leaf's local shard, as its spec names it.  Each rank takes the
+rows of each microbatch that the reference's ``"batch" -> ("pod",
+"data")`` sharding puts on its data index (every row when they do not
+split evenly, as the reference's divisibility demotion replicates
+them), and its loss is weighted by its share of the microbatch's
+tokens before the backward.  The model's apply functions place their
+own collectives over the model axis (tensor and expert parallelism),
+so every model rank of a data index ends with the same loss and the
+same gradient for a replicated leaf, and its local gradient for a leaf
+split over ``model``.  The gradients, loss and metrics are then summed
+over the data axis after the float32 accumulation, before the
+``grad_reduce_dtype`` rounding — except a leaf split over ``data`` (the
+MoE's experts), whose gather over the data axis already summed its
+gradient in the backward.  The global norm sums the squares of a split
+leaf over the axes that split it; clipping and AdamW then run on the
+local shards.  The result is one rank's step on the global batch, up to
 the order of the sums.
 """
 from __future__ import annotations
@@ -30,21 +38,26 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import ShardingCtx, local_rows
+from repro_torch.distributed.sharding import (Axis, Layout, ShardingCtx,
+                                              local_rows, map_with_axes)
 from repro_torch.models.lm import tree_leaves, tree_like, tree_map
-from repro_torch.models.registry import ModelAPI
+from repro_torch.models.registry import ModelAPI, param_shapes
 from repro_torch.training.optimizer import (
     TrainConfig, adamw_leaf, bias_corrections, global_norm, init_moments,
     lr_schedule)
 
 
 def init_train_state(model: ModelAPI, generator: torch.Generator,
-                     param_dtype=torch.float32) -> dict:
-    """Seeded parameters (on ``generator``'s device), zero float32
-    moments and an int32 step of 0."""
+                     param_dtype=torch.float32, place=None) -> dict:
+    """Seeded parameters (on ``generator``'s device, or where ``place``
+    puts them: a rank's shards on its card), zero float32 moments beside
+    them and an int32 step of 0."""
     params = model.init(generator, dtype=param_dtype)
+    if place is not None:
+        params = place(params)
     m, v = init_moments(params)
-    step = torch.zeros((), dtype=torch.int32, device=generator.device)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
     return {"params": params, "m": m, "v": v, "step": step}
 
 
@@ -67,18 +80,20 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
         return tree_map(lambda x: x.to(cdtype)
                         if x.dtype == f32 and x.ndim >= 1 else x, p)
 
+    par = _Parallel.of(model, sh)
+
     def value_and_grad(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
             loss, metrics = model.loss(cast(tree_like(params, leaves)), batch,
                                        sh, remat=tcfg.remat)
+            if par is not None and par.batch is not None:
+                loss, metrics = par.weigh(loss, metrics)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(leaves, grads)]
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 grads)
-
-    dp = _DataParallel.of(sh)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         step = int(state["step"]) + 1
@@ -90,11 +105,9 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
             part = batch if mb == 1 else {
                 k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
                 for k, v in batch.items()}
-            if dp is not None:
-                part = local_rows(part, dp.n, dp.index)
+            if par is not None:
+                part = local_rows(part, par.n, par.index)
             l, metrics, g = value_and_grad(state["params"], part)
-            if dp is not None:
-                l, metrics, g = dp.weigh(l, metrics, g)
             if grads is None:
                 grads = g if mb == 1 else [x.to(f32) for x in g]
             else:
@@ -106,12 +119,14 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
             for g in grads:
                 g.div_(mb)
             loss = loss / mb
-        if dp is not None:
-            loss, metrics = dp.reduce(grads, loss, metrics)
+        groups = None
+        if par is not None:
+            groups = par.groups(state["params"])
+            loss, metrics = par.reduce(grads, groups, loss, metrics)
         if tcfg.grad_reduce_dtype != "float32":
             grads = [g.to(rdtype) for g in grads]
 
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, groups)
         scale = torch.clamp(tcfg.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = sched(step)
         c1, c2 = bias_corrections(step, tcfg)
@@ -131,42 +146,73 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
     return train_step
 
 
-class _DataParallel:
-    """This rank's share of a data-parallel step over the default
-    process group (the mesh's ranks; its model axis is 1, so its batch
-    extent is every rank)."""
+def batch_axis(sh: ShardingCtx) -> Axis | None:
+    """The process group of the ranks that split the ``batch`` rows
+    (pod x data), or ``None`` when they are one rank."""
+    if sh.mesh.batch_extent == 1:
+        return None
+    if sh.size("pod") == 1:
+        return sh.axis("data")
+    if sh.tp == 1:      # pod x data is then the whole world
+        import torch.distributed as dist
+        return Axis(dist.group.WORLD, dist.get_world_size(), dist.get_rank())
+    raise NotImplementedError("a pod axis beside a model axis above one rank")
 
-    def __init__(self, n: int, index: int):
-        self.n, self.index = n, index
+
+class _Parallel:
+    """This rank's share of a step on a mesh: its data index among the
+    ``n`` batch ranks, the batch axis's group, and per parameter leaf
+    the mesh axes that split it (from the specs of the full shapes)."""
+
+    def __init__(self, sh: ShardingCtx, layout: Layout):
+        self.sh, self.layout = sh, layout
+        self.n, self.index = sh.mesh.batch_extent, sh.data_index
+        self.batch = batch_axis(sh)
 
     @classmethod
-    def of(cls, sh: ShardingCtx):
-        mesh = sh.mesh
-        if mesh is None or mesh.size == 1:
+    def of(cls, model: ModelAPI, sh: ShardingCtx):
+        if sh.mesh is None or sh.mesh.size == 1:
             return None
-        if mesh.device_mesh is None:
-            raise ValueError(f"a mesh of {mesh.size} ranks needs its "
+        if sh.mesh.device_mesh is None:
+            raise ValueError(f"a mesh of {sh.mesh.size} ranks needs its "
                              "DeviceMesh (a process group of that size)")
-        return cls(mesh.batch_extent, dist.get_rank())
+        return cls(sh, Layout(sh, param_shapes(model), model.param_axes()))
 
-    def weigh(self, loss, metrics, grads):
-        """Scale this rank's loss, ``ce``, ``aux`` and gradients by its
-        share of the microbatch's tokens; ``ntok`` becomes the
+    def groups(self, params) -> list[list[Axis]]:
+        """Per leaf of ``params`` (in its order), the groups over which
+        its shards lie: the batch group for a split over pod or data,
+        the model group for one over model."""
+        def axes(_, spec):
+            names = {a for e in spec for a in
+                     ((e,) if isinstance(e, str) else (e or ()))
+                     if self.sh.size(a) > 1}
+            out = []
+            if names & {"pod", "data"}:
+                out.append(self.batch)
+            if "model" in names:
+                out.append(self.sh.axis("model"))
+            return out
+        return tree_leaves(map_with_axes(axes, params, self.layout.specs))
+
+    def weigh(self, loss, metrics):
+        """Scale this rank's loss, ``ce`` and ``aux`` by its share of the
+        microbatch's tokens (before the backward); ``ntok`` becomes the
         microbatch's."""
-        ntok = metrics["ntok"].detach().clone()
-        dist.all_reduce(ntok)
+        ntok = self.batch.all_reduce(metrics["ntok"].detach())
         w = metrics["ntok"] / ntok
         metrics = dict(metrics, ce=metrics["ce"] * w, aux=metrics["aux"] * w,
                        ntok=ntok)
-        for g in grads:
-            g.mul_(w.to(g.dtype))
-        return loss * w, metrics, grads
+        return loss * w, metrics
 
-    def reduce(self, grads, loss, metrics):
-        """Sum the weighted gradients, loss and metrics over the ranks."""
-        for g in grads:
-            dist.all_reduce(g)
-        sums = torch.stack([loss, metrics["ce"], metrics["aux"]]).to(
-            torch.float32)
-        dist.all_reduce(sums)
+    def reduce(self, grads, groups, loss, metrics):
+        """Sum the weighted gradients of the leaves replicated over the
+        batch axis, and the loss and metrics, over that axis."""
+        if self.batch is None:
+            return loss, metrics
+        import torch.distributed as dist
+        for g, axes in zip(grads, groups):
+            if self.batch not in axes:
+                dist.all_reduce(g, group=self.batch.group)
+        sums = self.batch.all_reduce(torch.stack(
+            [loss, metrics["ce"], metrics["aux"]]).to(torch.float32))
         return sums[0], dict(metrics, ce=sums[1], aux=sums[2])

@@ -140,13 +140,14 @@ def test_placements_name_the_spec_per_mesh_axis():
 
 
 def test_constrain_is_the_identity_off_a_mesh_and_on_plain_tensors():
+    # the apply functions compute on local blocks with explicit
+    # collectives, so a context's constraint is the identity on every mesh
     x = torch.ones(4, 8)
-    rules = tsh.default_rules()
-    assert tsh.constrain(x, ("batch", "ff"), rules, None) is x
-    assert tsh.constrain(x, ("batch", "ff"), rules,
-                         tsh.Mesh(("data", "model"), (1, 1))) is x
-    sh = tsh.ShardingCtx(mesh=tsh.Mesh(("data", "model"), (4, 1)))
-    assert sh(x, "batch", "ff") is x
+    for sh in (tsh.REPLICATED,
+               tsh.ShardingCtx(mesh=tsh.Mesh(("data", "model"), (1, 1))),
+               tsh.ShardingCtx(mesh=tsh.Mesh(("data", "model"), (4, 1))),
+               tsh.ShardingCtx(mesh=tsh.Mesh(("data", "model"), (2, 2)))):
+        assert sh(x, "batch", "ff") is x
 
 
 # -------------------------------------------- params, state and caches
@@ -207,6 +208,40 @@ def _assert_same_shapes(port, ref, path=()):
         return
     assert tuple(port.shape) == tuple(ref.shape), path
     assert port.dtype == DTYPES[jnp.dtype(ref.dtype)], path
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_phase_18_param_bytes_are_the_reference_rules(reduced):
+    """``chip_smoke.py``'s phase 18 holds each rank's parameter bytes at
+    ``model_par=2`` against a table; the table is what the reference's
+    rules and spec arithmetic give its parameter shapes (float32)."""
+    import chip_smoke
+    duck = types.SimpleNamespace(axis_names=("data", "model"),
+                                 devices=np.empty((1, chip_smoke.TP_RANKS)))
+    sizes = dict(zip(duck.axis_names, duck.devices.shape))
+    for run in chip_smoke.tp_runs(reduced):
+        if run["kind"] == "train":
+            continue
+        cfg = jax_arch(run["arch"], reduced=reduced)
+        rules = dict(jsh.default_rules())
+        if run.get("overrides") or run.get("ep"):
+            rules.update(cfg.sharding_overrides or {})
+        if run.get("ep"):
+            rules.update(cfg.prefill_sharding_overrides)
+        api = jax_model(cfg)
+        shapes = (_param_shapes(run["arch"]) if not reduced else
+                  jax.eval_shape(lambda: api.init(jax.random.PRNGKey(0))))
+        specs = jax.tree.leaves(
+            jsh.tree_to_specs(shapes, api.param_axes(), duck, rules),
+            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+        want = 0
+        for leaf, spec in zip(jax.tree.leaves(shapes), specs):
+            n = int(np.prod(leaf.shape))
+            for entry in spec:
+                for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                    n //= sizes[a]
+            want += 4 * n
+        assert run["param_bytes"] == want, run["name"]
 
 
 # ------------------------------------------------ input specs and SHAPES

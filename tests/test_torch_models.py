@@ -457,9 +457,10 @@ def test_group_batcher_matches_sequential_greedy():
 
 # ------------------------------------------------- what is not ported
 def test_unported_paths_raise_instead_of_running_something_else():
-    """What is still to come raises and names its slice: a mesh whose
-    model axis is above one rank needs tensor parallelism, and the
-    production mesh needs its 256 ranks; an unknown arch raises.  Every
+    """What cannot run raises: a mesh of several ranks without its
+    process group cannot place a rank (tensor parallelism over a model
+    axis above one rank runs, ``tests/test_torch_tensor_parallel.py``),
+    and the production mesh needs its 256 ranks; an unknown arch raises.  Every
     assigned architecture is ported (the dense configs minicpm-2b,
     granite-8b and qwen1.5-32b are parity cases of ``ARCHS``), and
     ``model_par=2`` on one rank runs unsharded (the reference's clamp,
@@ -467,8 +468,10 @@ def test_unported_paths_raise_instead_of_running_something_else():
     from repro_torch.distributed.sharding import Mesh
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
-    with pytest.raises(NotImplementedError, match="tensor-parallel slice"):
-        ShardingCtx(mesh=Mesh(("data", "model"), (2, 2)))
+    sh = ShardingCtx(mesh=Mesh(("data", "model"), (2, 2)))
+    assert sh.tp == 2
+    with pytest.raises(ValueError, match="needs its DeviceMesh"):
+        sh.model_index
     assert ShardingCtx(mesh=Mesh(("data", "model"), (4, 1))).mesh.size == 4
     from repro_torch.launch import train
     with pytest.raises(ValueError, match="256 ranks"):

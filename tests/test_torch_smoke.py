@@ -2,7 +2,8 @@
 check: which kernels ``--ab`` compares by default, the attention mask
 behind K3's library time at a cache offset, and a rehearsal of phases 9
 and 10 (the scale-out path and the baselines) on the CPU at a few
-entities each, where the kernels' launch counts stay 0.
+entities each, where the kernels' launch counts stay 0, and phase 18's
+two rank processes (gloo on the CPU) at reduced sizes.
 
 Tolerance: the masked ``scaled_dot_product_attention`` against the plain
 flash forward, 1e-5 absolute (the same float32 softmax over the same
@@ -158,3 +159,22 @@ def test_phase_15_rehearsed_on_the_cpu():
     bf16 = out["minicpm_bf16_vs_f32"]
     assert 0.0 < bf16["m_rel_l2"] <= cs.TRAIN_BF16_M_RTOL
     assert 0.0 < bf16["embed_m_rel_l2"] <= cs.TRAIN_BF16_EMBED_M_RTOL
+
+
+def test_phase_18_rehearsed_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 18's two rank processes on the CPU at the reduced sizes:
+    every run at model_par=2 matches its model_par=1 run (the phase's
+    own checks), the EP route runs, and the parameter bytes equal the
+    spec arithmetic's."""
+    monkeypatch.setattr(cs, "ROOT", str(tmp_path))
+    out = cs.phase_tensor_parallel(device="cpu", reduced=True)
+    runs = [r["name"] for r in cs.tp_runs(reduced=True)]
+    assert sorted(out["runs"]) == sorted(runs)
+    for name in runs:
+        for r in range(cs.TP_RANKS):
+            info = out["runs"][name][f"rank_{r}"]
+            assert info.get("logits_ok", info.get("train_ok")), (name, info)
+    cache = out["runs"]["qwen3_serve"]["rank_0"]["cache"]["k"]
+    assert cache[1][2] * 2 == cache[0][2]          # split by slots
+    cache = out["runs"]["zamba2_heads_prefill"]["rank_1"]["cache"]["k"]
+    assert cache[1][3] * 2 == cache[0][3]          # split by heads

@@ -254,6 +254,43 @@ def test_one_train_step_at_the_defaults_matches_the_reference(arch):
                                                            far / n)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-1.6b"])
+def test_three_launcher_steps_of_the_scan_models_match_the_reference(arch):
+    """Three steps from one JAX state at the launchers' settings (lr
+    3e-3, warmup 5, float32 compute, bfloat16 gradient rounding, remat;
+    the reference's ``launch/train.py``) on the launchers' batches:
+    each step's loss within 1e-5 and gradient norm within 1e-4,
+    relative, of the reference's (a later step's loss carries every
+    earlier update)."""
+    from repro.launch.train import make_batch_fn as jax_make_batch_fn
+    from repro_torch.launch.train import make_batch_fn
+    kw = dict(learning_rate=3e-3, total_steps=3, warmup_steps=5,
+              compute_dtype="float32", remat=True)
+    jcfg = jax_arch(arch, reduced=True)
+    jm = jax_model(jcfg)
+    state = jax_init_state(jm, jax.random.PRNGKey(0))
+    tstate = train_state_from_jax(jax.tree.map(np.asarray, state),
+                                  get_arch(arch, reduced=True), device="cpu")
+    jstep = jax.jit(jax_make_train_step(jm, JaxTrainConfig(**kw),
+                                        JAX_REPLICATED))
+    tstep = make_train_step(get_model(get_arch(arch, reduced=True)),
+                            TrainConfig(**kw), REPLICATED)
+    jmake = jax_make_batch_fn(jcfg, 4, 32)
+    tmake = make_batch_fn(get_arch(arch, reduced=True), 4, 32)
+    for i in range(3):
+        b, tb = jmake(i), tmake(i)
+        for k in b:
+            np.testing.assert_array_equal(tb[k], b[k])
+        state, jmet = jstep(state, {k: jnp.asarray(v) for k, v in b.items()})
+        tstate, tmet = tstep(tstate, {k: torch.from_numpy(v)
+                                      for k, v in tb.items()})
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   rtol=1e-5, err_msg=f"step {i + 1}")
+        np.testing.assert_allclose(float(tmet["grad_norm"]),
+                                   float(jmet["grad_norm"]), rtol=1e-4,
+                                   err_msg=f"step {i + 1}")
+
+
 def test_microbatched_train_step_matches_the_reference():
     jstate, jmet, tstate, tmet, _ = _one_step(
         "qwen3-0.6b", batch=8, compute_dtype="float32",
