@@ -145,7 +145,18 @@ Phases (any failed check exits non-zero, before the result line):
    loss and gradient norm within 1e-5 and 1e-4 relative; each rank's
    K3, K4 and K5 launches, peak memory and parameter bytes (equal to
    what the reference's rules give, ``tp_runs``' ``param_bytes``), and
-   the walls.
+   the walls;
+19. the dry run (``launch/dryrun.py``) against the card: (a) in a
+   subprocess under ``fake`` process groups, the port's counterparts of
+   the reference's production-mesh dry-run tests (whisper-small
+   ``decode_32k`` on 16 x 16, rwkv6-1.6b ``decode_32k`` on 2 x 16 x 16);
+   (b) qwen3-0.6b's train step at 2 x 4,096 (bf16 compute, K3 forward
+   and remat's recompute) and rwkv6-1.6b's prefill at 4 x 4,096 (bf16,
+   K5), each predicted by ``run_cell`` on meta tensors on a (1, 1) mesh,
+   then run on the card from the port's seeded init: the launches of
+   K3, K4 and K5 equal the prediction's, the input bytes equal it, the
+   peak allocation is within 15% of its peak; the wall (median of 3
+   warm calls) and the counted FLOPs' share of the bf16 peak printed.
 
 Phase 5 also holds K4's and K5's Functions (forward + backward) at the
 training shapes of phase 16 against autograd through the plain chunked
@@ -161,9 +172,11 @@ phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5; phase 9 K1
 and K2; phase 10 K1).  Phase 18's ranks zero their own counts before
 each run and read them after it (each run's kernels must have launched
 on each rank); the parent's ``model_par=1`` runs, the comparison, count
-in none.  K1's and K2's launches in the kernels line are the sum over
-phases 2–4, 9 and 10, K3's over phases 6–8, 11–16 and 18, K4's over
-phases 6, 16 and 18, K5's over phases 7, 16 and 18.
+in none.  Phase 19 (after 18) zeroes the counts just before each of
+its card steps and reads them just after (its train step must launch
+K3, its prefill K5).  K1's and K2's launches in the kernels line are
+the sum over phases 2–4, 9 and 10, K3's over phases 6–8, 11–16, 18 and
+19, K4's over phases 6, 16 and 18, K5's over phases 7, 16, 18 and 19.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
 limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
@@ -193,13 +206,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b0"
 
-# NVIDIA H100 SXM data sheet (dense rates): HBM3 bandwidth; float32
-# operations outside the tensor cores; and matrix products on the tensor
-# cores for each operand type: bfloat16 at 989 TF/s, float32 kept at
-# float32 accuracy as three TF32 passes (3xTF32) at 495/3 TF/s
-HBM_BYTES_S = 3.35e12
-FP32_FLOP_S = 67e12
-PRODUCT_FLOP_S = {"torch.float32": 495e12 / 3, "torch.bfloat16": 989e12}
+# the card's rates and the kernels' work formulas: one copy, which the
+# kernels' meta routes and the dry run read too
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.kernels.work import (  # noqa: E402
+    FP32_FLOP_S, HBM_BYTES_S, PEAK_FLOPS, PRODUCT_FLOP_S, attn_grad_work,
+    attn_work,
+    ssd_grad_work, ssd_work, visible_pairs, wkv_grad_work, wkv_work)
 
 # the blur kernel equals its plain version bit for bit (same taps, same
 # order, products and sums rounded separately)
@@ -547,25 +560,6 @@ def ssd_inputs(rng, B, T, H, P, G, N, dtype):
     return x, dt, A, Bm, Cm, n((H,), 0.1).abs(), n((B, H, P, N), 0.1)
 
 
-def ssd_work(B, T, H, P, G, N, itemsize):
-    """Bytes, matrix-product operations and other operations of one SSD
-    call, counted for the function: the chunked form is exact at any
-    chunk length and its products grow with the length (the causal half
-    of C Bᵀ and its product with x), so they are counted at length 1,
-    the recurrence.  Bytes: x and y in their type, B and C by group
-    (never repeated to heads), dt, A, D and both states in float32, each
-    once.  Products, per (batch, head) step: C_t · B_t and its product
-    with x_t (2N + 2P), the readout C_t · h (2NP) and the state update
-    dt x_t B_tᵀ (2NP).  Other: the step's decay and dt factors (3), the
-    exp(la) scale and D skip (4P), the update's weights (3P) and the
-    state's decay (NP)."""
-    nbytes = (2 * B * T * H * P + 2 * B * T * G * N) * itemsize \
-        + (B * T * H + 2 * H + 2 * B * H * P * N) * 4
-    steps = B * T * H
-    return (nbytes, (2 * N + 2 * P + 4 * N * P) * steps,
-            (3 + 7 * P + N * P) * steps)
-
-
 def wkv_inputs(rng, B, T, H, K, dtype, shift=0.0):
     """r, k ~ 0.5 N, v ~ N, u ~ 0.1 N, s0 ~ 0.1 N, and the model's decay
     w = exp(-exp(ww)) with ww = -4 + shift + N(0, 1) (the seeded LoRA's
@@ -582,93 +576,6 @@ def wkv_inputs(rng, B, T, H, K, dtype, shift=0.0):
     w = torch.exp(-torch.exp(-4.0 + shift + n((B, T, H, K))))
     return (r.to(dtype), k.to(dtype), v.to(dtype), w, n((H, K), 0.1),
             n((B, H, K, K), 0.1))
-
-
-def wkv_work(B, T, H, K, V, itemsize):
-    """Bytes, matrix-product operations and other operations of one
-    WKV6 call, counted for the function and not for the chunked
-    algorithm: with w given, the sequential recurrence needs no
-    exponential.  Bytes: r, k, v and y in their type, w in float32, u
-    and both states in float32, each once.  Products, per (batch, head)
-    step, as SSD's: the readout r · S (2KV) and the state update k vᵀ
-    (2KV).  Other: the state's decay w S (KV) and the bonus
-    (r u · k) v (3K + 2V)."""
-    nbytes = (3 * B * T * H * K + B * T * H * V) * itemsize \
-        + (B * T * H * K + H * K + 2 * B * H * K * V) * 4
-    steps = B * T * H
-    return nbytes, 4 * K * V * steps, (K * V + 3 * K + 2 * V) * steps
-
-
-def visible_pairs(Sq, Sk, q_offset, causal) -> int:
-    """The (query, key) pairs attention must visit: every key when not
-    causal, keys up to ``q_offset + row`` when causal."""
-    if causal:
-        return sum(min(Sk, q_offset + i + 1) for i in range(Sq))
-    return Sq * Sk
-
-
-def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
-    """Bytes and operations of one flash-attention call over the
-    (query, key) pairs it must visit: every key when not causal, keys
-    up to ``q_offset + row`` when causal.  Bytes: q and out in their
-    type, the keys and values that some row sees, by kv head, and the
-    float32 log-sum-exp, each once.  Products: 2D for the logit and 2D
-    for its share of P V per visible pair and head.  Other: the scale,
-    running max, exponential and sum of each visible pair and head
-    (4)."""
-    pairs = visible_pairs(Sq, Sk, q_offset, causal)
-    keys = min(Sk, q_offset + Sq) if causal else Sk
-    nbytes = (2 * B * Sq * H * D + 2 * B * keys * Hkv * D) * itemsize \
-        + B * Sq * H * 4
-    return nbytes, 4 * pairs * D * H * B, 4 * pairs * H * B
-
-
-def attn_grad_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
-    """Bytes and operations of flash attention's forward and recomputing
-    backward together, over the visible (query, key) pairs: q, k, v and
-    the output's cotangent read once, the output and dq, dk, dv written
-    once.  Products, as FlashAttention-2 counts them: 4D a visible pair
-    and head forward (Q Kᵀ, P V) and 10D backward (Q Kᵀ again, Pᵀ dO,
-    dO Vᵀ, dS K, dSᵀ Q: 2.5 times the forward's), 14D in all.  Other:
-    the forward's 4 and the backward's exponential, difference and two
-    scalings (4) a visible pair and head."""
-    pairs = visible_pairs(Sq, Sk, q_offset, causal)
-    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * Hkv * D) * itemsize
-    return nbytes, 14 * pairs * D * H * B, 8 * pairs * H * B
-
-
-def ssd_grad_work(B, T, H, P, G, N, itemsize):
-    """Bytes and operations of one SSD call forward and backward as a
-    training step runs it (no initial state, a cotangent for y only),
-    counted per step as :func:`ssd_work` counts the forward.  Bytes: x,
-    B, C, dt, A and D read once and y written once; dy read once and
-    dx, dB, dC, ddt, dA and dD written once.  Products per (batch, head)
-    step: the forward's 2N + 2P + 4NP, and the backward's 2N + 2P +
-    10NP: the readout's two (dh += dy Cᵀ and dC = hᵀ dy) and the
-    update's three (dx = dt dh B, dB = dt dhᵀ x, and the decay's sum of
-    dh ∘ h_prev), 2NP each.  Other: twice the forward's."""
-    nbytes = (4 * B * T * H * P + 4 * B * T * G * N) * itemsize \
-        + (2 * B * T * H + 4 * H) * 4
-    steps = B * T * H
-    return (nbytes, (4 * N + 4 * P + 14 * N * P) * steps,
-            (6 + 14 * P + 2 * N * P) * steps)
-
-
-def wkv_grad_work(B, T, H, K, V, itemsize):
-    """Bytes and operations of one WKV6 call forward and backward as a
-    training step runs it (no initial state, a cotangent for y only),
-    counted per step as :func:`wkv_work` counts the forward.  Bytes: r,
-    k, v and y in their type and w in float32, each once; dy read once,
-    dr, dk and dv written once in their type and dw in float32; u and du
-    in float32.  Products per (batch, head) step: the forward's readout
-    and update (4KV) and the backward's five (dS += r dyᵀ, dr = S dy,
-    dk = dS v, dv = dSᵀ k and the decay's sum of dS ∘ S_prev: 10KV).
-    Other: twice the forward's."""
-    nbytes = (4 * B * T * H * K + 4 * B * T * H * V) * itemsize \
-        + 8 * B * T * H * K + 8 * H * K
-    steps = B * T * H
-    return (nbytes, 14 * K * V * steps,
-            2 * (K * V + 3 * K + 2 * V) * steps)
 
 
 def blur_work(shape, ksize):
@@ -1269,6 +1176,12 @@ def phase_kernels():
     rows.append(attn_case(1, 2048, 2048, 8, 4, 128, library=True))
     rows.append(attn_grad_case(1, 2048, 8, 4, 128, torch.float32))
     rows.append(attn_case(1, 1536, 1537, 16, 16, 80, library=True))
+    # the shapes phase 19b's cells launch: qwen3-0.6b's train cell (2 x
+    # 4,096 rows, GQA 16/8 at D 128, causal) on K3's bfloat16 route, and
+    # rwkv6-1.6b's prefill cell (4 x 4,096, 32 heads of 64) on K5's
+    rows.append(attn_case(2, 4096, 4096, 16, 8, 128, dtype=torch.bfloat16,
+                          library=True))
+    rows.append(wkv_case(4, 4096, 32, 64, torch.bfloat16))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
         print("  " + json.dumps({k: r.get(k) for k in (
@@ -2369,7 +2282,6 @@ def tp_rank_main(rank: int, store: str, device: str, reduced: bool) -> int:
     import numpy as np
     import torch
     import torch.distributed as dist
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd as ssd
@@ -2515,6 +2427,201 @@ def phase_tensor_parallel(device="cuda", reduced=False):
     print(f"  phase 18 ranks: {out['ranks_s']:.3f} s (two ranks "
           f"time-sharing one {device} device); launches {launches}",
           flush=True)
+    return out
+
+
+# ------------------------------------------------------------ phase 19
+# phase 19b's cells on a (1, 1) mesh: (arch, shape cut from, batch,
+# seq, the kernel its program launches)
+DRYRUN_CELLS = [(LONG_ARCH, "train_4k", 2, 4096, "flash_attention"),
+                (RWKV_ARCH, "prefill_32k", 4, 4096, "rwkv6_scan")]
+# the card's peak allocation over a step against the dry run's peak
+DRYRUN_PEAK_RTOL = 0.15
+DRYRUN_TIMEOUT_S = 300
+# phase 19a: the counterparts of the reference's two production-mesh
+# dry-run tests, under fake groups of 256 and 512 ranks
+DRYRUN_PRODUCTION = """
+import json
+from repro_torch.launch import dryrun
+recs = []
+with dryrun.fake_group(256):
+    recs.append(dryrun.run_cell("whisper-small", "decode_32k",
+                                multi_pod=False, verbose=False))
+with dryrun.fake_group(512):
+    recs.append(dryrun.run_cell("rwkv6-1.6b", "decode_32k",
+                                multi_pod=True, verbose=False))
+print(json.dumps(recs))
+"""
+
+
+def _materialise(meta, cfg, device, gen):
+    """Seeded tensors on ``device`` of a meta batch's shapes and dtypes:
+    token ids below the vocabulary, floats ~ 0.1 N(0, 1)."""
+    import torch
+    out = {}
+    for k, t in meta.items():
+        if t.dtype.is_floating_point:
+            out[k] = (torch.randn(t.shape, generator=gen, device=device)
+                      * 0.1).to(t.dtype)
+        else:
+            out[k] = torch.randint(1, cfg.vocab_size, t.shape, generator=gen,
+                                   device=device, dtype=t.dtype)
+    return out
+
+
+def _same_layout(a, b) -> bool:
+    """Whether two nested trees hold tensors of the same shapes and
+    dtypes in the same places."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_layout(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(map(_same_layout, a, b)))
+    return a.shape == b.shape and a.dtype == b.dtype
+
+
+def phase_dryrun(launches, device="cuda", reduced=False, cells=None):
+    """Phase 19: the dry run (``launch/dryrun.py``) against the card.
+    (a) In a subprocess under ``fake`` groups, the production-mesh cells
+    of the reference's dry-run tests: whisper-small decode_32k on 16 x 16
+    and rwkv6-1.6b decode_32k on 2 x 16 x 16, each ``ok`` with its
+    terms and bottleneck printed.  (b) Each of ``cells`` on a (1, 1)
+    mesh: ``run_cell`` on meta tensors predicts it, then the same
+    program runs once on the card from the port's seeded init (the
+    train state or parameters, a seeded batch): each kernel's launches
+    must equal the dry run's ``kernel_breakdown``, the input bytes on
+    the card its ``input_bytes_per_device``, and the card's peak
+    allocation over the step be within ``DRYRUN_PEAK_RTOL`` of its
+    ``peak_bytes_per_device``.  Then 3 warm calls: the median wall and
+    the counted FLOPs over it as a share of the card's bf16 peak; a
+    train cell also beside ``train_step_products``.  With
+    ``device="cpu"`` (a rehearsal) launches and memory are not
+    compared."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import costs, dryrun
+    from repro_torch.models import get_model
+    from repro_torch.training.train_step import init_train_state
+    on_card = device == "cuda"
+    print("phase 19: the dry run against the card", flush=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    env.pop("WORLD_SIZE", None)
+    prod = subprocess.Popen([sys.executable, "-c", DRYRUN_PRODUCTION],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+    out = {"cells": []}
+    mesh = Mesh(("data", "model"), (1, 1))
+    for arch, base, batch, seq, kernel in cells or DRYRUN_CELLS:
+        cfg = get_arch(arch, reduced=reduced)
+        kind = SHAPES[base].kind
+        shape = dataclasses.replace(SHAPES[base], global_batch=batch,
+                                    seq_len=seq, name=f"{kind}_{batch}x{seq}")
+        label = f"19b {arch} {shape.name}"
+        t0 = time.monotonic()
+        rec = dryrun.run_cell(cfg, shape, multi_pod=False, mesh=mesh,
+                              verbose=False)
+        dry_s = time.monotonic() - t0
+        check(rec["status"] == "ok", f"{label}: dry run ok "
+              f"({rec.get('error', '')})")
+        fn, meta_args = dryrun.build_cell(cfg, shape, mesh)
+        model = get_model(cfg)
+        gen = torch.Generator(device).manual_seed(0)
+        if on_card:
+            torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated() if on_card else 0
+        args = ((init_train_state(model, gen) if kind == "train"
+                 else model.init(gen, dtype=torch.bfloat16)),
+                _materialise(meta_args[1], cfg, device, gen))
+        check(_same_layout(args, meta_args), f"{label}: the {device}'s "
+              "arguments have the dry run's shapes and dtypes")
+        del meta_args
+        input_bytes = costs.nbytes(args)
+        check(input_bytes == rec["input_bytes_per_device"],
+              f"{label}: {input_bytes} input bytes on the {device} equal "
+              f"the dry run's {rec['input_bytes_per_device']}")
+        for c in launches.values():
+            c.reset()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        res = fn(*args)
+        if on_card:
+            torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        counts = {k: c.count for k, c in launches.items()}
+        peak = (torch.cuda.max_memory_allocated() - base_bytes if on_card
+                else 0)
+        del res
+        predicted = {k: v["launches"]
+                     for k, v in rec["kernel_breakdown"].items()}
+        ratio = peak / rec["peak_bytes_per_device"]
+        print(f"  {label}: dry run {dry_s:.3f} s; launches on the "
+              f"{device} {counts}, predicted {predicted}; peak "
+              f"{peak} B against the predicted "
+              f"{rec['peak_bytes_per_device']} B (ratio {ratio:.4f})",
+              flush=True)
+        if on_card:
+            check(counts[kernel] > 0, f"{label}: {kernel} launched")
+            for name in ("flash_attention", "mamba2_ssd", "rwkv6_scan"):
+                check(counts[name] == predicted.get(name, 0),
+                      f"{label}: {name} launches {counts[name]} equal the "
+                      f"dry run's {predicted.get(name, 0)}")
+            check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+                  f"{label}: peak within {DRYRUN_PEAK_RTOL} of the dry "
+                  f"run's (ratio {ratio:.4f})")
+        walls = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            res = fn(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+            del res
+        wall = statistics.median(walls)
+        share = rec["flops_per_device"] / wall / PEAK_FLOPS
+        row = {"arch": arch, "shape": shape.name, "dry_run_s": dry_s,
+               "first_s": first_s, "walls_s": walls, "wall_s": wall,
+               "launches": counts, "predicted_launches": predicted,
+               "input_bytes": input_bytes, "peak_bytes": peak,
+               "predicted_peak_bytes": rec["peak_bytes_per_device"],
+               "peak_ratio": ratio, "flops": rec["flops_per_device"],
+               "hbm_bytes": rec["hbm_bytes_per_device"],
+               "share_of_bf16_peak": share}
+        line = (f"  {label}: wall {wall * 1e3:.3f} ms (median of "
+                f"{[round(w * 1e3, 3) for w in walls]}); "
+                f"{rec['flops_per_device']:.6g} counted FLOPs, "
+                f"{share:.6f} of the bf16 peak ({PEAK_FLOPS:.4g} "
+                "FLOP/s)")
+        if kind == "train":
+            products = train_step_products(cfg, batch, seq)
+            row["train_step_products"] = products
+            line += (f"; train_step_products {products:.6g}, counted / "
+                     f"hand {rec['flops_per_device'] / products:.6f}")
+        print(line, flush=True)
+        out["cells"].append(row)
+        del args, fn
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    stdout, stderr = prod.communicate(timeout=DRYRUN_TIMEOUT_S)
+    check(prod.returncode == 0, "19a: the production-mesh dry runs exit 0"
+          + ("" if prod.returncode == 0 else f" ({stderr[-2000:]})"))
+    recs = json.loads(stdout.strip().splitlines()[-1])
+    for rec, chips, mesh_name in zip(recs, (256, 512),
+                                     ("16x16", "2x16x16")):
+        label = f"19a {rec['arch']} {rec['shape']} on {mesh_name}"
+        check(rec["status"] == "ok" and rec["chips"] == chips
+              and rec["mesh"] == mesh_name
+              and rec["collective_bytes_per_device"] >= 0,
+              f"{label}: ok on {chips} ranks ({rec.get('error', '')})")
+        print(f"  {label}: compute {rec['compute_term_s'] * 1e3:.6f} ms, "
+              f"memory {rec['memory_term_s'] * 1e3:.6f} ms, collective "
+              f"{rec['collective_term_s'] * 1e3:.6f} ms -> "
+              f"{rec['bottleneck']}-bound; {rec['run_s']} s", flush=True)
+    out["production"] = recs
     return out
 
 
@@ -2910,7 +3017,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     if len(sys.argv) >= 3 and sys.argv[1] == "--ab":
         smi = nvidia_smi_line()
         rows = phase_ab(os.path.abspath(sys.argv[2]), sys.argv[3:])
@@ -3065,6 +3171,19 @@ def main() -> int:
           flush=True)
     for name, n in details["tensor_parallel"]["launches"].items():
         path_launches[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the dry run against the card: phase 19b's steps are main-path
+    # runs (K3 in the train step, K5 in the prefill), the counts zeroed
+    # just before each and read just after it
+    t0 = time.monotonic()
+    details["dryrun"] = phase_dryrun(launches)
+    details["dryrun"]["phase_s"] = time.monotonic() - t0
+    print(f"  phase 19: {details['dryrun']['phase_s']:.3f} s", flush=True)
+    for row in details["dryrun"]["cells"]:
+        for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+            path_launches[name] += row["launches"][name]
     gc.collect()
     torch.cuda.empty_cache()
 

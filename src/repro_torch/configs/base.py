@@ -148,6 +148,15 @@ class ArchConfig:
     def rwkv_nheads(self) -> int:
         return self.d_model // self.rwkv_head_dim
 
+    def supports_shape(self, shape: ShapeConfig) -> tuple[bool, str]:
+        """Whether a cell (arch x shape) runs, and the reason if not (the
+        JAX package's rule): ``long_500k`` needs sub-quadratic sequence
+        mixing, so the full-attention archs skip it."""
+        if shape.name == "long_500k" and self.attention == "full":
+            return False, ("full O(L^2) attention infeasible at 524288; "
+                           "skipped by design")
+        return True, ""
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding included, unpadded vocab):
         the JAX package's formula, approximate for rwkv (it leaves out

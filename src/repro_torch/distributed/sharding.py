@@ -233,7 +233,7 @@ def tree_to_shardings(param_tree: Any, spec_tree: Any, mesh: Mesh,
                       spec_tree)
 
 
-def _entry_names(entry) -> tuple[str, ...]:
+def entry_names(entry) -> tuple[str, ...]:
     return () if entry is None else (
         (entry,) if isinstance(entry, str) else tuple(entry))
 
@@ -247,7 +247,7 @@ def local_shard(full, spec: P, mesh: Mesh, coords: Mapping[str, int]):
     sizes = mesh.sizes
     out = full
     for d, entry in enumerate(spec):
-        names = _entry_names(entry)
+        names = entry_names(entry)
         if not names:
             continue
         n, i = 1, 0
@@ -264,12 +264,14 @@ class Axis:
     NCCL runs its own all-gather and reduce-scatter; on gloo, which
     carries only ``all_reduce`` and ``broadcast`` for CUDA tensors, an
     all-gather is the sum of a zero buffer holding this rank's block in
-    place, and a reduce-scatter the block of a full sum."""
+    place, and a reduce-scatter the block of a full sum.  A ``fake``
+    group (the dry run's ranks, which move no data) takes NCCL's route,
+    so the collectives counted are those production ranks send."""
 
     def __init__(self, group, size: int, index: int):
         import torch.distributed as dist
         self.group, self.size, self.index = group, size, index
-        self.nccl = dist.get_backend(group) == "nccl"
+        self.nccl = dist.get_backend(group) in ("nccl", "fake")
 
     def all_reduce(self, x):
         import torch.distributed as dist
@@ -470,7 +472,7 @@ class ShardingCtx:
         if self.mesh is None or self.size(axis) == 1:
             return False
         spec = safe_spec((size,), (logical,), self.rules, self.mesh)
-        return bool(spec) and _entry_names(spec[0]) == (axis,)
+        return bool(spec) and entry_names(spec[0]) == (axis,)
 
 
 class Layout:
@@ -512,7 +514,7 @@ class Layout:
 
         def gather(leaf, spec):
             for d, entry in enumerate(spec):
-                names = [a for a in _entry_names(entry)
+                names = [a for a in entry_names(entry)
                          if self.sh.size(a) > 1]
                 if len(names) > 1:
                     raise NotImplementedError(

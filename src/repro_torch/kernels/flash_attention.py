@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 launches = _build.LaunchCounter("flash_attention")
 
@@ -102,3 +102,25 @@ def flash_attention_cuda(
     _build.check(err, "flash_attention")
     launches.add()
     return out, lse
+
+
+def flash_attention_meta(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                         sm_scale: float | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's route for ``meta`` tensors: ``out`` and ``lse`` of
+    :func:`flash_attention_cuda`'s shapes and dtypes, no values, and one
+    launch of the kernel's work (:func:`work.attn_work`) in the active
+    cost counter, where the card would launch it.  An operand on
+    another device raises, as the CUDA wrapper's does."""
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_meta:
+            raise ValueError(f"{name} is on {t.device}, q on meta")
+    batch, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if batch and Sq:
+        nbytes, products, _ = work.attn_work(batch, Sq, Sk, H, Hkv, D,
+                                              int(q_offset), causal,
+                                              q.element_size())
+        work.record_kernel("flash_attention", nbytes, products)
+    return (torch.empty((batch, Sq, H, D), dtype=q.dtype, device="meta"),
+            torch.empty((batch, Sq, H), dtype=torch.float32, device="meta"))

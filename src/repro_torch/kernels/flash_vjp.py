@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_meta)
 
 NEG_INF = -1e30
 
@@ -33,16 +34,17 @@ NEG_INF = -1e30
 def _forward(q, k, v, q_offset, causal, sm_scale, q_block, kv_block):
     """(out in q's dtype, lse): the kernel on a CUDA tensor, the plain
     chunked forward on a CPU tensor (which tiles by ``q_block`` and
-    ``kv_block``; the kernel tiles by its own).  Operands of mixed
+    ``kv_block``; the kernel tiles by its own), the kernel's shapes and
+    a record of its launch on a meta tensor.  Operands of mixed
     dtypes (a bfloat16 decoder's queries against an encoder's float32
     keys) run the kernel in the wider dtype, as the plain forward
     computes in float32."""
-    if q.is_cuda:
+    if q.device.type in ("cuda", "meta"):
         wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                    v.dtype)
-        out, lse = flash_attention_cuda(
-            q.to(wide), k.to(wide), v.to(wide), q_offset=q_offset,
-            causal=causal, sm_scale=sm_scale)
+        kernel = flash_attention_cuda if q.is_cuda else flash_attention_meta
+        out, lse = kernel(q.to(wide), k.to(wide), v.to(wide),
+                          q_offset=q_offset, causal=causal, sm_scale=sm_scale)
         return out.to(q.dtype), lse
     if q.device.type != "cpu":
         raise ValueError(f"no kernel and no plain path for tensors on "

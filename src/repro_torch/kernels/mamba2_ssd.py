@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, work
 
 launches = _build.LaunchCounter("mamba2_ssd")
 
@@ -118,16 +118,40 @@ def mamba2_ssd_cuda(
     return y, h_out
 
 
+def mamba2_ssd_meta(x, dt, A, Bm, Cm, D=None, state=None, *,
+                    chunk: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's route for ``meta`` tensors: ``y`` and the final
+    state of :func:`mamba2_ssd_cuda`'s shapes and dtypes, no values, and
+    one launch of the kernel's work (:func:`work.ssd_work`) in the
+    active cost counter, where the card would launch it.  An operand on
+    another device raises, as the CUDA wrapper's does."""
+    for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm),
+                    ("D", D), ("state", state)):
+        if t is not None and not t.is_meta:
+            raise ValueError(f"{name} is on {t.device}, x on meta")
+    batch, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if T and batch:
+        nbytes, products, _ = work.ssd_work(batch, T, H, P, G, N,
+                                             x.element_size())
+        work.record_kernel("mamba2_ssd", nbytes, products)
+    return (torch.empty((batch, T, H, P), dtype=x.dtype, device="meta"),
+            torch.empty((batch, H, P, N), dtype=torch.float32,
+                        device="meta"))
+
+
 class MambaSSD(torch.autograd.Function):
-    """Autograd's view of the SSD scan: the kernel (or the plain chunked
-    form) forward, the recomputed plain chunked form's gradient
-    backward.  Saves only the inputs; either output's cotangent may be
+    """Autograd's view of the SSD scan: the kernel (the plain chunked
+    form on the CPU, the kernel's meta route on ``meta``) forward, the
+    recomputed plain chunked form's gradient backward.  Saves only the inputs; either output's cotangent may be
     absent (a training step never reads the final state)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, state, chunk):
         if x.is_cuda:
             y, h = mamba2_ssd_cuda(x, dt, A, Bm, Cm, D, state, chunk=chunk)
+        elif x.is_meta:
+            y, h = mamba2_ssd_meta(x, dt, A, Bm, Cm, D, state, chunk=chunk)
         else:
             y, h = ref.mamba2_ssd_chunked(x, dt, A, Bm, Cm, D, state,
                                           chunk=chunk)
@@ -148,7 +172,7 @@ def mamba2_ssd(x, dt, A, Bm, Cm, D=None, state=None, *, chunk: int = 128):
     """Differentiable chunked SSD: ``(y in x's dtype, final state
     (B,H,P,N) float32)``, the chunk ``min(chunk, max(T, 8))`` (the TPU
     wrapper's rule) on both passes."""
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel and no plain path for tensors on "
                          f"{x.device}")
     return MambaSSD.apply(x, dt, A, Bm, Cm, D, state,

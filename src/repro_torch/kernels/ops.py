@@ -3,7 +3,12 @@
 The tensor's device picks the implementation (the JAX package's
 ``impl="auto"``): a tensor on the CPU takes the plain PyTorch version,
 a CUDA tensor launches the hand-written kernel — and a kernel that
-cannot take it raises; nothing falls back to the plain version.
+cannot take it raises; nothing falls back to the plain version.  A
+``meta`` tensor (the dry run) takes the kernel's meta route where the
+model path has one (K3, K4, K5): outputs of the kernel's shapes and a
+record of its launch and work in the active ``launch.costs`` counter;
+the image kernels (K1, K2) have none and raise, as any other device
+does.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, impl="auto",
     and ``"naive"`` are the explicit plain routes.  ``q_block`` and
     ``kv_block`` tile the chunked route; the kernel tiles by its own."""
     if impl == "auto":
-        if _on_cuda(q):
+        if q.is_meta or _on_cuda(q):
             return flash_vjp.flash_attention(q, k, v, q_offset, causal,
                                              sm_scale)
         impl = "chunked"

@@ -34,7 +34,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, work
 
 launches = _build.LaunchCounter("rwkv6_scan")
 
@@ -123,16 +123,40 @@ def rwkv6_scan_cuda(
     return y, s_out
 
 
+def rwkv6_scan_meta(r, k, v, w, u, state=None, *, chunk: int = 64
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's route for ``meta`` tensors: ``y`` and the final
+    state of :func:`rwkv6_scan_cuda`'s shapes and dtypes, no values, and
+    one launch of the kernel's work (:func:`work.wkv_work`) in the
+    active cost counter, where the card would launch it.  An operand on
+    another device raises, as the CUDA wrapper's does."""
+    for name, t in (("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state)):
+        if t is not None and not t.is_meta:
+            raise ValueError(f"{name} is on {t.device}, r on meta")
+    batch, T, H, K = r.shape
+    V = v.shape[3]
+    if T and batch:
+        nbytes, products, _ = work.wkv_work(batch, T, H, K, V,
+                                             r.element_size())
+        work.record_kernel("rwkv6_scan", nbytes, products)
+    return (torch.empty((batch, T, H, V), dtype=r.dtype, device="meta"),
+            torch.empty((batch, H, K, V), dtype=torch.float32,
+                        device="meta"))
+
+
 class RwkvWKV(torch.autograd.Function):
-    """Autograd's view of the WKV6 scan: the kernel (or the plain
-    chunked form) forward, the recomputed plain chunked form's gradient
-    backward.  Saves only the inputs; either output's cotangent may be
+    """Autograd's view of the WKV6 scan: the kernel (the plain chunked
+    form on the CPU, the kernel's meta route on ``meta``) forward, the
+    recomputed plain chunked form's gradient backward.  Saves only the inputs; either output's cotangent may be
     absent (a training step never reads the final state)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state, chunk):
         if r.is_cuda:
             y, s = rwkv6_scan_cuda(r, k, v, w, u, state, chunk=chunk)
+        elif r.is_meta:
+            y, s = rwkv6_scan_meta(r, k, v, w, u, state, chunk=chunk)
         else:
             y, s = ref.rwkv6_chunked(r, k, v, w, u, state, chunk=chunk)
         ctx.save_for_backward(r, k, v, w, u, state)
@@ -151,7 +175,7 @@ class RwkvWKV(torch.autograd.Function):
 def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):
     """Differentiable chunked WKV6: ``(y in r's dtype, final state
     (B,H,K,V) float32)``."""
-    if r.device.type not in ("cuda", "cpu"):
+    if r.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel and no plain path for tensors on "
                          f"{r.device}")
     return RwkvWKV.apply(r, k, v, w, u, state, chunk)

@@ -168,3 +168,17 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, sh, split: bool
     model axis."""
     y = dot(x, w)
     return sh.reduce(y) if split else y
+
+
+def gather_whole(p: dict, full_shapes: dict, axes: dict, sh) -> dict:
+    """``p`` with each leaf named in ``full_shapes`` gathered whole over
+    the model axis along every dim that its logical ``axes`` split there
+    (the reference's rules at the leaf's full shape).  For a layer whose
+    heads do not split over the ranks: every rank computes every head
+    alike, so each keeps its block of a gathered leaf's gradient."""
+    out = dict(p)
+    for name, full in full_shapes.items():
+        for dim, (logical, size) in enumerate(zip(axes[name], full)):
+            if logical is not None and sh.split(logical, size):
+                out[name] = sh.gather(out[name], dim)
+    return out

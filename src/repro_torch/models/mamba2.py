@@ -18,7 +18,10 @@ values.  K4 (the SSD scan) runs on the rank's heads, the gated RMSNorm
 takes its sum of squares over the model axis, and ``out_proj``, whose
 rows are head-aligned, is row-parallel.  At one rank every collective
 is the identity and the rank holds every head, so the same code is the
-single-device layer.
+single-device layer.  Where the heads (or groups, or ``d_inner``) do
+not split into whole heads over the model axis, the reference's rules
+replicate the dim: every rank gathers the split leaves and computes
+every head (:func:`_apply_whole`).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import REPLICATED, ShardingCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 
@@ -112,11 +115,10 @@ def apply_mamba2(
     P, tp, f32 = cfg.mamba_head_dim, sh.tp, torch.float32
     cd = conv_dim(cfg)
     nh = H // tp
+    if tp > 1 and (H % tp or (G > 1 and nh % (H // G))
+                   or not sh.split("ssm_inner", di)):
+        return _apply_whole(p, x, cfg, sh, conv_state, ssm_state)
     h0 = sh.model_index * nh
-    if (H % tp or (G > 1 and nh % (H // G))
-            or (tp > 1 and not sh.split("ssm_inner", di))):
-        raise ValueError(f"{cfg.name}: {H} mamba heads in {G} groups do not "
-                         f"split into whole heads and groups over {tp} ranks")
     g0, ng = (h0 * G // H, max(nh * G // H, 1))
     caching = conv_state is not None
     dev = x.device
@@ -184,6 +186,30 @@ def apply_mamba2(
     if not caching:
         return out, None, None
     return out, new_conv, sh.gather(new_ssm, 1)
+
+
+def _apply_whole(p, x, cfg, sh, conv_state, ssm_state):
+    """The layer on every rank with every head, when its heads (or
+    groups, or ``d_inner``) do not split into whole heads over the model
+    axis: the reference's rules then replicate the dim, so the rank
+    gathers the leaves its specs split, computes the single-device
+    layer, and keeps its block of a conv state split by channels."""
+    d, di = cfg.d_model, cfg.mamba_d_inner
+    H, N, G, W = (cfg.mamba_nheads, cfg.ssm_state, cfg.mamba_ngroups,
+                  cfg.mamba_conv_width)
+    cd = conv_dim(cfg)
+    full = {"in_proj": (d, 2 * di + 2 * G * N + H), "conv_w": (W, cd),
+            "conv_b": (cd,), "norm": (di,), "out_proj": (di, d)}
+    p = common.gather_whole(p, full, axes_mamba2(cfg), sh)
+    conv_split = sh.split("ssm_inner", cd)
+    if conv_state is not None and conv_split:
+        conv_state = sh.gather(conv_state, -1)
+    out, new_conv, new_ssm = apply_mamba2(p, x, cfg=cfg, sh=REPLICATED,
+                                          conv_state=conv_state,
+                                          ssm_state=ssm_state)
+    if new_conv is not None and conv_split:
+        new_conv = sh.axis("model").block(new_conv, -1)
+    return out, new_conv, new_ssm
 
 
 def _ssm_step(xh, dt, A, Bm, Cm, D, ssm_state, dtype):

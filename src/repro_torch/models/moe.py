@@ -33,7 +33,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import (ShardingCtx, entry_names,
+                                              safe_spec)
 from repro_torch.models import common
 
 
@@ -65,6 +66,14 @@ def capacity(cfg: ArchConfig, tokens: int,
     return max(8, int(-(-cf * tokens * K // E)))
 
 
+def _counts(e: torch.Tensor, n: int) -> torch.Tensor:
+    """How many entries of ``e`` take each value below ``n``:
+    ``torch.bincount`` at a fixed length, which ``meta`` tensors (the
+    dry run) take too."""
+    return torch.zeros(n, dtype=torch.int64, device=e.device).index_add_(
+        0, e, torch.ones_like(e))
+
+
 def route(router: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig):
     """(T, D) tokens -> (top_w (T,K) in x's dtype, top_e (T,K), aux):
     top-k of the softmax of float32 router logits, weights renormalised,
@@ -78,8 +87,7 @@ def route(router: torch.Tensor, xf: torch.Tensor, cfg: ArchConfig):
     top_w, top_e = torch.topk(probs, K, dim=-1)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)
-    fe = torch.bincount(top_e.reshape(-1), minlength=E).to(torch.float32) \
-        / xf.shape[0]
+    fe = _counts(top_e.reshape(-1), E).to(torch.float32) / xf.shape[0]
     aux = cfg.router_aux_loss_coef * E * torch.sum(fe * me)
     return top_w.to(xf.dtype), top_e, aux
 
@@ -95,7 +103,7 @@ def dispatch(top_e: torch.Tensor, E: int, C: int):
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=E)
+    counts = _counts(sorted_e, E + 1)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(flat_e.numel(), device=flat_e.device) - starts[sorted_e]
     keep = (pos < C) & (sorted_e < E)
@@ -105,17 +113,23 @@ def dispatch(top_e: torch.Tensor, E: int, C: int):
 
 
 def _experts(p, cfg: ArchConfig, sh: ShardingCtx, dims):
-    """The expert weights with the dims that ``dims`` names (leaf ->
-    (logical axis, dim)) gathered over the data axis where their specs
-    split them there: the data ranks route other rows, so each one's
-    gradient share is summed back."""
+    """The expert weights with the dim that ``dims`` names (leaf -> dim)
+    gathered over the data axis where the leaf's spec splits it there
+    (the first logical axis that claims ``data`` takes it: under the
+    ZeRO-3 train rules ``embed`` does, which the train step gathers):
+    the data ranks route other rows, so each one's gradient share is
+    summed back."""
     out = []
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    full = {"w_gate": (E, d, f), "w_up": (E, d, f), "w_down": (E, f, d)}
+    axes = axes_moe(cfg)
     for name in ("w_gate", "w_up", "w_down"):
-        w = p[name]
-        logical, dim = dims[name]
-        size = {"experts": cfg.num_experts, "expert_ff": cfg.d_ff}[logical]
-        if sh.split(logical, size, axis="data"):
-            w = sh.gather(w, dim, axis="data", summed=True)
+        w, dim = p[name], dims[name]
+        if sh.size("data") > 1:
+            spec = tuple(safe_spec(full[name], axes[name], sh.rules,
+                                   sh.mesh)) + (None,) * 3
+            if "data" in entry_names(spec[dim]):
+                w = sh.gather(w, dim, axis="data", summed=True)
         out.append(w)
     return out
 
@@ -163,9 +177,7 @@ def apply_moe(p: dict, x: torch.Tensor, *, cfg: ArchConfig, sh: ShardingCtx,
     buf = sh(buf[:E * C].view(E, C, D), "experts", None, "embed")
 
     # ---- grouped expert FFN (SwiGLU), then the combine
-    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": ("experts", 0),
-                                       "w_up": ("experts", 0),
-                                       "w_down": ("experts", 0)})
+    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": 0, "w_up": 0, "w_down": 0})
     out = _ffn(buf, wg, wu, wd, sh, sh.split("expert_ff", cfg.d_ff))
     y = _combine(out, slot, order, top_w, T, K)
     return y.reshape(B, S, D), aux
@@ -199,9 +211,7 @@ def apply_moe_ep_shardmap(p, x, *, cfg: ArchConfig, sh: ShardingCtx,
     buf = x.new_zeros((E_loc * C + 1, D))
     buf[slot] = sh.copy(xf)[token_of]
     buf = buf[:E_loc * C].view(E_loc, C, D)
-    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": ("expert_ff", 2),
-                                       "w_up": ("expert_ff", 2),
-                                       "w_down": ("expert_ff", 1)})
+    wg, wu, wd = _experts(p, cfg, sh, {"w_gate": 2, "w_up": 2, "w_down": 1})
     out = _ffn(buf, wg, wu, wd, sh, False)
     y = sh.reduce(_combine(out, slot, order, weights, T, K))
     n = sh.size("data")

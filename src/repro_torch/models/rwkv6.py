@@ -12,7 +12,9 @@ the rank computes its columns and they are gathered over the model
 axis (an activation of (B, S, d), against gathering the d x d weight).
 The cache's ``wkv`` state is replicated by its spec (``ssm_heads`` is
 not split): each rank scans from its heads of it, and the new state is
-gathered.
+gathered.  Where ``d_model`` splits over the model axis but the heads
+do not, the rank gathers the split leaves and computes every head, as
+the reference's rules replicate the heads.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.distributed.sharding import REPLICATED, ShardingCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models import common
@@ -111,8 +113,13 @@ def apply_rwkv6(
     tp = sh.tp
     split = sh.split("heads_fused", d)
     if split and H % tp:
-        raise ValueError(f"{cfg.name}: {H} heads do not split over {tp} "
-                         "ranks")
+        # the heads do not split: every rank computes all of them, from
+        # the leaves its specs split gathered whole
+        f = cfg.d_ff
+        full = {"w_r": (d, d), "w_k": (d, d), "w_v": (d, d), "w_g": (d, d),
+                "w_o": (d, d), "c_r": (d, d), "c_k": (d, f), "c_v": (f, d)}
+        p = common.gather_whole(p, full, axes_rwkv6(cfg), sh)
+        return apply_rwkv6(p, x, cfg=cfg, sh=REPLICATED, cache=cache)
     nh = H // tp if split else H
     h0 = sh.model_index * nh if split else 0
     mine = slice(h0 * K, (h0 + nh) * K)

@@ -39,7 +39,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import (Axis, Layout, ShardingCtx,
-                                              local_rows, map_with_axes)
+                                              entry_names, local_rows,
+                                              map_with_axes)
 from repro_torch.models.lm import tree_leaves, tree_like, tree_map
 from repro_torch.models.registry import ModelAPI, param_shapes
 from repro_torch.training.optimizer import (
@@ -66,11 +67,15 @@ def train_state_axes(model: ModelAPI) -> dict:
     return {"params": ax, "m": ax, "v": ax, "step": ()}
 
 
-def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
+def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx,
+                    local_batch: bool = False):
     """``train_step(state, batch) -> (state, metrics)``; metrics are the
     model's (``ce``, ``aux``, ``ntok``: of the last microbatch) plus
     ``loss`` (the microbatches' mean), ``grad_norm`` (before clipping)
-    and ``lr``."""
+    and ``lr``.  ``batch`` is the global batch, of which each rank keeps
+    its rows of every microbatch, or with ``local_batch`` this rank's
+    rows already (the dry run's inputs).  A ``meta`` state (the dry
+    run) has no step count: it steps from 0."""
     sched = lr_schedule(tcfg)
     cdtype = getattr(torch, tcfg.compute_dtype)
     rdtype = getattr(torch, tcfg.grad_reduce_dtype)
@@ -85,8 +90,10 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
     def value_and_grad(params, batch):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         with torch.enable_grad():
-            loss, metrics = model.loss(cast(tree_like(params, leaves)), batch,
-                                       sh, remat=tcfg.remat)
+            tree = cast(tree_like(params, leaves))
+            if par is not None:
+                tree = par.gathered(tree)
+            loss, metrics = model.loss(tree, batch, sh, remat=tcfg.remat)
             if par is not None and par.batch is not None:
                 loss, metrics = par.weigh(loss, metrics)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -96,7 +103,7 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
                 grads)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        step = int(state["step"]) + 1
+        step = (0 if state["step"].is_meta else int(state["step"])) + 1
         mb = max(int(tcfg.microbatches), 1)
         # sequential microbatches: gradients accumulate in float32 and
         # the remat residuals only ever hold B/mb sequences
@@ -105,7 +112,7 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
             part = batch if mb == 1 else {
                 k: v.reshape(mb, v.shape[0] // mb, *v.shape[1:])[i]
                 for k, v in batch.items()}
-            if par is not None:
+            if par is not None and not local_batch:
                 part = local_rows(part, par.n, par.index)
             l, metrics, g = value_and_grad(state["params"], part)
             if grads is None:
@@ -122,7 +129,8 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig, sh: ShardingCtx):
         groups = None
         if par is not None:
             groups = par.groups(state["params"])
-            loss, metrics = par.reduce(grads, groups, loss, metrics)
+            loss, metrics = par.reduce(grads, par.unsplit(state["params"]),
+                                       loss, metrics)
         if tcfg.grad_reduce_dtype != "float32":
             grads = [g.to(rdtype) for g in grads]
 
@@ -154,20 +162,32 @@ def batch_axis(sh: ShardingCtx) -> Axis | None:
     if sh.size("pod") == 1:
         return sh.axis("data")
     if sh.tp == 1:      # pod x data is then the whole world
-        import torch.distributed as dist
         return Axis(dist.group.WORLD, dist.get_world_size(), dist.get_rank())
-    raise NotImplementedError("a pod axis beside a model axis above one rank")
+    # the ranks of each model index, in (pod, data) order: one group each,
+    # every rank creating all of them in the same order
+    ranks = sh.mesh.device_mesh.mesh.reshape(-1, sh.tp)
+    mine, _ = dist.new_subgroups_by_enumeration(
+        [ranks[:, m].tolist() for m in range(sh.tp)])
+    return Axis(mine, sh.mesh.batch_extent, sh.data_index)
 
 
 class _Parallel:
     """This rank's share of a step on a mesh: its data index among the
-    ``n`` batch ranks, the batch axis's group, and per parameter leaf
-    the mesh axes that split it (from the specs of the full shapes)."""
+    ``n`` batch ranks, the batch axis's group, per parameter leaf the
+    mesh axes that split it (from the specs of the full shapes), and the
+    dims that ZeRO-3 gathers for the step: those whose logical axis is
+    ``embed`` and whose spec splits them over ``data`` (the big configs'
+    ``train_sharding_overrides``)."""
 
-    def __init__(self, sh: ShardingCtx, layout: Layout):
+    def __init__(self, sh: ShardingCtx, layout: Layout, axes):
         self.sh, self.layout = sh, layout
         self.n, self.index = sh.mesh.batch_extent, sh.data_index
         self.batch = batch_axis(sh)
+        self.batch_names = {a for a in ("pod", "data") if sh.size(a) > 1}
+        self.zero3 = map_with_axes(lambda spec, ax: [
+            d for d, (entry, name) in enumerate(zip(spec, ax or ()))
+            if name == "embed" and "data" in entry_names(entry)
+            and sh.size("data") > 1], layout.specs, axes)
 
     @classmethod
     def of(cls, model: ModelAPI, sh: ShardingCtx):
@@ -176,23 +196,46 @@ class _Parallel:
         if sh.mesh.device_mesh is None:
             raise ValueError(f"a mesh of {sh.mesh.size} ranks needs its "
                              "DeviceMesh (a process group of that size)")
-        return cls(sh, Layout(sh, param_shapes(model), model.param_axes()))
+        axes = model.param_axes()
+        return cls(sh, Layout(sh, param_shapes(model), axes), axes)
+
+    def gathered(self, params):
+        """``params`` with the ZeRO-3 dims gathered whole over ``data``
+        for the step (their gradients come back reduce-scattered)."""
+        def one(leaf, dims):
+            for d in dims:
+                leaf = self.sh.gather(leaf, d, axis="data", summed=True)
+            return leaf
+        return map_with_axes(one, params, self.zero3)
+
+    def _split(self, spec) -> set:
+        return {a for e in spec for a in entry_names(e)
+                if self.sh.size(a) > 1}
 
     def groups(self, params) -> list[list[Axis]]:
         """Per leaf of ``params`` (in its order), the groups over which
-        its shards lie: the batch group for a split over pod or data,
-        the model group for one over model."""
+        its shards lie: the batch group for a split over every batch
+        axis (pod and data), that axis's group for a split over one, the
+        model group for one over model."""
         def axes(_, spec):
-            names = {a for e in spec for a in
-                     ((e,) if isinstance(e, str) else (e or ()))
-                     if self.sh.size(a) > 1}
+            names = self._split(spec)
+            split = names & self.batch_names
             out = []
-            if names & {"pod", "data"}:
+            if split == self.batch_names and split:
                 out.append(self.batch)
+            elif split:
+                out.append(self.sh.axis(split.pop()))
             if "model" in names:
                 out.append(self.sh.axis("model"))
             return out
         return tree_leaves(map_with_axes(axes, params, self.layout.specs))
+
+    def unsplit(self, params) -> list[set]:
+        """Per leaf, the batch axes that do not split it: its gradient is
+        summed over them."""
+        return tree_leaves(map_with_axes(
+            lambda _, spec: self.batch_names - self._split(spec), params,
+            self.layout.specs))
 
     def weigh(self, loss, metrics):
         """Scale this rank's loss, ``ce`` and ``aux`` by its share of the
@@ -204,15 +247,19 @@ class _Parallel:
                        ntok=ntok)
         return loss * w, metrics
 
-    def reduce(self, grads, groups, loss, metrics):
-        """Sum the weighted gradients of the leaves replicated over the
-        batch axis, and the loss and metrics, over that axis."""
+    def reduce(self, grads, unsplit, loss, metrics):
+        """Sum the weighted gradients of the leaves over the batch axes
+        that do not split them (all of them for a replicated leaf; pod
+        for one split over data alone, whose gather over data summed
+        its gradient there), and the loss and metrics over the batch
+        axis."""
         if self.batch is None:
             return loss, metrics
-        import torch.distributed as dist
-        for g, axes in zip(grads, groups):
-            if self.batch not in axes:
+        for g, rest in zip(grads, unsplit):
+            if rest == self.batch_names:
                 dist.all_reduce(g, group=self.batch.group)
+            elif rest:
+                dist.all_reduce(g, group=self.sh.axis(rest.pop()).group)
         sums = self.batch.all_reduce(torch.stack(
             [loss, metrics["ce"], metrics["aux"]]).to(torch.float32))
         return sums[0], dict(metrics, ce=sums[1], aux=sums[2])

@@ -21,7 +21,7 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                       "repro_torch."))
 for name in names:
     importlib.import_module(name)
-import chip_smoke  # noqa: F401  (its own imports live in main())
+import chip_smoke  # noqa: F401  (beyond kernels.work, in main())
 import benchmarks.torch_suite  # noqa: F401
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "repro."))
@@ -47,6 +47,10 @@ DISTRIBUTION = {"repro_torch.distributed", "repro_torch.distributed.sharding",
                 "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
                 "repro_torch.launch.specs", "repro_torch.launch.model_serve"}
 
+# the dry run's modules
+DRY_RUN = {"repro_torch.kernels.work", "repro_torch.launch.costs",
+           "repro_torch.launch.dryrun"}
+
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     code = _PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT)
@@ -60,6 +64,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert SCALE_OUT <= walked, SCALE_OUT - walked
     assert TRAINING <= walked, TRAINING - walked
     assert DISTRIBUTION <= walked, DISTRIBUTION - walked
+    assert DRY_RUN <= walked, DRY_RUN - walked
     assert bad == "[]", bad
     # chip_smoke.main's own imports, as listed there
     for path in ("chip_smoke.py", os.path.join("benchmarks",

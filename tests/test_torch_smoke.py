@@ -178,3 +178,29 @@ def test_phase_18_rehearsed_on_the_cpu(tmp_path, monkeypatch):
     assert cache[1][2] * 2 == cache[0][2]          # split by slots
     cache = out["runs"]["zamba2_heads_prefill"]["rank_1"]["cache"]["k"]
     assert cache[1][3] * 2 == cache[0][3]          # split by heads
+
+
+def test_phase_19_rehearsed_on_the_cpu():
+    """Phase 19 on reduced configs and short sequences: the production
+    cells of 19a at full width under fake groups (in their subprocess),
+    and each 19b cell's dry run against the same program run on the CPU
+    from a seeded init: the inputs have the dry run's shapes, dtypes and
+    bytes (launches and memory are the card's and are not compared)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    launches = {"flash_attention": fa.launches,
+                "mamba2_ssd": mamba2_ssd.launches,
+                "rwkv6_scan": rwkv6_scan.launches}
+    cells = [(cs.LONG_ARCH, "train_4k", 2, 48, "flash_attention"),
+             (cs.RWKV_ARCH, "prefill_32k", 2, 48, "rwkv6_scan")]
+    out = cs.phase_dryrun(launches, device="cpu", reduced=True, cells=cells)
+    assert [r["shape"] for r in out["cells"]] == ["train_2x48",
+                                                  "prefill_2x48"]
+    rwkv = out["cells"][1]
+    assert rwkv["predicted_launches"] == {"rwkv6_scan": 2}
+    assert all(r["flops"] > 0 and r["wall_s"] > 0 for r in out["cells"])
+    assert 0.9 < out["cells"][0]["flops"] / out["cells"][0][
+        "train_step_products"] < 1.2
+    assert [(r["chips"], r["mesh"]) for r in out["production"]] == [
+        (256, "16x16"), (512, "2x16x16")]
+    assert not torch.distributed.is_initialized()
