@@ -156,7 +156,24 @@ Phases (any failed check exits non-zero, before the result line):
    then run on the card from the port's seeded init: the launches of
    K3, K4 and K5 equal the prediction's, the input bytes equal it, the
    peak allocation is within 15% of its peak; the wall (median of 3
-   warm calls) and the counted FLOPs' share of the bf16 peak printed.
+   warm calls) and the counted FLOPs' share of the bf16 peak printed;
+20. the engine behaviours that the reference's own engine tests hold
+   (run last, ``device`` and ``device_backend`` on the card): (a) the
+   ``admission_none_hash`` workload hashes to the recorded ``f9acbed1…``
+   and an ``admission="queue"`` engine returns identical arrays; (b)
+   phase 3's 64 faces through crop/rotate/flip/threshold under
+   ``dispatch="cost"`` (flip placed remote) byte-identical to static;
+   (c) phase 4's chain over the 64 faces fused and per op, each within
+   ``PIPE_TOL`` of the CPU engine, K2 launched only by the fused run and
+   K1 by both; (d) a server killed after the first result of a remote
+   pipeline (failed 0, the fault-free response's hash) and the
+   reference's seeded fault storm at its first seed (failed 0, retries,
+   every response the fault-free one's); (e) 8 sessions from threads,
+   4 cancelled mid-pipeline: no thread, admission slot or queued work
+   left, and ``torch.cuda.memory_allocated()`` back within one 2 MiB
+   allocator block of its level before the phase (read as PyTorch's
+   CUDA leak check reads it: after a collection, without the cuBLAS
+   workspaces PyTorch keeps for each thread that ran a matmul).
 
 Phase 5 also holds K4's and K5's Functions (forward + backward) at the
 training shapes of phase 16 against autograd through the plain chunked
@@ -166,16 +183,16 @@ attention, with times and bounds.
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
 zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15,
-16, 9 and 10 (run in that order, phases 17 and 18 after 16) and read
-just after it (phase 6 must have launched K4, and K3 past 1024 slots;
-phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5; phase 9 K1
-and K2; phase 10 K1).  Phase 18's ranks zero their own counts before
+16, 9, 10 and 20 (run in that order, phases 17 and 18 after 16) and
+read just after it (phase 6 must have launched K4, and K3 past 1024
+slots; phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5;
+phases 9 and 20 K1 and K2; phase 10 K1).  Phase 18's ranks zero their own counts before
 each run and read them after it (each run's kernels must have launched
 on each rank); the parent's ``model_par=1`` runs, the comparison, count
 in none.  Phase 19 (after 18) zeroes the counts just before each of
 its card steps and reads them just after (its train step must launch
 K3, its prefill K5).  K1's and K2's launches in the kernels line are
-the sum over phases 2–4, 9 and 10, K3's over phases 6–8, 11–16, 18 and
+the sum over phases 2–4, 9, 10 and 20, K3's over phases 6–8, 11–16, 18 and
 19, K4's over phases 6, 16 and 18, K5's over phases 7, 16, 18 and 19.
 Phase 5's launches, which only compare kernels with their plain
 versions, count in none.  The last lines are the card's name and power
@@ -201,6 +218,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2999,6 +3017,352 @@ def phase_ab(old_csrc, names=None):
     return rows
 
 
+# ------------------------------------------------------------ phase 20
+# benchmarks/admission_bench.py::run_static_hash: the default engine's
+# response on a bit-exact workload (8 images of 28 px from
+# default_rng(23)), recorded in benchmarks/admission_static_baseline.json
+ADMISSION_SHA256 = \
+    "f9acbed1c4ab5c567940180df17d50602bac3a1d022246822db92bb8c8095f25"
+ADMISSION_PIPE = [
+    {"type": "crop", "x": 2, "y": 2, "width": 20, "height": 20},
+    {"type": "remote", "url": "http://svc/flip", "options": {"id": "flip"}},
+    {"type": "rotate", "k": 3},
+    {"type": "threshold", "value": 0.5},
+]
+# index permutations and a comparison at LFW size: bit-exact under any
+# placement (tests/test_device_backend.py's EXACT_PIPE, cropped to 224)
+EXACT_PIPE = [
+    {"type": "crop", "x": 13, "y": 13, "width": 224, "height": 224},
+    {"type": "rotate", "k": 1},
+    {"type": "flip", "axis": "horizontal"},
+    {"type": "threshold", "value": 0.5},
+]
+REMOTE_FLIP = {"flip": {"remote": 1e-6, "native": 10.0, "batcher": 10.0}}
+KILL_PIPE = [EXACT_PIPE[0],
+             {"type": "remote", "url": "u", "options": {"id": "flip"}},
+             {"type": "rotate", "k": 1},
+             {"type": "threshold", "value": 0.5}]
+# tests/test_resilience.py's chaos storm at its first seed
+STORM_SEED = 0
+STORM_PIPE = [
+    {"type": "resize", "width": 16, "height": 16},
+    {"type": "remote", "url": "u", "options": {"id": "grayscale"}},
+    {"type": "threshold", "value": 0.4},
+]
+# phase 4's fused chain, then a slow remote op that keeps queries in
+# flight long enough to cancel them mid-pipeline
+SESSION_PIPE = DEVICE_PIPE[:3] + [
+    {"type": "remote", "url": "u", "options": {"id": "grayscale"}},
+    {"type": "threshold", "value": 0.5}]
+SESSION_PINNED = {**{o["type"]: DEVICE_PINNED[o["type"]]
+                     for o in DEVICE_PIPE[:3]},
+                  "grayscale": {"remote": 1e-6, "native": 10.0,
+                                "batcher": 10.0, "device": 10.0}}
+# the CUDA caching allocator's smallest segment
+ALLOC_BLOCK = 2 << 20
+
+
+def _engine_once(VDMSAsyncEngine, transport, load, query, **kw):
+    """One engine: ``load(engine)``, one query, shut down; returns the
+    response and the dispatch stats."""
+    eng = VDMSAsyncEngine(transport=transport, **kw)
+    try:
+        load(eng)
+        res = eng.execute(query, timeout=600)
+        stats = eng.dispatch_stats()
+    finally:
+        eng.shutdown()
+    return res, stats
+
+
+def _kill_after_first_result(eng, load, query):
+    """Run ``query`` on ``eng`` and kill remote server 0 once the first
+    entity has come back; returns the response and the live servers.
+    The engine is shut down and dropped on return."""
+    try:
+        load(eng)
+        first = threading.Event()
+        fut = eng.submit(query, on_entity=lambda e: first.set())
+        check(first.wait(60), "20d: a first result before the kill")
+        eng.pool.kill_server(0)
+        return fut.result(timeout=600), eng.pool.live_count()
+    finally:
+        eng.shutdown()
+
+
+def _storm_responses(eng, load, query, n):
+    """``n`` concurrent submits of ``query`` on ``eng`` (its fault
+    injector armed); returns the responses and the dispatch and
+    admission stats."""
+    try:
+        load(eng)
+        futs = [eng.submit(query) for _ in range(n)]
+        return ([f.result(timeout=600) for f in futs], eng.dispatch_stats(),
+                eng.admission_stats())
+    finally:
+        eng.shutdown()
+
+
+def _cancelled_sessions(eng, faces, query, clients):
+    """``clients`` threads each submit ``query`` over ``faces``; the odd
+    ones cancel once their first entity is back, the even ones wait for
+    the response.  Returns {client: ("cancel", cancel()) | ("done",
+    response)}, the admission stats once the engine has drained, and
+    what was left (remote requests in flight, Queue_1, the device inbox,
+    sessions).  The engine is shut down and dropped on return, so the
+    device memory its entities held is free."""
+    try:
+        ingest_faces(eng, faces, "lfw")
+        outcomes = {}
+
+        def client(i):
+            first = threading.Event()
+            fut = eng.submit(query, on_entity=lambda e: first.set())
+            if i % 2:
+                first.wait(60)
+                outcomes[i] = ("cancel", fut.cancel())
+            else:
+                outcomes[i] = ("done", fut.result(timeout=600))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        deadline = time.monotonic() + 20
+        while (eng.pool.inflight or eng.loop.queue1.qsize()
+               or eng.device_backend.pending() or eng.active_sessions()
+               or eng.admission_stats()["inflight"]) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return outcomes, eng.admission_stats(), (
+            len(eng.pool.inflight), eng.loop.queue1.qsize(),
+            eng.device_backend.pending(), eng.active_sessions())
+    finally:
+        eng.shutdown()
+
+
+def _leaked_threads(before, timeout=10.0) -> list:
+    deadline = time.monotonic() + timeout
+    while True:
+        leaked = [t for t in set(threading.enumerate()) - before
+                  if t.is_alive()]
+        if not leaked or time.monotonic() > deadline:
+            return leaked
+        time.sleep(0.05)
+
+
+def phase_engine_behaviours(VDMSAsyncEngine, TransportModel, faces,
+                            launches, device="cuda", smi=""):
+    """Phase 20: the behaviours the reference's own engine tests hold
+    (tests/test_torch_{admission,dispatch,device_fusion,resilience,
+    sessions}.py on the CPU), on the card with ``device`` and
+    ``device_backend`` there: (a) the admission hash and the queue
+    engine's identical arrays; (b) cost dispatch byte-identical to
+    static over ``faces``; (c) phase 4's chain over ``faces`` fused and
+    per op, held against the CPU engine, K2 only in the fused run;
+    (d) a server killed after the first result, and the seeded fault
+    storm; (e) 8 sessions, half cancelled mid-pipeline, leaking no
+    thread, admission slot or device memory."""
+    import torch
+    from repro_torch.distributed.fault import FaultInjector
+    print("phase 20: the engine's behaviours on the card", flush=True)
+    on_card = device != "cpu"
+    backend = "cuda" if on_card else "cpu"
+
+    def card_bytes() -> tuple[int, int]:
+        """Bytes the caching allocator holds for tensors, as PyTorch's
+        own CUDA leak check reads them: after a collection, and again
+        without the per-thread cuBLAS workspaces (each worker thread
+        that runs a matmul on the card gets one, which PyTorch keeps
+        after the thread ends).  Returns (raw, without workspaces)."""
+        if not on_card:
+            return 0, 0
+        gc.collect()
+        torch.cuda.synchronize()
+        raw = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        return raw, torch.cuda.memory_allocated()
+
+    _, mem0 = card_bytes()
+    threads0 = set(threading.enumerate())
+    walls = {}
+    out = {}
+
+    def load_faces(eng):
+        ingest_faces(eng, faces, "lfw")
+
+    # 20a: the admission hash
+    t0 = time.monotonic()
+    transport = TransportModel(network_latency_s=0.001, service_time_s=0.001)
+    adm_q = find("adm", ADMISSION_PIPE)
+
+    def load_adm(eng):
+        fill(eng, 8, 28, "adm", seed=23)
+
+    none_res, _ = _engine_once(VDMSAsyncEngine, transport, load_adm, adm_q,
+                               device=device, num_remote_servers=2)
+    queue_res, _ = _engine_once(VDMSAsyncEngine, transport, load_adm, adm_q,
+                                device=device, num_remote_servers=2,
+                                admission="queue", max_inflight_entities=4)
+    digest = response_hash(none_res["entities"])
+    print(f"  20a: admission_none_hash {digest}", flush=True)
+    check(none_res["stats"]["failed"] == 0 and queue_res["stats"]["failed"]
+          == 0, "20a: failed == 0")
+    check(digest == ADMISSION_SHA256,
+          "20a: admission hash equals the recorded f9acbed1…")
+    check(response_hash(queue_res["entities"]) == digest,
+          "20a: admission='queue' returns identical arrays")
+    out["admission_sha256"] = digest
+    walls["20a"] = time.monotonic() - t0
+
+    # 20b: cost dispatch against static
+    t0 = time.monotonic()
+    transport = TransportModel(network_latency_s=0.002, service_time_s=0.001)
+    q = find("lfw", EXACT_PIPE)
+    sta, _ = _engine_once(VDMSAsyncEngine, transport, load_faces, q,
+                          device=device, num_remote_servers=2)
+    cost, cost_stats = _engine_once(VDMSAsyncEngine, transport, load_faces,
+                                    q, device=device, num_remote_servers=2,
+                                    dispatch="cost",
+                                    cost_overrides=REMOTE_FLIP)
+    print(f"  20b: placements {cost_stats['placements']}, handoffs "
+          f"{cost_stats['handoffs']}", flush=True)
+    check(sta["stats"]["failed"] == 0 and cost["stats"]["failed"] == 0,
+          "20b: failed == 0")
+    check(cost_stats["placements"]["remote"] == len(faces),
+          f"20b: flip placed remote for all {len(faces)} entities")
+    check(response_hash(cost["entities"]) == response_hash(sta["entities"]),
+          "20b: dispatch='cost' byte-identical to static")
+    out["placements"] = cost_stats["placements"]
+    walls["20b"] = time.monotonic() - t0
+
+    # 20c: the device backend, fused and per op, against the CPU engine
+    t0 = time.monotonic()
+    q = find("lfw", DEVICE_PIPE)
+    dev_kw = dict(num_remote_servers=2, dispatch="cost",
+                  device_batch_size=32, device_max_wait_ms=50.0,
+                  cost_overrides=DEVICE_PINNED)
+    host, _ = _engine_once(VDMSAsyncEngine, transport, load_faces, q,
+                           device="cpu", device_backend="cpu", **dev_kw)
+    out["fusion"] = {}
+    for fuse in (True, False):
+        before = {k: c.count for k, c in launches.items()}
+        res, st = _engine_once(VDMSAsyncEngine, transport, load_faces, q,
+                               device=device, device_backend=backend,
+                               device_fuse_segments=fuse, **dev_kw)
+        rose = {k: c.count - before[k] for k, c in launches.items()}
+        d = st["device"]
+        err = max_err(res["entities"], host["entities"])
+        label = "fused" if fuse else "per op"
+        row = {k: d[k] for k in ("groups_run", "fused_segments",
+                                 "padding_waste_frac", "compiles")}
+        row.update(launches=rose, max_abs_err_vs_cpu=err)
+        out["fusion"][label] = row
+        print(f"  20c {label}: {row}", flush=True)
+        check(res["stats"]["failed"] == 0, f"20c {label}: failed == 0")
+        check(err <= PIPE_TOL,
+              f"20c {label} vs the CPU engine: {err:.3g} <= {PIPE_TOL}")
+        check((d["fused_segments"] > 0) == fuse,
+              f"20c {label}: fused_segments {d['fused_segments']}")
+        if on_card:
+            check((rose["fused_resize_crop_normalize"] > 0) == fuse,
+                  f"20c {label}: K2 launched "
+                  f"{rose['fused_resize_crop_normalize']} times")
+            check(rose["gaussian_blur"] > 0,
+                  f"20c {label}: K1 launched {rose['gaussian_blur']} times")
+    walls["20c"] = time.monotonic() - t0
+
+    # 20d: a server killed after the first result, then the fault storm
+    t0 = time.monotonic()
+    transport = TransportModel(network_latency_s=0.002, service_time_s=0.005)
+    q = find("lfw", KILL_PIPE)
+    clean, _ = _engine_once(VDMSAsyncEngine, transport, load_faces, q,
+                            device=device, num_remote_servers=2)
+    killed, live = _kill_after_first_result(
+        VDMSAsyncEngine(device=device, num_remote_servers=2,
+                        transport=transport), load_faces, q)
+    print(f"  20d: kill_server(0) after the first result: failed "
+          f"{killed['stats']['failed']}, live servers {live}", flush=True)
+    check(killed["stats"]["failed"] == 0 and live == 1,
+          "20d: one server killed mid-query, failed == 0")
+    check(response_hash(killed["entities"]) == response_hash(clean["entities"]),
+          "20d: the response equals the fault-free run's")
+    fast = TransportModel(network_latency_s=0.001, service_time_s=0.002)
+    storm_q = find("res", STORM_PIPE)
+
+    def load_storm(eng):
+        fill(eng, 6, 24, "res", seed=5)
+
+    fault_free, _ = _engine_once(VDMSAsyncEngine, fast, load_storm, storm_q,
+                                 device=device, num_remote_servers=3)
+    fi = FaultInjector(seed=STORM_SEED, error_rate=0.15, crash_rate=0.05,
+                       latency_rate=0.05, latency_s=0.01, die_rate=0.01,
+                       death_budget=1)
+    storm, ds, adm = _storm_responses(
+        VDMSAsyncEngine(device=device, num_remote_servers=3,
+                        transport=fast, admission="queue",
+                        max_inflight_entities=8, max_retries=4,
+                        retry_backoff_base_s=0.002, retry_backoff_max_s=0.02,
+                        heartbeat_timeout_s=0.2, fallback="native",
+                        fault_injector=fi), load_storm, storm_q, 5)
+    retried = ds["pool"]["retried"]
+    print(f"  20d: storm seed {STORM_SEED}: injected "
+          f"{fi.stats()['injected']}, retried {retried}, fallbacks "
+          f"{ds.get('fallbacks')}, peak inflight {adm['peak_inflight']}",
+          flush=True)
+    check(all(r["stats"]["failed"] == 0 for r in storm),
+          "20d: the storm degrades, never fails")
+    check(retried > 0, f"20d: the storm retried ({retried})")
+    check(all(response_hash(r["entities"])
+              == response_hash(fault_free["entities"]) for r in storm),
+          "20d: every storm response equals the fault-free run's")
+    check(adm["peak_inflight"] <= 8 and adm["inflight"] == 0,
+          "20d: admission bounded and released")
+    out["storm"] = {"injected": fi.stats()["injected"], "retried": retried}
+    walls["20d"] = time.monotonic() - t0
+
+    # 20e: 8 sessions from threads, half cancelled mid-pipeline
+    t0 = time.monotonic()
+    slow = TransportModel(network_latency_s=0.001, service_time_s=0.05)
+    n = min(16, len(faces))
+    outcomes, adm, drained = _cancelled_sessions(
+        VDMSAsyncEngine(device=device, num_remote_servers=4, transport=slow,
+                        dispatch="cost", device_backend=backend,
+                        device_max_wait_ms=20.0, admission="queue",
+                        max_inflight_entities=32,
+                        cost_overrides=SESSION_PINNED),
+        faces[:n], find("lfw", SESSION_PIPE), 8)
+    done = [r for kind, r in outcomes.values() if kind == "done"]
+    cancelled = [c for kind, c in outcomes.values() if kind == "cancel"]
+    check(len(outcomes) == 8 and all(cancelled) and len(cancelled) == 4,
+          "20e: 4 of 8 sessions cancelled mid-pipeline")
+    check(all(r["stats"]["failed"] == 0 and r["stats"]["matched"] == n
+              for r in done), "20e: the other 4 complete, failed == 0")
+    err = max(max_err(r["entities"], done[0]["entities"]) for r in done)
+    check(err <= PIPE_TOL, f"20e: survivors agree ({err:.3g})")
+    check(drained == (0, 0, 0, 0),
+          "20e: no remote, queue, device or session work left")
+    check(adm["inflight"] == 0 and adm["pending"] == 0,
+          "20e: admission inflight 0")
+    leaked = _leaked_threads(threads0)
+    check(not leaked, f"20e: threads back to the count before ({leaked})")
+    raw, mem1 = card_bytes()
+    print(f"  20e: memory_allocated {mem0} -> {mem1} bytes ({raw} with the "
+          f"threads' cuBLAS workspaces)", flush=True)
+    check(abs(mem1 - mem0) <= ALLOC_BLOCK,
+          f"20e: device memory back to its level ({mem1 - mem0} bytes)")
+    out["memory_delta_bytes"] = mem1 - mem0
+    out["cublas_workspace_bytes"] = raw - mem1
+    walls["20e"] = time.monotonic() - t0
+    out["walls_s"] = walls
+    print(f"  phase 20 walls (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; card: {smi}", flush=True)
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3214,6 +3578,23 @@ def main() -> int:
         details[key]["launches"] = counts
     print("  report: " + torch_suite.write_report(details["baselines"],
                                                   "cuda"), flush=True)
+
+    # ---- the engine's behaviours (admission, dispatch, fusion, faults,
+    # sessions): K1 and K2 on the device backend, counts zeroed just
+    # before, read just after
+    for c in launches.values():
+        c.reset()
+    t0 = time.monotonic()
+    details["behaviours"] = phase_engine_behaviours(
+        VDMSAsyncEngine, TransportModel, faces64, launches, smi=smi)
+    details["behaviours"]["phase_s"] = time.monotonic() - t0
+    counts = {k: launches[k].count for k in engine_path}
+    print(f"  phase 20: {details['behaviours']['phase_s']:.3f} s; launches "
+          f"{counts}", flush=True)
+    for name in engine_path:
+        check(counts[name] > 0, f"{name} launched in phase 20 ({counts[name]})")
+        path_launches[name] += counts[name]
+    details["behaviours"]["launches"] = counts
     kernels = kernels_line(entries, path_launches)
     details["seconds"] = time.monotonic() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -67,7 +67,9 @@ def _no_cuda(what: str) -> RuntimeError:
 def resolve_device_pool(device_backend) -> list[torch.device]:
     """The device backend's devices: ``True``/``"auto"``/``"cuda"``/
     ``"gpu"`` is every visible CUDA card, ``"cpu"`` one CPU-as-device
-    executor.  Raises when CUDA is asked for and absent."""
+    executor.  Raises ``RuntimeError`` when CUDA is asked for and absent,
+    and for a platform it does not know, as the reference's
+    ``jax.devices(platform)`` does."""
     if device_backend is True or device_backend in ("auto", "cuda", "gpu"):
         if not torch.cuda.is_available():
             raise _no_cuda(f"device_backend={device_backend!r}")
@@ -75,8 +77,8 @@ def resolve_device_pool(device_backend) -> list[torch.device]:
                 for i in range(torch.cuda.device_count())]
     if device_backend == "cpu":
         return [torch.device("cpu")]
-    raise ValueError(f"device_backend must be True, 'auto', 'cuda', 'gpu' "
-                     f"or 'cpu', got {device_backend!r}")
+    raise RuntimeError(f"device_backend must be True, 'auto', 'cuda', "
+                       f"'gpu' or 'cpu', got {device_backend!r}")
 
 
 class VDMSAsyncEngine:

@@ -1148,3 +1148,137 @@ def test_reduced_qwen3_train_step_on_the_card_matches_the_host(cuda):
                                 leaves["card", "m"], leaves["host", "m"]):
         allowed = lr * (1e-3 + (mc_.cpu() - mh_).abs() / (0.1 * 1e-8))
         assert bool(((pc.cpu() - ph).abs() <= allowed + 1e-7).all())
+
+
+# ---- the engine-stack twins of tests/test_torch_device_fusion.py
+FUSION_EXACT_PIPE = [
+    {"type": "crop", "x": 2, "y": 2, "width": 16, "height": 16},
+    {"type": "rotate", "k": 1},
+    {"type": "flip", "axis": "horizontal"},
+    {"type": "threshold", "value": 0.5},
+]
+FUSION_PREPROCESS_PIPE = [
+    {"type": "resize", "width": 20, "height": 24},
+    {"type": "crop", "x": 2, "y": 3, "width": 12, "height": 10},
+    {"type": "normalize", "mean": 0.4, "std": 0.25},
+    {"type": "blur", "ksize": 3, "sigma_x": 1.0},
+]
+
+
+def _all_device(pipe):
+    return {o["type"]: {"device": 1e-9, "native": 10.0, "remote": 10.0,
+                        "batcher": 10.0} for o in pipe}
+
+
+def _fusion_run(device, pipe, n=6, size=24, **kw):
+    """``tests/test_device_fusion.py``'s scenario: ``n`` seeded images
+    through ``pipe``; returns (entities, dispatch stats, K1 and K2
+    launches during the query)."""
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    from repro_torch.kernels import gaussian_blur as gb
+    eng = VDMSAsyncEngine(device=device, num_remote_servers=2,
+                          transport=TransportModel(network_latency_s=0.001,
+                                                   service_time_s=0.002),
+                          **kw)
+    try:
+        rng = np.random.default_rng(5)
+        for i in range(n):
+            img = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+            eng.add_entity("image", img, {"category": "fuse", "idx": i})
+        k1, k2 = gb.launches.count, pp.launches.count
+        res = eng.execute([{"FindImage": {
+            "constraints": {"category": ["==", "fuse"]},
+            "operations": pipe}}], timeout=120)
+        rose = (gb.launches.count - k1, pp.launches.count - k2)
+        stats = eng.dispatch_stats()
+    finally:
+        eng.shutdown()
+    assert res["stats"]["failed"] == 0
+    return res["entities"], stats, rose
+
+
+@pytest.mark.cuda
+def test_fused_segment_on_the_card_matches_per_op_and_native(cuda):
+    """The whole bit-exact pipeline as one fused device segment on the
+    card: byte-identical to the per-op device path, the native engine
+    on the card and the native engine on the host."""
+    pins = _all_device(FUSION_EXACT_PIPE)
+    dev = dict(dispatch="cost", device_backend="cuda", cost_overrides=pins,
+               device_max_wait_ms=50.0)
+    host, _, _ = _fusion_run("cpu", FUSION_EXACT_PIPE)
+    nat, _, _ = _fusion_run("cuda", FUSION_EXACT_PIPE)
+    per, per_st, _ = _fusion_run("cuda", FUSION_EXACT_PIPE,
+                                 device_fuse_segments=False, **dev)
+    fus, fus_st, _ = _fusion_run("cuda", FUSION_EXACT_PIPE, **dev)
+    for got in (nat, per, fus):
+        assert list(got) == list(host)
+        for eid in host:
+            np.testing.assert_array_equal(got[eid], host[eid])
+    d = fus_st["device"]
+    assert d["platform"] == "cuda"
+    assert d["entities_run"] == 6 and d["ops_run"] == 24
+    assert d["fused_segments"] >= 1
+    assert d["h2d_bytes"] < per_st["device"]["h2d_bytes"]
+
+
+@pytest.mark.cuda
+def test_fused_preprocess_chain_on_the_card_matches_native(cuda):
+    """resize→crop→normalize→blur fused on the card: K2 for the chain
+    and K1 for the blur, within 1e-4 (the fused preprocess kernel's
+    tolerance) of the native engine on the card; per op, K2 stays
+    unlaunched."""
+    pins = _all_device(FUSION_PREPROCESS_PIPE)
+    dev = dict(dispatch="cost", device_backend="cuda", cost_overrides=pins,
+               device_max_wait_ms=50.0)
+    nat, _, _ = _fusion_run("cuda", FUSION_PREPROCESS_PIPE, size=32)
+    fus, st, (k1, k2) = _fusion_run("cuda", FUSION_PREPROCESS_PIPE, size=32,
+                                    **dev)
+    assert st["device"]["fused_segments"] >= 1
+    assert k1 > 0 and k2 > 0
+    _, _, (k1_per, k2_per) = _fusion_run("cuda", FUSION_PREPROCESS_PIPE,
+                                         size=32, device_fuse_segments=False,
+                                         **dev)
+    assert k1_per > 0 and k2_per == 0
+    for eid in nat:
+        np.testing.assert_allclose(fus[eid], nat[eid], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cancel_mid_fused_batch_on_the_card_releases_admission_slots(cuda):
+    """``test_cancel_mid_fused_batch_drains_and_releases_admission_slots``
+    on the card: the device inbox drains, no admission slot leaks, and a
+    query needing every slot then completes."""
+    import time
+
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    eng = VDMSAsyncEngine(device="cuda", num_remote_servers=2,
+                          transport=TransportModel(network_latency_s=0.001,
+                                                   service_time_s=0.002),
+                          dispatch="cost", device_backend="cuda",
+                          cost_overrides=_all_device(FUSION_EXACT_PIPE),
+                          device_max_wait_ms=100.0, admission="shed",
+                          max_inflight_entities=16)
+    query = [{"FindImage": {"constraints": {"category": ["==", "fuse"]},
+                            "operations": FUSION_EXACT_PIPE}}]
+    try:
+        rng = np.random.default_rng(5)
+        for i in range(10):
+            img = rng.uniform(0, 1, (24, 24, 3)).astype(np.float32)
+            eng.add_entity("image", img, {"category": "fuse", "idx": i})
+        fut = eng.submit(query)
+        time.sleep(0.02)
+        assert fut.cancel()
+        deadline = time.monotonic() + 10
+        while (eng.loop.queue1.qsize() or eng.device_backend.pending()
+               or eng.admission_stats()["inflight"]) \
+                and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert eng.device_backend.pending() == 0
+        assert eng.admission_stats()["inflight"] == 0
+        res = eng.execute(query, timeout=60)
+        assert res["stats"]["matched"] == 10
+        assert res["stats"]["failed"] == 0
+    finally:
+        eng.shutdown()

@@ -204,3 +204,21 @@ def test_phase_19_rehearsed_on_the_cpu():
     assert [(r["chips"], r["mesh"]) for r in out["production"]] == [
         (256, "16x16"), (512, "2x16x16")]
     assert not torch.distributed.is_initialized()
+
+
+def test_phase_20_rehearsed_on_the_cpu():
+    """Phase 20 on the CPU at 8 faces: the admission hash, cost against
+    static, the fused and per-op chains, the kill and the storm, and the
+    cancelled sessions (the launch counts and memory stay 0 here)."""
+    from repro_torch.core.engine import VDMSAsyncEngine
+    from repro_torch.core.remote import TransportModel
+    from repro_torch.dataio.synthetic import synthetic_faces
+    launches = _engine_path_launches()
+    out = cs.phase_engine_behaviours(
+        VDMSAsyncEngine, TransportModel, synthetic_faces(8, 250, seed=0),
+        launches, device="cpu")
+    assert out["admission_sha256"] == cs.ADMISSION_SHA256
+    assert out["fusion"]["fused"]["fused_segments"] > 0
+    assert out["fusion"]["per op"]["fused_segments"] == 0
+    assert out["storm"]["retried"] > 0
+    assert set(out["walls_s"]) == {"20a", "20b", "20c", "20d", "20e"}
