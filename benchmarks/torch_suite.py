@@ -4,8 +4,8 @@
 ``python3 benchmarks/torch_suite.py [--device cuda|cpu]`` from the root
 of a checkout.  The port's counterpart of ``benchmarks/image_suite.py``
 and ``benchmarks/scaleout.py``, at their sizes; it imports nothing of
-the JAX package (``benchmarks/common.py`` does, so the queries, the
-transports and the drivers are copied here):
+the JAX package (the queries, the transports and the system runners
+are in ``benchmarks/torch_common.py``):
 
 - ``run_c1``: IQ1–IQ9 as remote ops over 32 64x64x3 faces, through the
   sync (VDMS) and pooled (PostgreSQL) executors of
@@ -35,172 +35,34 @@ import argparse
 import json
 import os
 import sys
-import threading
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 import numpy as np  # noqa: E402
 
+from benchmarks.torch_common import (SIM_TRANSPORT,  # noqa: E402
+                                     remote_op, clients_wall, execute_all,
+                                     image_c2_pipeline, image_queries,
+                                     image_set, max_err, run_async_engine,
+                                     run_baseline)
 from repro_torch.cluster import ShardedEngine  # noqa: E402
 from repro_torch.core.engine import VDMSAsyncEngine  # noqa: E402
-from repro_torch.core.entity import Entity  # noqa: E402
-from repro_torch.core.executors import (PooledExecutor,  # noqa: E402
-                                        SyncExecutor)
-from repro_torch.core.pipeline import parse_operations  # noqa: E402
-from repro_torch.core.remote import (RemoteServerPool,  # noqa: E402
-                                     TransportModel)
-from repro_torch.dataio.synthetic import synthetic_faces  # noqa: E402
-from repro_torch.kernels import gaussian_blur  # noqa: E402
+from repro_torch.core.remote import TransportModel  # noqa: E402
 
-# benchmarks/common.py: ~LAN latency + the remote server's compute per
-# entity, identical across all competing systems
-TRANSPORT = TransportModel(network_latency_s=0.008, bandwidth_bytes_s=1e9,
-                           service_time_s=0.010)
-# benchmarks/common.py: C3's remote capacity, simulated
-SIM_TRANSPORT = TransportModel(network_latency_s=0.008,
-                               bandwidth_bytes_s=1e9,
-                               service_time_s=0.012, execute_ops=False)
 # benchmarks/scaleout.py: remote-bound, the op run for real
 SCALE_TRANSPORT = TransportModel(network_latency_s=0.0005,
                                  bandwidth_bytes_s=5e9,
                                  service_time_s=0.02)
 
 
-# -------------------------------------------------------------- queries
-def _remote(name, **opt):
-    return {"type": "remote", "url": "http://srv/op",
-            "options": {"id": name, **opt}}
-
-
-def image_queries() -> dict[str, list[dict]]:
-    """IQ1–IQ9 (paper section 6.1.2), each a remote op."""
-    return {
-        "IQ1_crop": [_remote("crop", x=4, y=4, width=32, height=32)],
-        "IQ2_grayscale": [_remote("grayscale")],
-        "IQ3_blur": [_remote("blur", ksize=5, sigma_x=1.5)],
-        "IQ4_box": [_remote("facedetect_box")],
-        "IQ5_mask": [_remote("facedetect_mask", r=12)],
-        "IQ6_upsample": [_remote("upsample", fx=1.5, fy=1.5)],
-        "IQ7_downsample": [_remote("downsample", fx=2.0, fy=2.0)],
-        "IQ8_caption": [_remote("caption", text="LFW", x=2, y=2)],
-        "IQ9_manipulation": [_remote("manipulation")],
-    }
-
-
-def image_c2_pipeline() -> list[dict]:
-    """Resize -> Box -> Manipulation -> Rotate (Resize/Rotate native)."""
-    return [
-        {"type": "resize", "width": 48, "height": 48},
-        {"type": "remote", "url": "u", "options": {"id": "facedetect_box"}},
-        {"type": "remote", "url": "u", "options": {"id": "manipulation"}},
-        {"type": "rotate", "k": 1},
-    ]
-
-
-def image_set(n=32, size=64):
-    return synthetic_faces(n, size=size, seed=1)
-
-
-# -------------------------------------------------------------- systems
-def _clients(fn, clients):
-    """Run ``fn()`` from ``clients`` threads at once; re-raise the first
-    error.  Returns the wall time."""
-    errors = []
-
-    def one():
-        try:
-            fn()
-        except Exception as e:  # noqa: BLE001 — re-raised below
-            errors.append(e)
-
-    threads = [threading.Thread(target=one) for _ in range(clients)]
-    t0 = time.monotonic()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    wall = time.monotonic() - t0
-    if errors:
-        raise RuntimeError(f"{len(errors)}/{clients} clients raised: "
-                           f"{errors[0]!r}") from errors[0]
-    return wall
-
-
-def _execute(eng, query, n):
-    """``eng.execute(query)``, raising on a short or failed response —
-    one that would otherwise time as if it had succeeded."""
-    res = eng.execute(query, timeout=600)
-    if res["stats"]["failed"] or len(res["entities"]) != n:
-        raise RuntimeError(f"short or failed response: {res['stats']}")
-    return res
-
-
-def run_async_engine(data, ops_json, *, device, servers=2, clients=1,
-                     fuse=False, batch_remote=1, transport=None) -> dict:
-    """The async engine with one native worker and FIFO Queue_1 (the
-    paper-faithful single Thread_2).  One warm-up query, then the timed
-    one (or ``clients`` at once).  ``outputs``: the timed response's
-    arrays in ingest order; ``k1``: blur launches in both runs."""
-    eng = VDMSAsyncEngine(device=device, num_remote_servers=servers,
-                          transport=transport or TRANSPORT,
-                          fuse_native=fuse, batch_remote=batch_remote,
-                          num_native_workers=1, fair_scheduling=False)
-    try:
-        eids = [eng.add_entity("image", item, {"category": "bench",
-                                               "idx": i})
-                for i, item in enumerate(data)]
-        q = [{"FindImage": {"constraints": {"category": ["==", "bench"]},
-                            "operations": ops_json}}]
-        k1 = gaussian_blur.launches.count
-        _execute(eng, q, len(eids))           # warm-up
-        responses = []
-        wall = _clients(lambda: responses.append(_execute(eng, q, len(eids))),
-                        clients)
-        return {"wall_s": wall, "k1": gaussian_blur.launches.count - k1,
-                "outputs": [responses[0]["entities"][e] for e in eids]}
-    finally:
-        eng.shutdown()
-
-
-def run_baseline(system, data, ops_json, *, device, servers=2, clients=1,
-                 workers=8, transport=None) -> dict:
-    """A baseline executor over the same transport: one warm-up run,
-    then the timed one (or ``clients`` at once)."""
-    pool = RemoteServerPool(servers, transport or TRANSPORT)
-    ops = parse_operations(ops_json)
-    try:
-        def make_ents():
-            return [Entity(str(i), "image", np.array(d), ops=list(ops))
-                    for i, d in enumerate(data)]
-
-        ex = (SyncExecutor(pool, device=device) if system == "sync" else
-              PooledExecutor(pool, workers=workers, device=device))
-        k1 = gaussian_blur.launches.count
-        ex.run(make_ents())                   # warm-up
-        runs = []
-        wall = _clients(lambda: runs.append(ex.run(make_ents())), clients)
-        return {"wall_s": wall, "k1": gaussian_blur.launches.count - k1,
-                "outputs": [e.data for e in runs[0]]}
-    finally:
-        pool.shutdown()
-
-
-def _max_err(a, b) -> float:
-    out = 0.0
-    for x, y in zip(a, b, strict=True):
-        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
-        if x.shape != y.shape:
-            return float("inf")
-        out = max(out, float(np.max(np.abs(x - y))) if x.size else 0.0)
-    return out
-
-
-def _compare(name, n, data, ops, device, servers):
+def _compare(name, n, data, ops, device, servers, fuse=False,
+             batch_remote=1):
     sync = run_baseline("sync", data, ops, device=device, servers=servers)
     pool = run_baseline("pool", data, ops, device=device, servers=servers)
-    a = run_async_engine(data, ops, device=device, servers=servers)
+    a = run_async_engine(data, ops, device=device, servers=servers,
+                         fuse=fuse, batch_remote=batch_remote)
     return {
         "name": name,
         "us_per_call": a["wall_s"] / n * 1e6,
@@ -210,8 +72,9 @@ def _compare(name, n, data, ops, device, servers):
         "sync_over_async": sync["wall_s"] / a["wall_s"],
         "pool_over_async": pool["wall_s"] / a["wall_s"],
         "throughput_eps": n / a["wall_s"],
-        "max_abs_err": {"sync": _max_err(sync["outputs"], a["outputs"]),
-                        "pool": _max_err(pool["outputs"], a["outputs"])},
+        "t2_busy": a["thread2_busy_s"], "t3_busy": a["thread3_busy_s"],
+        "max_abs_err": {"sync": max_err(sync["outputs"], a["outputs"]),
+                        "pool": max_err(pool["outputs"], a["outputs"])},
         "k1_launches": {"sync": sync["k1"], "pool": pool["k1"],
                         "async": a["k1"]},
     }
@@ -225,9 +88,15 @@ def run_c1(device="cuda", n_images=32, queries=None, servers=2):
             for name, ops in (queries or image_queries()).items()]
 
 
-def run_c2(device="cuda", n_images=32, servers=2):
-    return [_compare("image_c2_pipeline", n_images, image_set(n_images),
-                     image_c2_pipeline(), device, servers)]
+def run_c2(device="cuda", n_images=32, servers=2, fuse=False,
+           batch_remote=1):
+    """C2; with ``fuse`` or ``batch_remote`` > 1 the async engine fuses
+    its native runs and batches its remote requests (``run.py``'s fusion
+    suite), and the row is named ``image_c2_pipeline_opt``."""
+    tag = "" if not (fuse or batch_remote > 1) else "_opt"
+    return [_compare(f"image_c2_pipeline{tag}", n_images,
+                     image_set(n_images), image_c2_pipeline(), device,
+                     servers, fuse=fuse, batch_remote=batch_remote)]
 
 
 def run_c3(device="cuda", n_images=16, clients=(2, 4, 8), servers=4):
@@ -269,7 +138,7 @@ def run_shards(device="cuda", shard_counts=(1, 2, 4), n_images=96,
     rng = np.random.default_rng(7)
     data = [rng.uniform(0, 1, (32, 32, 3)).astype(np.float32)
             for _ in range(n_images)]
-    q = _find_all([_remote("facedetect_box")], "s")
+    q = _find_all([remote_op("facedetect_box")], "s")
     times, stats = {}, {}
     for n in shard_counts:
         eng = ShardedEngine(num_shards=n, replica_factor=1,
@@ -281,8 +150,8 @@ def run_shards(device="cuda", shard_counts=(1, 2, 4), n_images=96,
         try:
             for i, img in enumerate(data):
                 eng.add_entity("image", img, {"category": "s", "idx": i})
-            _execute(eng, q, n_images)       # warm-up on every shard
-            times[n] = min(_clients(lambda: _execute(eng, q, n_images),
+            execute_all(eng, q, n_images)       # warm-up on every shard
+            times[n] = min(clients_wall(lambda: execute_all(eng, q, n_images),
                                     clients) for _ in range(repeats))
             cs = eng.cluster_stats()
             stats[n] = {"owned_primary": {str(s): v["owned"] for s, v
@@ -304,7 +173,7 @@ def run_kappa(device="cuda", kappas=(1, 2, 4, 8, 16, 32, 64), n_images=48,
     """One engine, kappa remote servers (paper Fig 29): IQ4 under
     ``clients`` parallel clients; T(1)/T(kappa) should grow linearly."""
     data = image_set(n_images, size=48)
-    q = _find_all([_remote("facedetect_box")], "s")
+    q = _find_all([remote_op("facedetect_box")], "s")
     times = {}
     for k in kappas:
         eng = VDMSAsyncEngine(device=device, num_remote_servers=k,
@@ -314,8 +183,9 @@ def run_kappa(device="cuda", kappas=(1, 2, 4, 8, 16, 32, 64), n_images=48,
         try:
             for i, img in enumerate(data):
                 eng.add_entity("image", img, {"category": "s", "idx": i})
-            _execute(eng, q, n_images)       # warm-up
-            times[k] = _clients(lambda: _execute(eng, q, n_images), clients)
+            execute_all(eng, q, n_images)       # warm-up
+            times[k] = clients_wall(lambda: execute_all(eng, q, n_images),
+                                    clients)
         finally:
             eng.shutdown()
     t1 = times[kappas[0]]

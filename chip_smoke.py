@@ -21,9 +21,11 @@ Phases (any failed check exits non-zero, before the result line):
    and the other operations at the fp32 rate) and a library yardstick;
    K3's, K4's and K5's rows name their tensor-core route; besides the
    main shapes, K3 at zamba2's head dim 80 (float32 and bfloat16), K1 at
-   one 64x64 image (C1's IQ3 in phase 10) and on its general route
-   (ksize 99, and ksize 5 over 64 channels), K2 at one image, at a
-   1080p lanczos3 downsample and at 8 channels, and for the training
+   one 64x64 image (C1's IQ3 in phase 10), at each shape and window
+   phase 21's benches give it (``BENCH_BLURS``: ksize 7 among them) and
+   on its general route (ksize 99, and ksize 5 over 64 channels), K2 at
+   one image, at a 1080p lanczos3 downsample, at 8 channels and at
+   phase 21's fused segment (8 x 72x72 → 48x48), and for the training
    path K3 in bfloat16 at minicpm-2b's head dim 64, K3 at qwen3-0.6b's
    training microbatch and at granite-8b's prefill (phase 14), and K3's
    forward + recomputing backward (``flash_vjp``'s Function) at
@@ -158,7 +160,7 @@ Phases (any failed check exits non-zero, before the result line):
    peak allocation is within 15% of its peak; the wall (median of 3
    warm calls) and the counted FLOPs' share of the bf16 peak printed;
 20. the engine behaviours that the reference's own engine tests hold
-   (run last, ``device`` and ``device_backend`` on the card): (a) the
+   (after phase 10; ``device`` and ``device_backend`` on the card): (a) the
    ``admission_none_hash`` workload hashes to the recorded ``f9acbed1…``
    and an ``admission="queue"`` engine returns identical arrays; (b)
    phase 3's 64 faces through crop/rotate/flip/threshold under
@@ -173,7 +175,23 @@ Phases (any failed check exits non-zero, before the result line):
    left, and ``torch.cuda.memory_allocated()`` back within one 2 MiB
    allocator block of its level before the phase (read as PyTorch's
    CUDA leak check reads it: after a collection, without the cuBLAS
-   workspaces PyTorch keeps for each thread that ran a matmul).
+   workspaces PyTorch keeps for each thread that ran a matmul);
+21. the reference's benches on the port (``benchmarks/torch_*.py``, run
+   last), each with its ``--check-baseline`` gates, any failed gate
+   failing the script: dispatch (the three placement modes identical
+   with qwen3-0.6b's model UDF at full width, the device and fused arms
+   close, ``778564da…``), admission (``f9acbed1…``, in flight bounded,
+   shed p99 within 3× of uncontended), resilience (completion 1.0, no
+   leak, peak ≤ cap, p99 factor ≤ 25), the hot path (cache and
+   coalescing responses identical to their baselines), the front end
+   (the wire hash, ``retry_after_s`` positive and finite, the cache
+   served while saturated), serving (batched tokens equal to sequential
+   ones at full width, the native pool's responses equal to one
+   worker's) and the video suite (C1–C3 and cputrace at ``run.py
+   --full``'s sizes, C1 and C2 over 4 clips of 16 240x320 frames: every
+   system within 1e-5 of the async engine); each bench's headline
+   numbers printed beside the card's name and power limit, its payload
+   in ``chiprun_out/torch_<bench>.json``.
 
 Phase 5 also holds K4's and K5's Functions (forward + backward) at the
 training shapes of phase 16 against autograd through the plain chunked
@@ -183,21 +201,25 @@ attention, with times and bounds.
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
 zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15,
-16, 9, 10 and 20 (run in that order, phases 17 and 18 after 16) and
-read just after it (phase 6 must have launched K4, and K3 past 1024
+16, 9, 10, 20 and 21 (run in that order, phases 17 and 18 after 16)
+and read just after it (phase 6 must have launched K4, and K3 past 1024
 slots; phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5;
-phases 9 and 20 K1 and K2; phase 10 K1).  Phase 18's ranks zero their own counts before
-each run and read them after it (each run's kernels must have launched
-on each rank); the parent's ``model_par=1`` runs, the comparison, count
-in none.  Phase 19 (after 18) zeroes the counts just before each of
+phases 9, 20 and 21 K1 and K2; phase 10 K1).  Phase 18's ranks zero
+their own counts before each run and read them after it (each run's
+kernels must have launched on each rank); the parent's ``model_par=1``
+runs, the comparison, count in none.  Phase 19 (after 18) zeroes the counts just before each of
 its card steps and reads them just after (its train step must launch
 K3, its prefill K5).  K1's and K2's launches in the kernels line are
-the sum over phases 2–4, 9, 10 and 20, K3's over phases 6–8, 11–16, 18 and
-19, K4's over phases 6, 16 and 18, K5's over phases 7, 16, 18 and 19.
+the sum over phases 2–4, 9, 10, 20 and 21, K3's over phases 6–8,
+11–16, 18 and 19, K4's over phases 6, 16 and 18, K5's over phases 7,
+16, 18 and 19.
 Phase 5's launches, which only compare kernels with their plain
-versions, count in none.  The last lines are the card's name and power
-limit, one ``{"kernels": [...]}`` line, and ``{"ok": true, "device":
-{...}}``.
+versions, count in none.  Phases 9, 10 and 21 run under ``HeldCalls``:
+every K1 and K2 launch there goes through it, and the first call at
+each shape and window is held against the plain version (K1 bit for
+bit, K2 within ``K2_TOL``) after the phase, on its own input.  The
+last lines are the card's name and power limit, one ``{"kernels":
+[...]}`` line, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --ab DIR [KERNEL ...]`` instead holds the named
 kernels (by default every kernel whose sources in DIR differ from the
@@ -210,6 +232,7 @@ and timed on the new build alone.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import hashlib
 import json
@@ -560,6 +583,85 @@ def time_ms(fn, flush, reps=30):
     return statistics.median(times)
 
 
+class HeldCalls:
+    """Within ``with HeldCalls() as held:``, the engine's calls of K1's
+    and K2's wrappers (through ``repro_torch.kernels.ops``, its only way
+    to them) keep, for the first call at each signature (the shape, and
+    the window or the resize and crop), a copy of the input and of the
+    output.  ``held.check(phase)`` then holds each output against the
+    plain version on the same input, K1 bit for bit and K2 within
+    ``K2_TOL``, and returns each signature with its calls: a kernel is
+    checked at every shape a phase gave it, whatever the micro-batches
+    came to.  The check launches no kernel; the wrappers count their
+    launches as they do outside the block."""
+
+    def __init__(self):
+        self.calls, self._lock = {}, threading.Lock()
+
+    def _held(self, kind, fn):
+        def held(img, *args, **kw):
+            key = (kind, tuple(img.shape), args, tuple(sorted(kw.items())))
+            x = img.clone()
+            out = fn(img, *args, **kw)
+            with self._lock:
+                entry = self.calls.setdefault(key, {"n": 0})
+                entry["n"] += 1
+                if entry["n"] == 1:
+                    entry.update(x=x, out=out.clone(), kw=kw)
+            return out
+        return held
+
+    def launches(self, kind) -> int:
+        """Calls of ``kind`` that returned: its wrapper's launches."""
+        return sum(e["n"] for key, e in self.calls.items()
+                   if key[0] == kind)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import preprocess as pp
+        self._saved = (ops.gaussian_blur_cuda,
+                       pp.fused_resize_crop_normalize_cuda)
+        ops.gaussian_blur_cuda = self._held("K1", self._saved[0])
+        pp.fused_resize_crop_normalize_cuda = self._held("K2",
+                                                         self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import preprocess as pp
+        ops.gaussian_blur_cuda, pp.fused_resize_crop_normalize_cuda = \
+            self._saved
+
+    def check(self, phase) -> list:
+        import torch
+        from repro_torch.kernels import preprocess as pp
+        from repro_torch.kernels.ref import gaussian_blur_ref
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        rows = []
+        for (kind, shape, args, _), e in sorted(self.calls.items(),
+                                                key=lambda kv: str(kv[0])):
+            if kind == "K1":
+                want = gaussian_blur_ref(e["x"], *args, **e["kw"])
+            else:
+                want = pp.fused_resize_crop_normalize_ref(e["x"], *args,
+                                                          **e["kw"])
+            err = (float((e["out"] - want).abs().max()) if want.numel()
+                   else 0.0)
+            ok = (torch.equal(e["out"], want) if kind == "K1"
+                  else err <= K2_TOL)
+            params = list(args) or e["kw"]
+            check(ok, f"phase {phase}: {kind} {shape} {params}, {e['n']} "
+                  f"calls: the first "
+                  + ("equal to the plain version" if kind == "K1"
+                     else f"within {K2_TOL} of the plain version")
+                  + f" (max_abs_err {err:.3g})")
+            rows.append({"kernel": kind, "shape": list(shape),
+                         "params": params, "calls": e["n"],
+                         "max_abs_err": err})
+        return rows
+
+
 def ssd_inputs(rng, B, T, H, P, G, N, dtype):
     """x ~ N(0,1), dt = softplus(N(0,1)) / 2, A = -exp(0.3 N), B, C ~
     0.5 N, D = |0.1 N|, h0 ~ 0.1 N (the JAX package's kernel-test
@@ -626,6 +728,18 @@ K2_1080P = dict(resize_h=224, resize_w=224, method="lanczos3", crop_x=0,
                 crop_y=0, crop_w=224, crop_h=224, mean=0.45, std=0.22)
 # the 1080p frame to 8 x 8: windows of 1,440 columns (the wide route)
 K2_WIDE = dict(K2_1080P, resize_h=8, resize_w=8, crop_w=8, crop_h=8)
+# phase 21's K1 calls (benchmarks/torch_*; phase 21 holds every one it
+# makes through HeldCalls): the native pool's two blurs of 128 x 128, the
+# video suite's VQ3 on 240 x 320 and 48 x 48 frames, cputrace's 32 x 32,
+# the dispatch device arm's all-native side (an image a launch) and its
+# micro-batch of 8, and the fused segment's 8 crops of 48 x 48; and K2
+# in that fused segment
+BENCH_BLURS = [((1, 128, 128, 3), 7, 2.0), ((1, 128, 128, 3), 5, 1.5),
+               ((1, 240, 320, 3), 5, 1.5), ((1, 48, 48, 3), 5, 1.5),
+               ((1, 32, 32, 3), 5, 1.0), ((1, 64, 64, 3), 9, 2.0),
+               ((8, 64, 64, 3), 9, 2.0), ((8, 48, 48, 3), 9, 2.0)]
+K2_FUSED_ARM = dict(resize_h=64, resize_w=64, method="bilinear", crop_x=8,
+                    crop_y=8, crop_w=48, crop_h=48, mean=0.45, std=0.22)
 K2_ROUTES = {"direct": "fp32 FMA over tap tables: direct, a thread per "
                        "output float (2 x 2 taps)",
              "tiled": "fp32 FMA over tap tables: tiled, streamed vertical "
@@ -1083,6 +1197,9 @@ def phase_kernels():
     # floats a side (ksize 5 over a 64-channel feature map)
     rows.append(blur_case((1, 250, 250, 3), 99, 0.0))
     rows.append(blur_case((1, 224, 224, 64), 5, 1.5))
+    # K1 at every shape and window that phase 21's benches give it
+    for shape, ksize, sigma in BENCH_BLURS:
+        rows.append(blur_case(shape, ksize, sigma))
     # K2 at the device backend's batch of 32, at one image (the pow-2
     # padded partial batch), a 1080p frame to 224 with lanczos3 (29 and 52
     # taps a window), 8 channels, and the 1080p frame to 8 x 8 (windows of
@@ -1094,6 +1211,7 @@ def phase_kernels():
     rows.append(preprocess_case((1, 1080, 1920, 3), K2_1080P))
     rows.append(preprocess_case((4, 250, 250, 8), K2_MAIN))
     rows.append(preprocess_case((1, 1080, 1920, 3), K2_WIDE))
+    rows.append(preprocess_case((8, 72, 72, 3), K2_FUSED_ARM))  # phase 21a
     # K4 at launch.model_serve's prefill shape (16 x 512 tokens, zamba2's
     # 80 heads of 64, state 64, one group), the model UDF's 3-token
     # prompts, grouped B/C, and bfloat16
@@ -3363,6 +3481,87 @@ def phase_engine_behaviours(VDMSAsyncEngine, TransportModel, faces,
     return out
 
 
+
+# ------------------------------------------------------------ phase 21
+# the real-size video run: 4 clips of 240x320x3 float32 frames, cut from
+# the bench's 32 frames to 16 (59 MB on the card) to fit the phase's
+# budget: the frame baseline's 20 ms a frame request dominates
+BENCH_VIDEO = {"real": {"n_videos": 4, "frames": 16, "size": (240, 320)}}
+
+
+def phase_benches(device="cuda", smi="", video=None, timing_gates=True,
+                  report=True):
+    """Phase 21: the reference's benches on the port, each run as its
+    ``--check-baseline`` runs it (``benchmarks/torch_*.py``, smoke sizes)
+    and failing on any gate: (a) dispatch — the three placement modes
+    identical with qwen3-0.6b's model UDF at full width on the card,
+    the device arm and the fused segment within ``rtol`` 1e-5 / ``atol``
+    1e-6 of all-native and per-op, the static hash; (b) admission — the
+    ``f9acbed1…`` hash, queue equal to none, in-flight bounded, shed
+    p99 within 3× of uncontended; (c) resilience — the fault-off hash,
+    completion 1.0, no failed entity, no leak, peak ≤ cap, p99 factor ≤
+    25; (d) hot path — the cache and coalescing responses identical to
+    their baselines; (e) front end — the wire hash, wire = in process,
+    ``retry_after_s`` positive and finite, the cache served while
+    saturated; (f) serving — batched tokens equal to sequential ones,
+    the native pool's responses equal to one worker's; (g) the video
+    suite at ``run.py --full``'s sizes, cputrace, and C1 and C2 at
+    ``video``'s real size, every system within 1e-5 of the async
+    engine.  ``timing_gates=False`` (CPU rehearsals) leaves out the two
+    gates read off wall clocks; ``report`` writes each bench's payload
+    to ``chiprun_out/torch_<bench>.json``."""
+    from benchmarks import (torch_admission_bench, torch_dispatch_bench,
+                            torch_frontend_bench, torch_hotpath,
+                            torch_resilience_bench, torch_serving_bench,
+                            torch_video_suite)
+    print(f"phase 21: the reference's benches on the port; card: {smi}",
+          flush=True)
+    timing = {"timing": timing_gates}
+    video_suite = functools.partial(
+        torch_video_suite.run_suite, smoke=False,
+        sizes=BENCH_VIDEO if video is None else video)
+    benches = [  # (step, key, module, its run, its gates' options)
+        ("a", "dispatch", torch_dispatch_bench, torch_dispatch_bench.run, {}),
+        ("b", "admission", torch_admission_bench, torch_admission_bench.run,
+         timing),
+        ("c", "resilience", torch_resilience_bench,
+         torch_resilience_bench.run, timing),
+        ("d", "hotpath", torch_hotpath, torch_hotpath.run, {}),
+        ("e", "frontend", torch_frontend_bench, torch_frontend_bench.run, {}),
+        ("f", "serving", torch_serving_bench, torch_serving_bench.run_suite,
+         {}),
+        ("g", "video", torch_video_suite, video_suite, {"device": device}),
+    ]
+    walls, out = {}, {}
+    for step, key, bench, run, gate_kw in benches:
+        t0 = time.monotonic()
+        rows = run(device=device, report=report)
+        for line in bench.headline(rows):
+            print(f"  21{step} {line}", flush=True)
+        walls[key] = time.monotonic() - t0
+        failures = bench.gates(rows, **gate_kw)
+        check(not failures, f"21{step} {key}: "
+              + ("; ".join(failures) or "every gate holds"))
+        out[key] = rows
+    out["walls_s"] = walls
+    print("  phase 21 walls (s): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; card: {smi}", flush=True)
+    return out
+
+
+def check_held(held, phase, counts) -> list:
+    """Every K1 and K2 launch of an engine phase went through the held
+    wrappers, and each kernel's output at each shape it was given there
+    equals (K1) or is within ``K2_TOL`` of (K2) the plain version."""
+    for kind, name in (("K1", "gaussian_blur"),
+                       ("K2", "fused_resize_crop_normalize")):
+        check(held.launches(kind) == counts[name],
+              f"phase {phase}: {name}'s {counts[name]} launches all held "
+              f"({held.launches(kind)})")
+    return held.check(phase)
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3565,9 +3764,11 @@ def main() -> int:
         for c in launches.values():
             c.reset()
         t0 = time.monotonic()
-        details[key] = run()
+        with HeldCalls() as held:
+            details[key] = run()
         details[key]["phase_s"] = time.monotonic() - t0
         counts = {k: launches[k].count for k in engine_path}
+        details[key]["held"] = check_held(held, phase, counts)
         print(f"  phase {phase}: {details[key]['phase_s']:.3f} s; launches "
               f"{counts}", flush=True)
         for name in need:
@@ -3595,6 +3796,24 @@ def main() -> int:
         check(counts[name] > 0, f"{name} launched in phase 20 ({counts[name]})")
         path_launches[name] += counts[name]
     details["behaviours"]["launches"] = counts
+
+    # ---- the reference's benches: K1 and K2 behind the device backend,
+    # K1 in the video suite and the native pool; counts zeroed just
+    # before, read just after
+    for c in launches.values():
+        c.reset()
+    t0 = time.monotonic()
+    with HeldCalls() as held:
+        details["benches"] = phase_benches(smi=smi)
+    details["benches"]["phase_s"] = time.monotonic() - t0
+    counts = {k: launches[k].count for k in engine_path}
+    details["benches"]["held"] = check_held(held, 21, counts)
+    print(f"  phase 21: {details['benches']['phase_s']:.3f} s; launches "
+          f"{counts}", flush=True)
+    for name in engine_path:
+        check(counts[name] > 0, f"{name} launched in phase 21 ({counts[name]})")
+        path_launches[name] += counts[name]
+    details["benches"]["launches"] = counts
     kernels = kernels_line(entries, path_launches)
     details["seconds"] = time.monotonic() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

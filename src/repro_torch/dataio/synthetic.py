@@ -44,20 +44,23 @@ def _one_face(size: int, rng) -> np.ndarray:
     return np.clip(img, 0, 1)
 
 
-def synthetic_video(n_frames: int = 32, size: int = 96, seed: int = 0) -> np.ndarray:
-    """(T, H, W, 3) moving-blob 'activity' clip."""
+def synthetic_video(n_frames: int = 32, size=96, seed: int = 0) -> np.ndarray:
+    """(T, H, W, 3) moving-blob 'activity' clip; ``size`` is H = W, or an
+    (H, W) pair (a square size gives the same clip either way)."""
+    h, w = (size, size) if np.ndim(size) == 0 else size
+    extent = np.array([h, w])
     rng = np.random.default_rng(seed)
-    base = rng.uniform(0.1, 0.3, (size, size, 3)).astype(np.float32)
-    out = np.empty((n_frames, size, size, 3), np.float32)
-    pos = rng.uniform(0.2, 0.8, 2) * size
+    base = rng.uniform(0.1, 0.3, (h, w, 3)).astype(np.float32)
+    out = np.empty((n_frames, h, w, 3), np.float32)
+    pos = rng.uniform(0.2, 0.8, 2) * extent
     vel = rng.uniform(-3, 3, 2)
     color = rng.uniform(0.5, 1.0, 3).astype(np.float32)
-    ys, xs = np.mgrid[0:size, 0:size]
+    ys, xs = np.mgrid[0:h, 0:w]
     for t in range(n_frames):
         pos = pos + vel
-        vel = np.where((pos < 8) | (pos > size - 8), -vel, vel)
-        pos = np.clip(pos, 8, size - 8)
-        blob = (ys - pos[0]) ** 2 + (xs - pos[1]) ** 2 <= (size // 10) ** 2
+        vel = np.where((pos < 8) | (pos > extent - 8), -vel, vel)
+        pos = np.clip(pos, 8, extent - 8)
+        blob = (ys - pos[0]) ** 2 + (xs - pos[1]) ** 2 <= (min(h, w) // 10) ** 2
         frame = base.copy()
         frame[blob] = color
         out[t] = frame

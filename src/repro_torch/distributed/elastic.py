@@ -31,7 +31,10 @@ def remesh_tree(tree: Any, axes_tree: Any, new_mesh, rules):
     or DTensors on another mesh) onto ``new_mesh``: each leaf becomes a
     DTensor with the placements its logical axes give there.  A
     one-rank mesh without a ``DeviceMesh`` (no process group) leaves
-    the tree as it is."""
+    the tree as it is.  Every rank of the old mesh calls it (the leaves
+    are gathered there); where ``new_mesh`` covers fewer ranks
+    (:func:`repro_torch.launch.mesh.make_mesh`), a rank outside it is
+    left holding empty local shards."""
     if new_mesh.device_mesh is None:
         if new_mesh.size != 1:
             raise ValueError(f"a mesh of {new_mesh.size} ranks needs its "

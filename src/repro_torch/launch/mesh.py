@@ -12,6 +12,7 @@ here initialises a process group at import: a launcher started by
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 
 import torch
@@ -28,13 +29,32 @@ def world_size() -> int:
 def _mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
     """A :class:`Mesh` of ``shape``, carrying the ``DeviceMesh`` over
     the default group when one is initialised (its device type follows
-    the backend: NCCL ranks hold cards, gloo ranks the CPU)."""
+    the backend: NCCL ranks hold cards, gloo ranks the CPU).  A shape of
+    fewer ranks than the world covers its first ranks; every rank of
+    the world must build it, as every rank joins a new group."""
     if not dist.is_initialized():
         return Mesh(axes, shape)
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return Mesh(axes, shape, init_device_mesh(kind, shape,
-                                              mesh_dim_names=axes))
+    n = math.prod(shape)
+    if n == world_size():
+        return Mesh(axes, shape, init_device_mesh(kind, shape,
+                                                  mesh_dim_names=axes))
+    return Mesh(axes, shape, DeviceMesh(kind, torch.arange(n).reshape(shape),
+                                        mesh_dim_names=axes))
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
+    """A mesh of ``shape`` over the first ``prod(shape)`` ranks, the
+    counterpart of ``jax.make_mesh`` over the first devices: an elastic
+    restart re-lays its state onto the ranks that survived
+    (:func:`repro_torch.distributed.elastic.remesh_tree`)."""
+    shape, axes = tuple(shape), tuple(axes)
+    if math.prod(shape) > world_size():
+        raise ValueError(f"a mesh of shape {shape} needs "
+                         f"{math.prod(shape)} ranks; the world has "
+                         f"{world_size()}")
+    return _mesh(shape, axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

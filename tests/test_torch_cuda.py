@@ -95,7 +95,8 @@ def _uniform(seed, shape, device):
     # 15 with the tap count at run time; a 1-row image
     ((2, 61, 37, 3), 3, 0.0), ((1, 40, 70, 3), 15, 3.0),
     ((1, 33, 29, 2), 6, 1.2), ((1, 90, 64, 3), 21, 4.0),
-    ((1, 1, 17, 3), 5, 1.5),
+    ((1, 1, 17, 3), 5, 1.5), ((1, 128, 128, 3), 7, 2.0),
+    ((2, 47, 53, 3), 13, 2.5),
     # the general route: windows past 63 taps, halos of (ksize // 2) * C
     # > 127 floats, pads as large as the image or larger
     ((1, 40, 70, 3), 64, 0.0), ((2, 37, 45, 3), 65, 10.0),

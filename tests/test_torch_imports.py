@@ -2,6 +2,7 @@
 the JAX package, and on a host without a CUDA card its entry points
 refuse a CUDA request before any thread starts instead of falling back
 to the CPU."""
+import glob
 import os
 import subprocess
 import sys
@@ -22,7 +23,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401  (beyond kernels.work, in main())
-import benchmarks.torch_suite  # noqa: F401
+for bench in {benches!r}:
+    importlib.import_module("benchmarks." + bench)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "repro."))
              or k == "repro")
@@ -47,13 +49,23 @@ DISTRIBUTION = {"repro_torch.distributed", "repro_torch.distributed.sharding",
                 "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
                 "repro_torch.launch.specs", "repro_torch.launch.model_serve"}
 
+# the port's benches: every benchmarks/torch_*.py
+BENCHES = sorted(os.path.basename(p)[:-3] for p in glob.glob(
+    os.path.join(ROOT, "benchmarks", "torch_*.py")))
+NEW_BENCHES = {"torch_common", "torch_video_suite", "torch_dispatch_bench",
+               "torch_admission_bench", "torch_resilience_bench",
+               "torch_hotpath", "torch_frontend_bench",
+               "torch_serving_bench", "torch_run"}
+
 # the dry run's modules
 DRY_RUN = {"repro_torch.kernels.work", "repro_torch.launch.costs",
            "repro_torch.launch.dryrun"}
 
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
-    code = _PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT)
+    assert NEW_BENCHES <= set(BENCHES), NEW_BENCHES - set(BENCHES)
+    code = _PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT,
+                         benches=BENCHES)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
@@ -66,11 +78,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert DISTRIBUTION <= walked, DISTRIBUTION - walked
     assert DRY_RUN <= walked, DRY_RUN - walked
     assert bad == "[]", bad
-    # chip_smoke.main's own imports, as listed there
-    for path in ("chip_smoke.py", os.path.join("benchmarks",
-                                               "torch_suite.py")):
+    # chip_smoke.main's and the benches' own imports, as listed there
+    for path in ["chip_smoke.py"] + [os.path.join("benchmarks", b + ".py")
+                                     for b in BENCHES]:
         src = open(os.path.join(ROOT, path)).read()
-        assert "import jax" not in src and "from repro." not in src
+        for bad in ("import jax", "from jax", "from repro.", "import repro\n",
+                    "from repro import", "from benchmarks.common",
+                    "from benchmarks import common"):
+            assert bad not in src, (path, bad)
 
 
 def test_cuda_requests_raise_on_a_host_without_cuda():

@@ -222,3 +222,70 @@ def test_phase_20_rehearsed_on_the_cpu():
     assert out["fusion"]["per op"]["fused_segments"] == 0
     assert out["storm"]["retried"] > 0
     assert set(out["walls_s"]) == {"20a", "20b", "20c", "20d", "20e"}
+
+
+def test_phase_21_rehearsed_on_the_cpu():
+    """Phase 21 on the CPU: every port bench with its gates, the video
+    suite at 2 clips × 3 frames and its real-size run at 1 × 2 × 40 × 56;
+    the two gates read off wall clocks are the card's (``timing_gates``),
+    and no payload is written (``report``)."""
+    small = dict(n_videos=2, frames=3)
+    video = {"c1": small, "c2": small, "c3": dict(small, clients=(2,)),
+             "cputrace": small,
+             "real": dict(n_videos=1, frames=2, size=(40, 56))}
+    out = cs.phase_benches(device="cpu", smi="cpu", video=video,
+                           timing_gates=False, report=False)
+    assert set(out["walls_s"]) == {"dispatch", "admission", "resilience",
+                                   "hotpath", "frontend", "serving",
+                                   "video"}
+    hash_row = out["dispatch"][-1]
+    assert hash_row["static_response_sha256"] == cs.STATIC_SHA256
+    assert out["admission"][1]["none_response_sha256"] == \
+        cs.ADMISSION_SHA256
+    names = [r["name"] for r in out["video"]]
+    assert "video_c1_VQ3_blur_40x56" in names and \
+        "cputrace_vdms_async" in names
+
+
+@pytest.mark.parametrize("wrong", [False, True])
+def test_held_calls_hold_every_shape_against_the_plain_version(monkeypatch,
+                                                                wrong):
+    """``HeldCalls`` sees every call of K1's and K2's wrappers made
+    through ``kernels.ops`` and holds the first at each shape and window
+    against the plain version on its own input: a stand-in for the
+    kernel that is wrong only at one batch of 8 fails there.  On the CPU
+    the engine never reaches the wrappers, so the stand-ins are called
+    directly."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import preprocess as pp
+
+    def blur(img, ksize, sigma_x, sigma_y=None):
+        out = ref.gaussian_blur_ref(img, ksize, sigma_x, sigma_y)
+        return out + 1e-6 if wrong and img.shape[0] == 8 else out
+
+    monkeypatch.setattr(ops, "gaussian_blur_cuda", blur)
+    monkeypatch.setattr(pp, "fused_resize_crop_normalize_cuda",
+                        pp.fused_resize_crop_normalize_ref)
+    rng = np.random.default_rng(0)
+    x1, x8 = (torch.from_numpy(rng.uniform(0, 1, s).astype(np.float32))
+              for s in ((1, 20, 24, 3), (8, 72, 72, 3)))
+    with cs.HeldCalls() as held:
+        for _ in range(3):
+            ops.gaussian_blur(x1, 5, 1.5)   # the plain path: not held
+            ops.gaussian_blur_cuda(x1, 5, 1.5, None)
+        ops.gaussian_blur_cuda(x8, 7, 2.0, None)
+        pp.fused_resize_crop_normalize_cuda(x8, **cs.K2_FUSED_ARM)
+    assert ops.gaussian_blur_cuda is blur
+    assert held.launches("K1") == 4 and held.launches("K2") == 1
+    counts = {"gaussian_blur": 4, "fused_resize_crop_normalize": 1}
+    if wrong:
+        with pytest.raises(cs.SmokeFailure, match=r"K1 \(8, 72, 72, 3\)"):
+            cs.check_held(held, 21, counts)
+        return
+    rows = cs.check_held(held, 21, counts)
+    assert sorted((r["kernel"], tuple(r["shape"]), r["calls"])
+                  for r in rows) == [("K1", (1, 20, 24, 3), 3),
+                                     ("K1", (8, 72, 72, 3), 1),
+                                     ("K2", (8, 72, 72, 3), 1)]
+    with pytest.raises(cs.SmokeFailure, match="launches all held"):
+        cs.check_held(held, 21, dict(counts, gaussian_blur=5))
