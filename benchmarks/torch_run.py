@@ -5,12 +5,14 @@ figure, the counterpart of ``benchmarks/run.py``.
 ``python3 benchmarks/torch_run.py [--device cuda|cpu] [--full]
 [--only SUITE]`` from the root of a checkout, where SUITE is one of
 image, video, cputrace, scaleout, serving, native_pool, hotpath,
-dispatch, fusion.  Prints ``name,us_per_call,derived`` and writes every
+dispatch, fusion, roofline.  Prints ``name,us_per_call,derived`` and writes every
 row with the card's name and power limit to
 ``chiprun_out/torch_bench.json``.  Unlike ``run.py``, a suite that
 raises fails the run (exit 1) after the other suites have run.  The
-roofline suite (``roofline.py``, which reads the reference's HLO
-dry-run directories) is not ported.
+roofline suite (``torch_roofline.py``) joins them, as ``roofline`` does
+in ``run.py``, whenever the port's dry-run records exist
+(``experiments/dryrun_torch``, from ``python -m
+repro_torch.launch.dryrun --all --mesh both``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 from benchmarks import (torch_dispatch_bench, torch_hotpath,  # noqa: E402
-                        torch_serving_bench, torch_suite,
+                        torch_roofline, torch_serving_bench, torch_suite,
                         torch_video_suite)
 from benchmarks.torch_common import (image_queries, print_rows,  # noqa: E402
                                      write_payload)
@@ -33,8 +35,9 @@ SUITES = ("image", "video", "cputrace", "scaleout", "serving",
           "native_pool", "hotpath", "dispatch", "fusion")
 
 
-def suites(device, full) -> dict:
-    """``{name: fn}``: each returns its rows, at ``run.py``'s sizes."""
+def suites(device, full, dryrun_dir=torch_roofline.DRYRUN_DIR) -> dict:
+    """``{name: fn}``: each returns its rows, at ``run.py``'s sizes; the
+    roofline suite last, when ``dryrun_dir`` exists."""
     ts, vs = torch_suite, torch_video_suite
     out = {}
     if full:
@@ -65,14 +68,17 @@ def suites(device, full) -> dict:
         ts.run_c2(device, 16)
         + [dict(r, name=r["name"] + "_fused")
            for r in ts.run_c2(device, 16, fuse=True, batch_remote=8)])
-    return {name: out[name] for name in SUITES}
+    out = {name: out[name] for name in SUITES}
+    if os.path.isdir(dryrun_dir):
+        out["roofline"] = lambda: torch_roofline.run(dryrun_dir)
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true")
-    ap.add_argument("--only", default=None, choices=SUITES)
+    ap.add_argument("--only", default=None, choices=SUITES + ("roofline",))
     args = ap.parse_args(argv)
     rows, failed, seconds = [], [], {}
     for name, fn in suites(args.device, args.full).items():

@@ -191,7 +191,20 @@ Phases (any failed check exits non-zero, before the result line):
    --full``'s sizes, C1 and C2 over 4 clips of 16 240x320 frames: every
    system within 1e-5 of the async engine); each bench's headline
    numbers printed beside the card's name and power limit, its payload
-   in ``chiprun_out/torch_<bench>.json``.
+   in ``chiprun_out/torch_<bench>.json``;
+22. the examples and the roofline suite (after 21): (a) the four
+   ``examples/torch_*.py`` through their ``main`` on the card at their
+   own sizes — the quickstart's Fig 8 query over 64 faces (0 failed, the
+   thresholded output binary), serve_visual_queries with qwen3-0.6b at
+   full width (0 failed, every clip stamped, the warm wave's 24 full
+   cache hits), train_lm ``--full-100m`` (10 steps at 8 x 128 with a
+   checkpoint every 5 into a temporary directory, then a rerun resuming
+   from step 10; finite losses) and scaleout_bench at kappa 1 and 4 (64
+   images, 4 clients; every query completes); (b) the roofline suite
+   (``benchmarks/torch_{roofline,report}.py``) over phase 19a's records
+   (each row's counted terms equal to its record's), and each 19b cell's
+   analytic terms beside its counted terms and the card's median wall,
+   printed with no limit.
 
 Phase 5 also holds K4's and K5's Functions (forward + backward) at the
 training shapes of phase 16 against autograd through the plain chunked
@@ -201,20 +214,22 @@ attention, with times and bounds.
 Launch counts are zeroed just before phase 2 and read just after
 phase 4 (the engine's image path: K1 and K2 must have launched), and
 zeroed again just before each of phases 6, 7, 8, 11, 12, 13, 14, 15,
-16, 9, 10, 20 and 21 (run in that order, phases 17 and 18 after 16)
+16, 9, 10, 20, 21 and 22 (run in that order, phases 17 and 18 after 16)
 and read just after it (phase 6 must have launched K4, and K3 past 1024
 slots; phase 7 K5; phases 8 and 11–15 K3; phase 16 K3, K4 and K5;
-phases 9, 20 and 21 K1 and K2; phase 10 K1).  Phase 18's ranks zero
+phases 9, 20 and 21 K1 and K2; phase 10 K1; phase 22 none: no kernel
+lies on the examples' paths or the roofline's arithmetic, and what it
+launches is reported).  Phase 18's ranks zero
 their own counts before each run and read them after it (each run's
 kernels must have launched on each rank); the parent's ``model_par=1``
 runs, the comparison, count in none.  Phase 19 (after 18) zeroes the counts just before each of
 its card steps and reads them just after (its train step must launch
 K3, its prefill K5).  K1's and K2's launches in the kernels line are
-the sum over phases 2–4, 9, 10, 20 and 21, K3's over phases 6–8,
-11–16, 18 and 19, K4's over phases 6, 16 and 18, K5's over phases 7,
-16, 18 and 19.
+the sum over phases 2–4, 9, 10, 20, 21 and 22, K3's over phases 6–8,
+11–16, 18, 19 and 22, K4's over phases 6, 16, 18 and 22, K5's over
+phases 7, 16, 18, 19 and 22.
 Phase 5's launches, which only compare kernels with their plain
-versions, count in none.  Phases 9, 10 and 21 run under ``HeldCalls``:
+versions, count in none.  Phases 9, 10, 21 and 22a run under ``HeldCalls``:
 every K1 and K2 launch there goes through it, and the first call at
 each shape and window is held against the plain version (K1 bit for
 bit, K2 within ``K2_TOL``) after the phase, on its own input.  The
@@ -2573,6 +2588,7 @@ DRYRUN_CELLS = [(LONG_ARCH, "train_4k", 2, 4096, "flash_attention"),
                 (RWKV_ARCH, "prefill_32k", 4, 4096, "rwkv6_scan")]
 # the card's peak allocation over a step against the dry run's peak
 DRYRUN_PEAK_RTOL = 0.15
+TERMS = ("compute", "memory", "collective")
 DRYRUN_TIMEOUT_S = 300
 # phase 19a: the counterparts of the reference's two production-mesh
 # dry-run tests, under fake groups of 256 and 512 ranks
@@ -2588,6 +2604,15 @@ with dryrun.fake_group(512):
                                 multi_pod=True, verbose=False))
 print(json.dumps(recs))
 """
+
+
+def dryrun_shape(base, batch, seq):
+    """``SHAPES[base]`` cut to ``batch`` x ``seq``: a phase 19b cell."""
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    shape = SHAPES[base]
+    return dataclasses.replace(shape, global_batch=batch, seq_len=seq,
+                               name=f"{shape.kind}_{batch}x{seq}")
 
 
 def _materialise(meta, cfg, device, gen):
@@ -2634,9 +2659,8 @@ def phase_dryrun(launches, device="cuda", reduced=False, cells=None):
     train cell also beside ``train_step_products``.  With
     ``device="cpu"`` (a rehearsal) launches and memory are not
     compared."""
-    import dataclasses
     import torch
-    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.configs import get_arch
     from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch import costs, dryrun
     from repro_torch.models import get_model
@@ -2652,9 +2676,8 @@ def phase_dryrun(launches, device="cuda", reduced=False, cells=None):
     mesh = Mesh(("data", "model"), (1, 1))
     for arch, base, batch, seq, kernel in cells or DRYRUN_CELLS:
         cfg = get_arch(arch, reduced=reduced)
-        kind = SHAPES[base].kind
-        shape = dataclasses.replace(SHAPES[base], global_batch=batch,
-                                    seq_len=seq, name=f"{kind}_{batch}x{seq}")
+        shape = dryrun_shape(base, batch, seq)
+        kind = shape.kind
         label = f"19b {arch} {shape.name}"
         t0 = time.monotonic()
         rec = dryrun.run_cell(cfg, shape, multi_pod=False, mesh=mesh,
@@ -2718,13 +2741,15 @@ def phase_dryrun(launches, device="cuda", reduced=False, cells=None):
             del res
         wall = statistics.median(walls)
         share = rec["flops_per_device"] / wall / PEAK_FLOPS
-        row = {"arch": arch, "shape": shape.name, "dry_run_s": dry_s,
+        row = {"arch": arch, "shape": shape.name, "cell": [base, batch, seq],
+               "reduced": reduced, "dry_run_s": dry_s,
                "first_s": first_s, "walls_s": walls, "wall_s": wall,
                "launches": counts, "predicted_launches": predicted,
                "input_bytes": input_bytes, "peak_bytes": peak,
                "predicted_peak_bytes": rec["peak_bytes_per_device"],
                "peak_ratio": ratio, "flops": rec["flops_per_device"],
                "hbm_bytes": rec["hbm_bytes_per_device"],
+               "terms_s": {k: rec[f"{k}_term_s"] for k in TERMS},
                "share_of_bf16_peak": share}
         line = (f"  {label}: wall {wall * 1e3:.3f} ms (median of "
                 f"{[round(w * 1e3, 3) for w in walls]}); "
@@ -3550,6 +3575,184 @@ def phase_benches(device="cuda", smi="", video=None, timing_gates=True,
     return out
 
 
+# ------------------------------------------------------------ phase 22
+# the examples' sizes beyond their own defaults: train_lm's --full-100m
+# run (then a rerun that resumes from its last checkpoint) and the
+# scale-out curve at two kappas (phase 10 runs kappa 1-64)
+EXAMPLES = {"quickstart": [], "serve": [],
+            "train": {"args": ["--full-100m", "--batch", "8", "--seq", "128",
+                               "--save-every", "5"],
+                      "steps": 10, "resume_steps": 12},
+            "scaleout": ["--kappas", "1", "4", "--images", "64",
+                         "--clients", "4"]}
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(device="cuda", sizes=None) -> dict:
+    """Phase 22a: the four examples (``examples/torch_*.py``), each
+    through its ``main`` on ``device`` at its own sizes (``sizes`` maps
+    an example to its arguments, ``EXAMPLES`` by default): the quickstart
+    (0 failed, the thresholded output binary), serve_visual_queries at
+    full width on the card (0 failed, every clip stamped, the warm wave
+    all full cache hits), train_lm (finite losses, its checkpoints, and
+    a rerun resuming from the last) and scaleout_bench (a row per
+    kappa: ``run_kappa`` raises on a short or failed response)."""
+    import tempfile
+    sizes = {**EXAMPLES, **(sizes or {})}
+    dev = ["--device", device]
+    out, walls = {}, {}
+
+    t0 = time.monotonic()
+    q = load_example("torch_quickstart").main(dev + sizes["quickstart"])
+    walls["quickstart"] = time.monotonic() - t0
+    check(q["matched"] > 0 and q["failed"] == 0 and q["session_failed"] == 0
+          and q["streamed"] == q["matched"],
+          f"22a quickstart: {q['matched']} matched, 0 failed, each "
+          "streamed")
+    check(set(q["values"]) <= {0.0, 1.0}, "22a quickstart: the output "
+          f"after the threshold is binary ({q['values']})")
+    out["quickstart"] = {k: q[k] for k in ("matched", "failed", "duration_s",
+                                           "streamed", "values")}
+
+    t0 = time.monotonic()
+    v = load_example("torch_serve_visual_queries").main(dev + sizes["serve"])
+    walls["serve"] = time.monotonic() - t0
+    per_session = len(v["entities"])
+    check(v["failed"] == 0 and v["warm_failed"] == 0 and per_session > 0,
+          f"22a serve_visual_queries: {v['clips']} clips, 0 failed")
+    check(all(n > 0 for n in v["stamped_pixels"].values()),
+          "22a serve_visual_queries: every clip stamped by the model "
+          f"UDF (pixels {sorted(v['stamped_pixels'].values())})")
+    check(v["warm_hits"] == v["warm_sessions"] * per_session,
+          f"22a serve_visual_queries: the warm wave's {v['warm_hits']} full "
+          f"cache hits = {v['warm_sessions']} sessions x {per_session}")
+    out["serve"] = {k: v[k] for k in ("setup_s", "cold_s", "warm_s", "clips",
+                                      "warm_hits", "stamped_pixels")}
+
+    t0 = time.monotonic()
+    train, tr = sizes["train"], load_example("torch_train_lm")
+    with tempfile.TemporaryDirectory() as ckpt:
+        args = dev + train["args"] + ["--ckpt-dir", ckpt]
+        first = tr.main(args + ["--steps", str(train["steps"])])
+        saved = sorted(os.listdir(ckpt))
+        again = tr.main(args + ["--steps", str(train["resume_steps"])])
+    walls["train"] = time.monotonic() - t0
+    check(first["start_step"] == 0 and first["steps"] == train["steps"]
+          and all(map(math.isfinite, first["losses"])),
+          f"22a train_lm {first['arch']}: {first['steps']} steps, finite "
+          f"losses ({first['losses'][0]:.4f} -> {first['final_loss']:.4f})")
+    check(f"step_{train['steps']:08d}" in saved,
+          f"22a train_lm: checkpoints written ({saved})")
+    check(again["start_step"] == train["steps"]
+          and again["steps"] == train["resume_steps"] - train["steps"]
+          and all(map(math.isfinite, again["losses"])),
+          f"22a train_lm: the rerun resumed from step {again['start_step']} "
+          f"and took {again['steps']} finite steps")
+    out["train"] = {"arch": first["arch"], "losses": first["losses"],
+                    "step_s": first["step_s"], "checkpoints": saved,
+                    "resumed_losses": again["losses"],
+                    "resumed_step_s": again["step_s"]}
+
+    t0 = time.monotonic()
+    rows = load_example("torch_scaleout_bench").main(
+        dev + sizes["scaleout"])["rows"]
+    walls["scaleout"] = time.monotonic() - t0
+    kappas = [int(r["name"].split("_k")[1]) for r in rows]
+    check(len(rows) >= 2 and all(r["wall_s"] > 0 for r in rows),
+          f"22a scaleout_bench: every query of kappa {kappas} completed")
+    out["scaleout"] = rows
+    out["walls_s"] = walls
+    print("  22a walls (s): " + ", ".join(f"{k} {w:.3f}"
+                                          for k, w in walls.items())
+          + f"; quickstart {q['matched']} matched; serve cold "
+          f"{v['cold_s']:.3f} s, warm {v['warm_s'] * 1e3:.3f} ms, "
+          f"{v['warm_hits']} hits; train losses {first['losses'][0]:.4f} "
+          f"-> {again['final_loss']:.4f}, median step "
+          f"{statistics.median(first['step_s']) * 1e3:.3f} ms; kappa gains "
+          + ", ".join(f"{k}: {r['gain']:.3f}" for k, r in zip(kappas, rows)),
+          flush=True)
+    return out
+
+
+def phase_roofline(dryrun) -> dict:
+    """Phase 22b: the roofline suite (``benchmarks/torch_{roofline,
+    report}.py``) over phase 19's records: 19a's production-mesh records
+    through ``build_table`` (each row's counted terms must equal its
+    record's), the report's table and summary; and each 19b cell's
+    analytic terms (``analytic_cell`` on its (1, 1) mesh) printed beside
+    its counted terms and the card's median wall, with no limit."""
+    import tempfile
+    from benchmarks import torch_report, torch_roofline
+    from repro_torch.configs import get_arch
+    out = {"rows": [], "cells": []}
+    with tempfile.TemporaryDirectory() as d:
+        for rec in dryrun["production"]:
+            path = os.path.join(d, f"{rec['arch']}__{rec['shape']}__"
+                                f"{rec['mesh']}.json")
+            with open(path, "w") as f:
+                json.dump(rec, f)
+        for rec in dryrun["production"]:
+            rows = [r for r in torch_roofline.build_table(d, rec["mesh"])
+                    if (r["arch"], r["shape"]) == (rec["arch"], rec["shape"])]
+            label = f"22b {rec['arch']} {rec['shape']} on {rec['mesh']}"
+            check(len(rows) == 1 and all(
+                rows[0][f"counted_{k}_s"] == rec[f"{k}_term_s"]
+                for k in TERMS) and rows[0]["counted_bottleneck"]
+                == rec["bottleneck"],
+                f"{label}: the roofline row's counted terms are the "
+                "record's")
+            r = rows[0]
+            print(f"  {label}: counted " + " / ".join(
+                f"{r[f'counted_{k}_s'] * 1e3:.6f}" for k in TERMS)
+                + " ms, adjusted " + " / ".join(
+                f"{r[f'adj_{k}_s'] * 1e3:.6f}" for k in TERMS)
+                + f" ms -> {r['adj_bottleneck']}; roofline fraction "
+                f"{r['roofline_fraction']:.6f}, useful ratio "
+                f"{r['useful_ratio']:.6f}, {r['gib_per_dev']:.4f} GiB/dev",
+                flush=True)
+            out["rows"].append(r)
+        out["summary"] = torch_report.summary(d)
+        out["tables"] = {m: torch_report.table(d, m)
+                         for m in sorted({r["mesh"]
+                                          for r in dryrun["production"]})}
+        out["run"] = torch_roofline.run(d)
+    for line in out["summary"].splitlines():
+        print(f"  22b {line}", flush=True)
+    for cell in dryrun["cells"]:
+        cfg = get_arch(cell["arch"], reduced=cell["reduced"])
+        a = torch_roofline.analytic_cell(cfg, dryrun_shape(*cell["cell"]),
+                                         dp=1, tp=1)
+        bound = max(a[f"{k}_s"] for k in TERMS)
+        counted = max(cell["terms_s"].values())
+        row = {"arch": cell["arch"], "shape": cell["shape"],
+               "analytic_s": {k: a[f"{k}_s"] for k in TERMS},
+               "analytic_flops": a["flops"], "analytic_hbm_bytes": a["hbm_bytes"],
+               "counted_s": cell["terms_s"], "counted_flops": cell["flops"],
+               "counted_hbm_bytes": cell["hbm_bytes"], "wall_s": cell["wall_s"],
+               "wall_over_analytic": cell["wall_s"] / bound,
+               "wall_over_counted": cell["wall_s"] / counted}
+        print(f"  22b {cell['arch']} {cell['shape']} on 1 x 1: analytic "
+              + " / ".join(f"{a[f'{k}_s'] * 1e3:.6f}" for k in TERMS)
+              + f" ms ({a['flops']:.6g} FLOPs, {a['hbm_bytes']:.6g} B); "
+              "counted " + " / ".join(f"{cell['terms_s'][k] * 1e3:.6f}"
+                                      for k in TERMS)
+              + f" ms ({cell['flops']:.6g} FLOPs, {cell['hbm_bytes']:.6g} "
+              f"B); wall {cell['wall_s'] * 1e3:.3f} ms = "
+              f"{row['wall_over_analytic']:.3f} x the analytic bound, "
+              f"{row['wall_over_counted']:.3f} x the counted one", flush=True)
+        out["cells"].append(row)
+    return out
+
+
 def check_held(held, phase, counts) -> list:
     """Every K1 and K2 launch of an engine phase went through the held
     wrappers, and each kernel's output at each shape it was given there
@@ -3814,6 +4017,29 @@ def main() -> int:
         check(counts[name] > 0, f"{name} launched in phase 21 ({counts[name]})")
         path_launches[name] += counts[name]
     details["benches"]["launches"] = counts
+
+    # ---- the examples and the roofline suite: no kernel lies on their
+    # paths (the quickstart has no blur, qwen3's prompts stay below 1,024
+    # slots, train_lm runs at 128 tokens, the roofline is arithmetic);
+    # the launches they make are counted, zeroed just before, read just
+    # after
+    for c in launches.values():
+        c.reset()
+    t0 = time.monotonic()
+    print(f"phase 22: the examples and the roofline suite; card: {smi}",
+          flush=True)
+    with HeldCalls() as held:
+        details["examples"] = phase_examples()
+    details["examples"]["held"] = check_held(
+        held, 22, {k: launches[k].count for k in engine_path})
+    details["examples"]["roofline"] = phase_roofline(details["dryrun"])
+    details["examples"]["phase_s"] = time.monotonic() - t0
+    counts = {k: c.count for k, c in launches.items()}
+    print(f"  phase 22: {details['examples']['phase_s']:.3f} s; launches "
+          f"{counts}", flush=True)
+    for name, n in counts.items():
+        path_launches[name] += n
+    details["examples"]["launches"] = counts
     kernels = kernels_line(entries, path_launches)
     details["seconds"] = time.monotonic() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

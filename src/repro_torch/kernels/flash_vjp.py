@@ -21,6 +21,8 @@ the layer.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -38,10 +40,13 @@ def _forward(q, k, v, q_offset, causal, sm_scale, q_block, kv_block):
     a record of its launch on a meta tensor.  Operands of mixed
     dtypes (a bfloat16 decoder's queries against an encoder's float32
     keys) run the kernel in the wider dtype, as the plain forward
-    computes in float32."""
+    computes in float32; a float8 operand (float8 parameters' queries
+    against a bfloat16 cache), which the kernel does not take and torch
+    does not promote, counts as bfloat16."""
     if q.device.type in ("cuda", "meta"):
-        wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
-                                   v.dtype)
+        wide = functools.reduce(torch.promote_types, (
+            torch.bfloat16 if t.is_floating_point and t.itemsize == 1 else t
+            for t in (q.dtype, k.dtype, v.dtype)))
         kernel = flash_attention_cuda if q.is_cuda else flash_attention_meta
         out, lse = kernel(q.to(wide), k.to(wide), v.to(wide),
                           q_offset=q_offset, causal=causal, sm_scale=sm_scale)

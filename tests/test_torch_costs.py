@@ -177,6 +177,28 @@ def test_meta_route_records_one_launch_of_its_work_formula(make, dtype):
     assert c.kernel_breakdown == {} and c.flops > 0
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype,wide", [
+    (torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16),
+    (torch.float8_e4m3fn, torch.float8_e4m3fn, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32)])
+def test_meta_flash_route_runs_mixed_dtypes_in_the_wider(q_dtype, kv_dtype,
+                                                         wide):
+    """Mixed operands (float8 parameters' queries against a bfloat16
+    cache, as the hillclimb's float8 variants give) run the kernel in
+    the wider type, a float8 counting as bfloat16; the output keeps the
+    queries' type, as the reference's ``astype(q.dtype)``."""
+    name, run, (q, k, v), _ = _attn(torch.float32)
+    meta = (q.to("meta", q_dtype), k.to("meta", kv_dtype),
+            v.to("meta", kv_dtype))
+    with costs.CostCounter() as c:
+        out = run(*meta)
+    nbytes, products, _ = work.attn_work(2, 40, 40, 4, 2, 16, 0, True,
+                                         wide.itemsize)
+    assert c.kernel_breakdown == {
+        name: {"launches": 1, "flops": products, "bytes": nbytes}}
+    assert out.dtype == q_dtype and out.shape == q.shape
+
+
 def test_meta_flash_route_counts_only_the_visible_pairs():
     name, run, inputs, _ = _attn(torch.float32, Sq=8, Sk=40, q_offset=32)
     with costs.CostCounter() as c:

@@ -25,6 +25,10 @@ for name in names:
 import chip_smoke  # noqa: F401  (beyond kernels.work, in main())
 for bench in {benches!r}:
     importlib.import_module("benchmarks." + bench)
+import importlib.util
+for path in {examples!r}:   # loaded as modules: their main() is not run
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "repro."))
              or k == "repro")
@@ -55,7 +59,12 @@ BENCHES = sorted(os.path.basename(p)[:-3] for p in glob.glob(
 NEW_BENCHES = {"torch_common", "torch_video_suite", "torch_dispatch_bench",
                "torch_admission_bench", "torch_resilience_bench",
                "torch_hotpath", "torch_frontend_bench",
-               "torch_serving_bench", "torch_run"}
+               "torch_serving_bench", "torch_run", "torch_roofline",
+               "torch_report", "torch_hillclimb"}
+# the port's examples: every examples/torch_*.py
+EXAMPLES = sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
+NEW_EXAMPLES = {"torch_quickstart", "torch_serve_visual_queries",
+                "torch_train_lm", "torch_scaleout_bench"}
 
 # the dry run's modules
 DRY_RUN = {"repro_torch.kernels.work", "repro_torch.launch.costs",
@@ -64,8 +73,10 @@ DRY_RUN = {"repro_torch.kernels.work", "repro_torch.launch.costs",
 
 def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert NEW_BENCHES <= set(BENCHES), NEW_BENCHES - set(BENCHES)
+    examples = {os.path.basename(p)[:-3] for p in EXAMPLES}
+    assert NEW_EXAMPLES <= examples, NEW_EXAMPLES - examples
     code = _PROBE.format(src=os.path.join(ROOT, "src"), root=ROOT,
-                         benches=BENCHES)
+                         benches=BENCHES, examples=EXAMPLES)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
@@ -78,9 +89,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert DISTRIBUTION <= walked, DISTRIBUTION - walked
     assert DRY_RUN <= walked, DRY_RUN - walked
     assert bad == "[]", bad
-    # chip_smoke.main's and the benches' own imports, as listed there
-    for path in ["chip_smoke.py"] + [os.path.join("benchmarks", b + ".py")
-                                     for b in BENCHES]:
+    # chip_smoke.main's, the benches' and the examples' own imports, as
+    # listed there
+    for path in (["chip_smoke.py"] + EXAMPLES
+                 + [os.path.join("benchmarks", b + ".py") for b in BENCHES]):
         src = open(os.path.join(ROOT, path)).read()
         for bad in ("import jax", "from jax", "from repro.", "import repro\n",
                     "from repro import", "from benchmarks.common",

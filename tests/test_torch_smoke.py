@@ -247,6 +247,47 @@ def test_phase_21_rehearsed_on_the_cpu():
         "cputrace_vdms_async" in names
 
 
+def test_phase_22_rehearsed_on_the_cpu():
+    """Phase 22 on the CPU: the four examples at small sizes (the
+    quickstart at 8 faces, the reduced qwen3 behind the serving example,
+    train_lm reduced at 2 x 16 for 2 steps, then a rerun to 3; kappa 1
+    and 2 over 8 images), then the roofline suite over phase 19's
+    records, rehearsed as in the phase 19 test."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd, rwkv6_scan
+    sizes = {"quickstart": ["--faces", "8"],
+             "serve": ["--clips", "3", "--frames", "2", "--size", "32",
+                       "--warm-sessions", "2", "--steps", "2"],
+             "train": {"args": ["--batch", "2", "--seq", "16",
+                                "--save-every", "2"],
+                       "steps": 2, "resume_steps": 3},
+             "scaleout": ["--kappas", "1", "2", "--images", "8",
+                          "--clients", "2"]}
+    out = cs.phase_examples(device="cpu", sizes=sizes)
+    assert out["serve"]["warm_hits"] == 2 * 3
+    assert out["train"]["checkpoints"] == ["step_00000002"]
+    assert len(out["train"]["resumed_losses"]) == 1
+    assert [r["name"] for r in out["scaleout"]] == ["scaleout_k1",
+                                                   "scaleout_k2"]
+    launches = {"flash_attention": fa.launches,
+                "mamba2_ssd": mamba2_ssd.launches,
+                "rwkv6_scan": rwkv6_scan.launches}
+    cells = [(cs.LONG_ARCH, "train_4k", 2, 48, "flash_attention"),
+             (cs.RWKV_ARCH, "prefill_32k", 2, 48, "rwkv6_scan")]
+    dry = cs.phase_dryrun(launches, device="cpu", reduced=True, cells=cells)
+    roof = cs.phase_roofline(dry)
+    assert [(r["arch"], r["mesh"]) for r in roof["rows"]] == [
+        ("whisper-small", "16x16"), ("rwkv6-1.6b", "2x16x16")]
+    assert set(roof["tables"]) == {"16x16", "2x16x16"}
+    assert roof["summary"].count("1 ran OK") == 2
+    assert [r["name"] for r in roof["run"]] == [
+        "roofline_whisper-small_decode_32k"]
+    for row in roof["cells"]:
+        assert row["wall_s"] > 0 and row["analytic_flops"] > 0
+        assert row["counted_s"]["collective"] == 0     # one rank
+        assert row["analytic_s"]["collective"] > 0     # TP all-reduces
+
+
 @pytest.mark.parametrize("wrong", [False, True])
 def test_held_calls_hold_every_shape_against_the_plain_version(monkeypatch,
                                                                 wrong):
