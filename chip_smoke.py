@@ -28,10 +28,12 @@ Phases (any failed check exits non-zero, before the result line):
    phase 21's fused segment (8 x 72x72 → 48x48), and for the training
    path K3 in bfloat16 at minicpm-2b's head dim 64, K3 at qwen3-0.6b's
    training microbatch and at granite-8b's prefill (phase 14), and K3's
-   forward + recomputing backward (``flash_vjp``'s Function) at
-   qwen3-0.6b's and minicpm-2b's training shapes, its output held
-   against the plain forward and its gradients against autograd
-   through the plain forward;
+   forward + recomputing backward (``flash_vjp``'s Function: K3, then
+   the backward kernel) at qwen3-0.6b's and minicpm-2b's training
+   shapes, its output held against the plain forward and its gradients
+   against autograd through the plain forward (and, with SDPA's, against
+   float32 plain gradients), and the backward kernel alone at both
+   shapes against its plain version ``flash_backward``;
 6. the model path at the full width of zamba2-2.7b (54 layers,
    d_model 2560, seeded random weights): ``launch.model_serve.run`` over
    16 requests of 512 tokens + 16 generated; prefill + decode logits
@@ -110,8 +112,8 @@ Phases (any failed check exits non-zero, before the result line):
    at full width cut to 2 layers, 1 x 4,096, at the bfloat16 defaults
    against the same step in float32 from one state (gradient norm, each
    leaf's first moment).  Every attention layer runs
-   K3 forward and again when remat recomputes it, under the recomputing
-   backward;
+   K3 forward and again when remat recomputes it, and the backward
+   kernel once a step;
 16. training the hybrid and rwkv families, K4 and K5 under their
    autograd Functions (the kernel forward, the recomputed chunked
    form's gradient backward): (a) one step of zamba2-2.7b at full width
@@ -266,8 +268,8 @@ STATIC_SHA256 = "778564da3d5f5530f0f4761d6af9f4c901796a91ff38620f2b75dd8cfa03a1b
 # kernels' meta routes and the dry run read too
 sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.work import (  # noqa: E402
-    FP32_FLOP_S, HBM_BYTES_S, PEAK_FLOPS, PRODUCT_FLOP_S, attn_grad_work,
-    attn_work,
+    FP32_FLOP_S, HBM_BYTES_S, PEAK_FLOPS, PRODUCT_FLOP_S, attn_bwd_work,
+    attn_grad_work, attn_work,
     ssd_grad_work, ssd_work, visible_pairs, wkv_grad_work, wkv_work)
 
 # the blur kernel equals its plain version bit for bit (same taps, same
@@ -343,6 +345,9 @@ TRAIN_BF16_NORM_RTOL, TRAIN_BF16_M_RTOL, TRAIN_BF16_EMBED_M_RTOL = \
 STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 
 ARCH = "zamba2-2.7b"
+# the hand-written kernels on the model and training paths
+MODEL_KERNELS = ("mamba2_ssd", "rwkv6_scan", "flash_attention",
+                 "flash_attention_backward")
 RWKV_ARCH = "rwkv6-1.6b"
 LONG_ARCH = "qwen3-0.6b"
 MOE_ARCH = "granite-moe-1b-a400m"
@@ -1058,11 +1063,16 @@ def phase_kernels():
             row["library_call"] = call
         return row
 
-    def attn_grad_case(B, S, H, Hkv, D, dtype):
+    def attn_grad_case(B, S, H, Hkv, D, dtype, earlier):
         """Flash attention forward (K3) and its recomputing backward
-        through ``flash_vjp``'s Function, causal, against autograd
-        through the plain chunked forward on the same tensors; timed
-        forward + backward, beside SDPA's forward + backward."""
+        (the backward kernel) through ``flash_vjp``'s Function, causal,
+        against autograd through the plain chunked forward on the same
+        tensors; timed forward + backward, beside SDPA's forward +
+        backward.  Both the Function's and SDPA's gradients are also held
+        against float32 plain gradients (printed, not gated: in bfloat16
+        SDPA's error is the yardstick of the kernel's).  ``earlier``: the
+        same row's ms on an H100 when the backward was the plain
+        ``torch.einsum`` blocks (``PERF.md`` §6 names the runs)."""
         from repro_torch.kernels import flash_vjp
 
         def n(shape):
@@ -1105,6 +1115,19 @@ def phase_kernels():
             leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
             F.scaled_dot_product_attention(
                 *leaves, is_causal=True, enable_gqa=Hkv != H).backward(dot)
+            return [t.grad.transpose(1, 2) for t in leaves]
+
+        # float32 plain gradients: the kernel's and SDPA's error against them
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        plain(*leaves).backward(do.float())
+        want32 = [t.grad for t in leaves]
+        del leaves
+        err32, lib_err32 = (max(float((g.float() - w).abs().max())
+                                for g, w in zip(gs, want32))
+                            for gs in (got, library()))
+        print(f"  {what}: against float32 plain gradients, the Function "
+              f"{err32:.4g}, SDPA {lib_err32:.4g}", flush=True)
+        del want32
 
         nbytes, products, other = attn_grad_work(B, S, S, H, Hkv, D, 0, True,
                                                  q.element_size())
@@ -1120,10 +1143,77 @@ def phase_kernels():
                                 "(B,H,S,D) views",
                 "route": ("K3 forward (" + ("mma.sync 3xTF32" if dtype ==
                           torch.float32 else "wgmma bf16") + ") + the "
-                          "reference's _bwd in torch.einsum, float32"),
+                          "backward kernel flash_attention_bwd.cu (" + (
+                          "mma.sync 3xTF32" if dtype == torch.float32 else
+                          "mma.sync bf16 m16n8k16") + "; dQ pass, then "
+                          "dK/dV pass)"),
+                "earlier_ms": earlier,
+                "max_abs_err_vs_f32": err32,
+                "library_max_abs_err_vs_f32": lib_err32,
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
+
+    def attn_bwd_case(B, S, H, Hkv, D, dtype):
+        """The backward kernel alone, causal, over K3's output and
+        log-sum-exp, against its plain version (``flash_backward``, the
+        reference's ``_bwd`` in ``torch.einsum``) on the same tensors;
+        timed beside SDPA's backward alone (``torch.autograd.grad``
+        through one SDPA forward, the graph kept)."""
+        from repro_torch.kernels import flash_vjp
+        from repro_torch.kernels.flash_attention import \
+            flash_attention_backward_cuda
+
+        def n(shape):
+            return torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)).cuda().to(dtype)
+        q, k, v, do = n((B, S, H, D)), n((B, S, Hkv, D)), n((B, S, Hkv, D)), \
+            n((B, S, H, D))
+        out, lse = flash_attention_cuda(q, k, v)
+
+        def kernel():
+            return flash_attention_backward_cuda(q, k, v, out, lse, do)
+
+        def plain():
+            return flash_vjp.flash_backward(q, k, v, out, lse, do)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        what = (f"K3 backward kernel alone q {(B, S, H, D)} kv heads {Hkv} "
+                f"causal {str(dtype)[6:]}: dq, dk, dv against flash_backward")
+        if dtype == torch.float32:
+            err = held(what, got, want, K3_GRAD_TOL, K3_GRAD_RTOL)
+        else:
+            err = held(what, got, want, K3_GRAD_BF16_TOL, K3_GRAD_BF16_TOL)
+        del got, want
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                               enable_gqa=Hkv != H)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(o_lib, leaves, dot, retain_graph=True)
+
+        nbytes, products, other = attn_bwd_work(B, S, S, H, Hkv, D, 0, True,
+                                                q.element_size())
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        row = {"kernel": "flash_attention_backward", "shape": [B, S, H, D],
+               "kv": [S, Hkv], "causal": True, "dtype": str(dtype),
+               "max_abs_err": err, "ms": time_ms(kernel, flush),
+               "plain_ms": time_ms(plain, flush, reps=3),
+               "library_ms": time_ms(library, flush),
+               "library_call": "torch.autograd.grad through one "
+                               "F.scaled_dot_product_attention(is_causal, "
+                               "enable_gqa) forward: its backward alone",
+               "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
+                         "mma.sync bf16 m16n8k16") + ", two passes (dQ; "
+                         "dK/dV)",
+               "bytes": nbytes, "flops": products + other,
+               "products": products, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        del o_lib, leaves
+        return row
 
     def scan_grad_case(kind, shape, dtype):
         """K4 or K5 forward (the kernel) and the recomputing backward
@@ -1294,8 +1384,16 @@ def phase_kernels():
     rows.append(attn_case(1, 4096, 4096, 36, 36, 64, dtype=torch.bfloat16,
                           library=True))
     rows.append(attn_case(2, 4096, 4096, 16, 8, 128, library=True))
-    rows.append(attn_grad_case(2, 4096, 16, 8, 128, torch.float32))
-    rows.append(attn_grad_case(1, 4096, 36, 36, 64, torch.bfloat16))
+    rows.append(attn_grad_case(2, 4096, 16, 8, 128, torch.float32,
+                               25.818064))
+    rows.append(attn_grad_case(1, 4096, 36, 36, 64, torch.bfloat16,
+                               19.220528))
+    # the backward kernel alone at qwen3-0.6b's microbatch (float32) and
+    # minicpm-2b's (bfloat16), against the backward's bound
+    entries["flash_attention_backward"] = attn_bwd_case(
+        2, 4096, 16, 8, 128, torch.float32)
+    rows.append(entries["flash_attention_backward"])
+    rows.append(attn_bwd_case(1, 4096, 36, 36, 64, torch.bfloat16))
     # the scans' training slice (phase 16): K4 forward + backward at
     # zamba2-2.7b's microbatch (1 x 4,096, 80 heads of 64, one group of
     # state 64, float32), K5 at rwkv6-1.6b's (2 x 4,096, 32 heads of 64)
@@ -1308,7 +1406,8 @@ def phase_kernels():
                                torch.bfloat16))
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
                                torch.float32))
-    rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32))
+    rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32,
+                               20.554751))
     # K4's forward alone at phase 16's training shape (1 x 4,096, 80
     # heads of 64), then the shapes each rank of phase 18 launches
     # (model_par=2): qwen3-0.6b's prefill (2 x 1,536 rows, 8 q and 4 kv
@@ -1325,13 +1424,16 @@ def phase_kernels():
     rows.append(wkv_case(4, 512, 16, 64))
     rows.append(attn_case(2, 1536, 1536, 8, 4, 64, library=True))
     rows.append(attn_case(1, 2048, 2048, 8, 4, 128, library=True))
-    rows.append(attn_grad_case(1, 2048, 8, 4, 128, torch.float32))
+    rows.append(attn_grad_case(1, 2048, 8, 4, 128, torch.float32,
+                               3.339664))
     rows.append(attn_case(1, 1536, 1537, 16, 16, 80, library=True))
     # the shapes phase 19b's cells launch: qwen3-0.6b's train cell (2 x
-    # 4,096 rows, GQA 16/8 at D 128, causal) on K3's bfloat16 route, and
-    # rwkv6-1.6b's prefill cell (4 x 4,096, 32 heads of 64) on K5's
+    # 4,096 rows, GQA 16/8 at D 128, causal) on K3's bfloat16 route and
+    # the backward kernel's, and rwkv6-1.6b's prefill cell (4 x 4,096, 32
+    # heads of 64) on K5's
     rows.append(attn_case(2, 4096, 4096, 16, 8, 128, dtype=torch.bfloat16,
                           library=True))
+    rows.append(attn_bwd_case(2, 4096, 16, 8, 128, torch.bfloat16))
     rows.append(wkv_case(4, 4096, 32, 64, torch.bfloat16))
     for r in rows:
         r.setdefault("route", "fp32 FMA")
@@ -1360,6 +1462,10 @@ def kernels_line(entries, path_launches):
                        "src/repro/kernels/rwkv6_scan.py:78"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
+        # the reference's _bwd: jnp, no Pallas kernel
+        "flash_attention_backward": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_vjp.py:106"),
     }
     kernels = []
     for name, e in entries.items():
@@ -1701,8 +1807,15 @@ def train_step_products(cfg, batch, seq) -> int:
             + n_app * (8 * tokens * block + attn) + head)
 
 
-def _train_run(label, launches, arch, device, kernels=("flash_attention",),
-               **kw):
+def backward_count(launches) -> int:
+    """The backward kernel's launches so far, 0 where ``launches`` (a CPU
+    rehearsal's) has no counter for it."""
+    c = launches.get("flash_attention_backward")
+    return c.count if c is not None else 0
+
+
+def _train_run(label, launches, arch, device,
+               kernels=("flash_attention", "flash_attention_backward"), **kw):
     """``launch.train.run`` once on the card: its step walls, tokens/s,
     peak device memory and the launches of each kernel, printed and
     returned; on the card each of ``kernels`` must have launched."""
@@ -1725,7 +1838,7 @@ def _train_run(label, launches, arch, device, kernels=("flash_attention",),
     products = train_step_products(cfg, kw["batch"], kw["seq"])
     r["bound_ms"] = products / PRODUCT_FLOP_S[
         "torch." + kw["compute_dtype"]] * 1e3
-    counts = ", ".join(f"{k} {r['launches'][k]}" for k in kernels)
+    counts = ", ".join(f"{k} {r['launches'].get(k, 0)}" for k in kernels)
     print(f"  {label}: steps from {r['start_step']}, losses {r['losses']}, "
           f"grad norms {r['grad_norms']}; step ms {r['step_ms']}; tokens/s "
           f"{r['tokens_per_s']}; peak device memory "
@@ -1736,8 +1849,8 @@ def _train_run(label, launches, arch, device, kernels=("flash_attention",),
           f"{label}: finite losses and gradient norms (so every leaf's "
           "gradient norm is finite)")
     for k in kernels:
-        check(not on_card or r["launches"][k] > 0,
-              f"{label}: {k} launched ({r['launches'][k]})")
+        check(not on_card or r["launches"].get(k, 0) > 0,
+              f"{label}: {k} launched ({r['launches'].get(k, 0)})")
     return r
 
 
@@ -1808,12 +1921,13 @@ def phase_training(launches, device="cuda", reduced=False, seq=4096):
     host = init_train_state(api, torch.Generator().manual_seed(0))
     card = tree_map(lambda a: a.to(device, copy=True), host)
     toks = torch.from_numpy(lm_token_stream(1, 1536, cfg.vocab_size, 0))
-    before = launches["flash_attention"].count
+    before = backward_count(launches), launches["flash_attention"].count
     t0 = time.perf_counter()
     card, mc = step(card, {"tokens": toks.to(device)})
     card_loss = float(mc["loss"])
     card_s = time.perf_counter() - t0
-    k3 = launches["flash_attention"].count - before
+    k3 = launches["flash_attention"].count - before[1]
+    k3b = backward_count(launches) - before[0]
     t0 = time.perf_counter()
     host, mh = step(host, {"tokens": toks})
     host_s = time.perf_counter() - t0
@@ -1841,6 +1955,8 @@ def phase_training(launches, device="cuda", reduced=False, seq=4096):
           f"{dp_lr:.3g}; flash_attention launches {k3}", flush=True)
     check(device != "cuda" or k3 == 2 * cfg.num_layers, f"K3 launched forward and under remat in "
           f"every layer ({k3} == {2 * cfg.num_layers})")
+    check(device != "cuda" or k3b == cfg.num_layers, "the backward kernel "
+          f"launched once in every layer ({k3b} == {cfg.num_layers})")
     check(loss_rel <= TRAIN_LOSS_RTOL,
           f"card vs host loss: {loss_rel:.3g} <= {TRAIN_LOSS_RTOL}")
     check(norm_rel <= TRAIN_NORM_RTOL,
@@ -1918,12 +2034,13 @@ def phase_training(launches, device="cuda", reduced=False, seq=4096):
     api = get_model(cfg)
     f32 = init_train_state(api, torch.Generator(device=device).manual_seed(0))
     bf16 = tree_map(lambda a: a.clone(), f32)
-    before = launches["flash_attention"].count
+    before = backward_count(launches), launches["flash_attention"].count
     bf16, mb = make_train_step(api, TrainConfig(), REPLICATED)(bf16, batch)
     f32, mf = make_train_step(api, TrainConfig(
         compute_dtype="float32", grad_reduce_dtype="float32"),
         REPLICATED)(f32, batch)
-    k3 = launches["flash_attention"].count - before
+    k3 = launches["flash_attention"].count - before[1]
+    k3b = backward_count(launches) - before[0]
     norm_rel = abs(float(mb["grad_norm"]) / float(mf["grad_norm"]) - 1)
     embed_rel, m_rel = moment_rel_l2(bf16["m"], f32["m"])
     out["minicpm_bf16_vs_f32"] = {
@@ -1936,6 +2053,8 @@ def phase_training(launches, device="cuda", reduced=False, seq=4096):
           f"{k3}", flush=True)
     check(device != "cuda" or k3 == 4 * cfg.num_layers, "K3 launched forward "
           f"and under remat in every layer of both steps ({k3})")
+    check(device != "cuda" or k3b == 2 * cfg.num_layers, "the backward "
+          f"kernel launched once in every layer of both steps ({k3b})")
     check(norm_rel <= TRAIN_BF16_NORM_RTOL, f"bfloat16 vs float32 grad norm: "
           f"{norm_rel:.3g} <= {TRAIN_BF16_NORM_RTOL}")
     check(m_rel <= TRAIN_BF16_M_RTOL, f"bfloat16 vs float32 first moments, "
@@ -2072,6 +2191,10 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
         check(host_seq <= 1024 or counts["flash_attention"] == 2 * n_app,
               "K3 launched forward and under remat at every shared-block "
               f"application ({counts['flash_attention']} == {2 * n_app})")
+        nb = counts.get("flash_attention_backward", 0)
+        check(host_seq <= 1024 or nb == n_app, "the backward kernel "
+              f"launched once at every shared-block application ({nb} == "
+              f"{n_app})")
     check(loss_rel <= TRAIN_LOSS_RTOL,
           f"card vs host loss: {loss_rel:.3g} <= {TRAIN_LOSS_RTOL}")
     check(norm_rel <= TRAIN_NORM_RTOL,
@@ -2087,7 +2210,8 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
     out["zamba2"] = _train_run(
         "2 steps", launches, ARCH, device, steps=2, reduced=reduced,
         batch=1, seq=seq, compute_dtype="float32",
-        kernels=("mamba2_ssd", "flash_attention"))
+        kernels=("mamba2_ssd", "flash_attention",
+                 "flash_attention_backward"))
     if device == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
@@ -2304,7 +2428,8 @@ def tp_runs(reduced=False) -> list[dict]:
              seq=1536, slots=1538, ep=True, kernels=("flash_attention",),
              param_bytes=2671972352),
         dict(name="qwen3_train", kind="train", arch=LONG_ARCH, batch=1,
-             seq=2048, kernels=("flash_attention",)),
+             seq=2048, kernels=("flash_attention",
+                                "flash_attention_backward")),
         dict(name="zamba2_heads_prefill", kind="prefill", arch=ARCH,
              batch=1, seq=1536, slots=1537, overrides=True,
              kernels=("flash_attention", "mamba2_ssd"),
@@ -2440,7 +2565,8 @@ def tp_rank_main(rank: int, store: str, device: str, reduced: bool) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"flash_attention": fa.launches, "mamba2_ssd": ssd.launches,
-                "rwkv6_scan": wkv.launches}
+                "rwkv6_scan": wkv.launches,
+                "flash_attention_backward": fa.backward_launches}
     if device == "cuda":
         torch.cuda.set_device(0)
         for name in counters:
@@ -2542,7 +2668,7 @@ def phase_tensor_parallel(device="cuda", reduced=False):
         for r, log in enumerate(logs):
             print(f"  rank {r} exited {codes[r]}:\n" + log[-4000:], flush=True)
     check(codes == [0] * TP_RANKS, f"phase 18's ranks exited {codes}")
-    launches = {"flash_attention": 0, "mamba2_ssd": 0, "rwkv6_scan": 0}
+    launches = dict.fromkeys(MODEL_KERNELS, 0)
     for r in range(TP_RANKS):
         with open(os.path.join(store, f"rank_{r}.json")) as f:
             res = json.load(f)
@@ -2724,7 +2850,7 @@ def phase_dryrun(launches, device="cuda", reduced=False, cells=None):
               flush=True)
         if on_card:
             check(counts[kernel] > 0, f"{label}: {kernel} launched")
-            for name in ("flash_attention", "mamba2_ssd", "rwkv6_scan"):
+            for name in MODEL_KERNELS:
                 check(counts[name] == predicted.get(name, 0),
                       f"{label}: {name} launches {counts[name]} equal the "
                       f"dry run's {predicted.get(name, 0)}")
@@ -3094,6 +3220,29 @@ def phase_ab(old_csrc, names=None):
                         qt, kt, vt, is_causal=True, enable_gqa=True), flush)
                 yield row
 
+    def flash_backward_rows():
+        # the training shapes: qwen3-0.6b's microbatch (float32, GQA 16/8,
+        # D 128) and minicpm-2b's (bfloat16, MHA, D 64), causal
+        from repro_torch.kernels import flash_vjp
+        from repro_torch.kernels.flash_attention import \
+            flash_attention_backward_cuda
+        for (B, S, H, Hkv, D), dtype in (((2, 4096, 16, 8, 128),
+                                          torch.float32),
+                                         ((1, 4096, 36, 36, 64),
+                                          torch.bfloat16)):
+            q, do, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+                np.float32)).cuda().to(dtype)
+                for s in ((B, S, H, D), (B, S, H, D), (B, S, Hkv, D),
+                          (B, S, Hkv, D)))
+            out, lse = flash_attention_cuda(q, k, v)
+            yield {"kernel": "flash_attention_backward", "shape": [B, S, H, D],
+                   "kv": [S, Hkv], "dtype": str(dtype),
+                   **turns("flash_attention_backward",
+                           lambda: flash_attention_backward_cuda(
+                               q, k, v, out, lse, do),
+                           lambda: flash_vjp.flash_backward(
+                               q, k, v, out, lse, do))}
+
     def ssd_rows():
         for T in (512, 3):
             x, dt, A, Bm, Cm, D, h0 = ssd_inputs(rng, 16, T, 80, 64, 1, 64,
@@ -3147,7 +3296,9 @@ def phase_ab(old_csrc, names=None):
                            lambda: (pp.fused_resize_crop_normalize_ref(
                                x, **kw),))}
 
-    cases = {"flash_attention": flash_rows, "mamba2_ssd": ssd_rows,
+    cases = {"flash_attention": flash_rows,
+             "flash_attention_backward": flash_backward_rows,
+             "mamba2_ssd": ssd_rows,
              "rwkv6_scan": wkv_rows, "gaussian_blur": blur_rows,
              "preprocess": preprocess_rows}
     rows = []
@@ -3822,7 +3973,8 @@ def main() -> int:
     launches = {"gaussian_blur": gb.launches,
                 "fused_resize_crop_normalize": pp.launches,
                 "mamba2_ssd": ssd.launches, "rwkv6_scan": wkv.launches,
-                "flash_attention": fa.launches}
+                "flash_attention": fa.launches,
+                "flash_attention_backward": fa.backward_launches}
     engine_path = ("gaussian_blur", "fused_resize_crop_normalize")
 
     # ---- the engine's image path: counts zeroed just before, read just after
@@ -3864,7 +4016,7 @@ def main() -> int:
                               requests=2, prompt_len=1536, gen=16,
                               n_images=0, consistency=(1, 1100, 4))),
     ]
-    for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+    for name in MODEL_KERNELS:
         path_launches[name] = 0
     for key, phase, kw in model_paths:
         for c in launches.values():
@@ -3878,7 +4030,7 @@ def main() -> int:
               f"{counts}", flush=True)
         check(counts[kernel] > 0,
               f"{kernel} launched on the {kw['arch']} path ({counts[kernel]})")
-        for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+        for name in MODEL_KERNELS:
             path_launches[name] += counts[name]
         gc.collect()
         torch.cuda.empty_cache()
@@ -3893,9 +4045,10 @@ def main() -> int:
     counts = {k: c.count for k, c in launches.items()}
     print(f"  phase 15: {details['training']['phase_s']:.3f} s; launches "
           f"{counts}", flush=True)
-    check(counts["flash_attention"] > 0, "flash_attention launched on the "
-          f"training path ({counts['flash_attention']})")
-    path_launches["flash_attention"] += counts["flash_attention"]
+    for name in ("flash_attention", "flash_attention_backward"):
+        check(counts[name] > 0, f"{name} launched on the training path "
+              f"({counts[name]})")
+        path_launches[name] += counts[name]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3910,7 +4063,7 @@ def main() -> int:
     counts = {k: c.count for k, c in launches.items()}
     print(f"  phase 16: {details['scan_training']['phase_s']:.3f} s; "
           f"launches {counts}", flush=True)
-    for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+    for name in MODEL_KERNELS:
         check(counts[name] > 0, f"{name} launched on the scan families' "
               f"training path ({counts[name]})")
         path_launches[name] += counts[name]
@@ -3937,6 +4090,8 @@ def main() -> int:
           flush=True)
     for name, n in details["tensor_parallel"]["launches"].items():
         path_launches[name] += n
+    n = details["tensor_parallel"]["launches"]["flash_attention_backward"]
+    check(n > 0, f"flash_attention_backward launched in phase 18 ({n})")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3948,7 +4103,7 @@ def main() -> int:
     details["dryrun"]["phase_s"] = time.monotonic() - t0
     print(f"  phase 19: {details['dryrun']['phase_s']:.3f} s", flush=True)
     for row in details["dryrun"]["cells"]:
-        for name in ("mamba2_ssd", "rwkv6_scan", "flash_attention"):
+        for name in MODEL_KERNELS:
             path_launches[name] += row["launches"][name]
     gc.collect()
     torch.cuda.empty_cache()

@@ -9,4 +9,7 @@ Layout per kernel ``<name>``:
                        the plain version for CPU tensors
 - ``ref.py``         — plain PyTorch versions
 - ``_build.py``      — nvcc build at first use, ctypes loading
+
+Flash attention's backward (``csrc/flash_attention_bwd.cu``) is declared
+and wrapped beside its forward, in ``flash_attention.py``.
 """

@@ -22,6 +22,18 @@ pointers must be 16-byte aligned (:func:`_build.strided` copies
 otherwise).  The kernel also writes the log-sum-exp ``lse`` (B, Sq, H)
 for the recomputing backward.  The plain version is
 :func:`repro_torch.kernels.ref.flash_attention_chunked`.
+
+The recomputing backward (``csrc/flash_attention_bwd.cu``,
+:func:`flash_attention_backward_cuda`) takes q, k, v, the forward's
+output and log-sum-exp and the output's cotangent, and returns dq, dk
+and dv in their dtype, on ``mma.sync`` for both types (bfloat16
+m16n8k16, float32 in 3xTF32).  Two deterministic passes: a dQ pass
+(one CTA per 128-row q block and head, walking key tiles; it also
+writes ``delta = rowsum(dO·O)``) and a dK/dV pass (one CTA per 128-key
+block and kv head, walking the q tiles of its G heads that can see the
+block).  :func:`backward_walks` and :func:`backward_tiles` give its
+launch geometry.  The plain version is
+:func:`repro_torch.kernels.flash_vjp.flash_backward`.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ import torch
 from repro_torch.kernels import _build, work
 
 launches = _build.LaunchCounter("flash_attention")
+backward_launches = _build.LaunchCounter("flash_attention_backward")
 
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's compiled head sizes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +53,17 @@ _build.declare("flash_attention", "flash_attention.cu", {
     "repro_flash_attention": [ctypes.c_int] + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_longlong] * 6
     + [ctypes.c_void_p]})
+_build.declare("flash_attention_backward", "flash_attention_bwd.cu", {
+    "repro_flash_attention_backward": [ctypes.c_int] + [ctypes.c_void_p] * 10
+    + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_longlong] * 10
+    + [ctypes.c_void_p]})
+
+BWD_ROWS = 128      # the backward's fixed tile: eight warps of 16 rows
+
+
+def bwd_walk_rows(D: int) -> int:
+    """Rows of the backward kernel's walk tiles at head dim ``D``."""
+    return 32 if D == 128 else 64
 
 
 def flash_attention_cuda(
@@ -124,3 +148,157 @@ def flash_attention_meta(q, k, v, *, q_offset: int = 0, causal: bool = True,
         work.record_kernel("flash_attention", nbytes, products)
     return (torch.empty((batch, Sq, H, D), dtype=q.dtype, device="meta"),
             torch.empty((batch, Sq, H), dtype=torch.float32, device="meta"))
+
+
+def backward_walks(Sq, Sk, q_offset, causal, D):
+    """The backward kernel's grid and walks, as
+    ``csrc/flash_attention_bwd.cu`` computes them.  ``keys``: for each
+    128-key block of the dK/dV pass, its first q tile (from the causal
+    start ``max(0, k0 - q_offset)``, tile 0 when not causal) and the
+    number of q tiles it walks for each q head of its kv head (0 when no
+    query sees the block); ``queries``: for each 128-row q block of the
+    dQ pass, the number of key tiles it walks (up to the causal edge of
+    its last row)."""
+    W = bwd_walk_rows(D)
+    keys = []
+    for k0 in range(0, Sk, BWD_ROWS):
+        first = max(0, k0 - q_offset) if causal else 0
+        start = first // W
+        keys.append((start, -(-Sq // W) - start if first < Sq else 0))
+    queries = []
+    for q0 in range(0, Sq, BWD_ROWS):
+        rows = min(BWD_ROWS, Sq - q0)
+        end = min(Sk, q_offset + q0 + rows) if causal else Sk
+        queries.append(-(-end // W))
+    return keys, queries
+
+
+def backward_tiles(Sq, Sk, q_offset, causal, D):
+    """Every (keys, queries) rectangle a warp of the backward kernel
+    computes, for one head: ``("dkdv" | "dq", key range, query range)``
+    for each warp's 16 rows against each tile of its CTA's walk that the
+    warp does not skip (rows all past Sk or Sq, or all before the
+    tile's causal edge)."""
+    W = bwd_walk_rows(D)
+    keys, queries = backward_walks(Sq, Sk, q_offset, causal, D)
+    for kb, (start, n) in enumerate(keys):
+        for x0 in range(kb * BWD_ROWS, (kb + 1) * BWD_ROWS, 16):
+            for i0 in range(start * W, (start + n) * W, W):
+                if x0 < Sk and (not causal
+                                or x0 <= q_offset + min(i0 + W, Sq) - 1):
+                    yield ("dkdv", range(x0, min(x0 + 16, Sk)),
+                           range(i0, min(i0 + W, Sq)))
+    for qb, n in enumerate(queries):
+        for x0 in range(qb * BWD_ROWS, (qb + 1) * BWD_ROWS, 16):
+            for k0 in range(0, n * W, W):
+                if x0 < Sq and (not causal
+                                or k0 <= q_offset + min(x0 + 16, Sq) - 1):
+                    yield ("dq", range(k0, min(k0 + W, Sk)),
+                           range(x0, min(x0 + 16, Sq)))
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor,     # (B, Sq, H, D) float32 | bfloat16, on CUDA
+    k: torch.Tensor,     # (B, Sk, Hkv, D), q's dtype
+    v: torch.Tensor,     # (B, Sk, Hkv, D), q's dtype
+    out: torch.Tensor,   # (B, Sq, H, D), the forward's output, q's dtype
+    lse: torch.Tensor,   # (B, Sq, H) float32, the forward's log-sum-exp
+    do: torch.Tensor,    # (B, Sq, H, D), out's cotangent, q's dtype
+    *,
+    q_offset: int = 0,
+    causal: bool = True,
+    sm_scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the recomputing backward on the current CUDA stream (two
+    kernels: the dQ pass, then the dK/dV pass).  Returns ``(dq, dk,
+    dv)`` in q's dtype; dk and dv are 0 for keys no query sees.  Query
+    row i sits at position ``q_offset + i``."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_backward_cuda takes CUDA tensors, "
+                         f"got q on {q.device}")
+    _build.refuse_grad("flash_attention_backward (no double backward)",
+                       q, k, v, out, do)
+    for name, t in (("k", k), ("v", v), ("out", out), ("lse", lse),
+                    ("do", do)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, got {q.dtype}")
+    for name, t in (("k", k), ("v", v), ("out", out), ("do", do)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} must have q's dtype {q.dtype}, got "
+                            f"{t.dtype}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32, got {lse.dtype}")
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"expected q (B,Sq,H,D) and k (B,Sk,Hkv,D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    batch, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if (tuple(k.shape) != (batch, Sk, Hkv, D) or v.shape != k.shape
+            or out.shape != q.shape or do.shape != q.shape
+            or tuple(lse.shape) != (batch, Sq, H)):
+        raise ValueError("flash_attention_backward_cuda: inconsistent shapes")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"kv heads Hkv={Hkv} must divide heads H={H}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if batch > 65535 or H > 65535:
+        raise ValueError(f"batch {batch} or heads {H} exceed the grid's 65535")
+    scale = float(sm_scale if sm_scale is not None else D ** -0.5)
+    dev = q.device
+    dq = torch.empty((batch, Sq, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((batch, Sk, Hkv, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((batch, Sk, Hkv, D), dtype=q.dtype, device=dev)
+    if batch == 0 or Sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if Sk == 0:
+        raise ValueError("flash_attention_backward_cuda needs at least one key")
+    q, k, v, out, do = (_build.strided(t, D) for t in (q, k, v, out, do))
+    lse = lse.contiguous()
+    delta = torch.empty((batch, Sq, H), dtype=torch.float32, device=dev)
+    lib = _build.load("flash_attention_backward")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_flash_attention_backward(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch, Sq, Sk, H,
+            Hkv, D, q_offset, int(bool(causal)), scale, *_build.outer(q),
+            *_build.outer(k), *_build.outer(v), *_build.outer(out),
+            *_build.outer(do), stream)
+    _build.check(err, "flash_attention_backward")
+    backward_launches.add()
+    return dq, dk, dv
+
+
+def flash_attention_backward_meta(q, k, v, out, lse, do, *, q_offset: int = 0,
+                                  causal: bool = True,
+                                  sm_scale: float | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The backward's route for ``meta`` tensors: dq, dk and dv of
+    :func:`flash_attention_backward_cuda`'s shapes and dtypes, no values,
+    the float32 ``delta`` its wrapper allocates live beside them, and one
+    launch of the kernel's work (:func:`work.attn_bwd_work`) in the
+    active cost counter.  An operand on another device raises."""
+    for name, t in (("k", k), ("v", v), ("out", out), ("lse", lse),
+                    ("do", do)):
+        if not t.is_meta:
+            raise ValueError(f"{name} is on {t.device}, q on meta")
+    batch, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    grads = tuple(torch.empty(t.shape, dtype=q.dtype, device="meta")
+                  for t in (q, k, v))
+    if batch and Sq:
+        delta = torch.empty((batch, Sq, H), dtype=torch.float32,
+                            device="meta")
+        nbytes, products, _ = work.attn_bwd_work(batch, Sq, Sk, H, Hkv, D,
+                                                 int(q_offset), causal,
+                                                 q.element_size())
+        work.record_kernel("flash_attention_backward", nbytes, products)
+        del delta
+    return grads

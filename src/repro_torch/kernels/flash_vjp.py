@@ -10,10 +10,14 @@ output and the log-sum-exp.  The forward saves only ``(q, k, v, out,
 lse)`` and the ``q_offset``; the backward recomputes the probability
 blocks pair by pair (FlashAttention-2's scheme, the reference's
 ``_bwd``), so neither pass holds more than one (q block, kv block) of
-logits.  The backward is the same PyTorch code on every device: its
-products are ``torch.einsum`` in float32, as the reference's are jnp
-outside any Pallas kernel.  GQA is handled by grouping the q heads per
-kv head (no materialised repeat).
+logits.  The backward is the backward kernel
+(``csrc/flash_attention_bwd.cu``, through
+:func:`repro_torch.kernels.flash_attention.flash_attention_backward_cuda`)
+for a CUDA tensor, a record of its launch for a meta tensor, and
+:func:`flash_backward` for a CPU tensor: the reference's ``_bwd``
+blockwise in ``torch.einsum``, float32, which is the kernel's plain
+version.  GQA is handled by grouping the q heads per kv head (no
+materialised repeat).
 
 Under remat (``torch.utils.checkpoint``) the forward runs twice per
 layer: once in the forward pass and once when the backward recomputes
@@ -27,10 +31,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_meta)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_backward_cuda, flash_attention_backward_meta,
+    flash_attention_cuda, flash_attention_meta)
 
 NEG_INF = -1e30
+
+
+def _wide(q, k, v):
+    """The dtype the kernels run mixed operands in: the widest of the
+    three, a float8 counting as bfloat16."""
+    return functools.reduce(torch.promote_types, (
+        torch.bfloat16 if t.is_floating_point and t.itemsize == 1 else t
+        for t in (q.dtype, k.dtype, v.dtype)))
 
 
 def _forward(q, k, v, q_offset, causal, sm_scale, q_block, kv_block):
@@ -44,9 +57,7 @@ def _forward(q, k, v, q_offset, causal, sm_scale, q_block, kv_block):
     against a bfloat16 cache), which the kernel does not take and torch
     does not promote, counts as bfloat16."""
     if q.device.type in ("cuda", "meta"):
-        wide = functools.reduce(torch.promote_types, (
-            torch.bfloat16 if t.is_floating_point and t.itemsize == 1 else t
-            for t in (q.dtype, k.dtype, v.dtype)))
+        wide = _wide(q, k, v)
         kernel = flash_attention_cuda if q.is_cuda else flash_attention_meta
         out, lse = kernel(q.to(wide), k.to(wide), v.to(wide),
                           q_offset=q_offset, causal=causal, sm_scale=sm_scale)
@@ -120,10 +131,25 @@ def flash_backward(q, k, v, out, lse, do, *, q_offset=0, causal=True,
             dv[:, :Sk].to(v.dtype))
 
 
+def _backward(q, k, v, out, lse, do, q_offset, causal, sm_scale):
+    """(dq, dk, dv) in q's, k's and v's dtypes from the backward kernel
+    on a CUDA tensor, or its shapes and a record of its launch on a meta
+    tensor, run in the dtype the forward ran (mixed operands in the
+    wider, as :func:`_forward`)."""
+    wide = _wide(q, k, v)
+    kernel = (flash_attention_backward_cuda if q.is_cuda
+              else flash_attention_backward_meta)
+    dq, dk, dv = kernel(q.to(wide), k.to(wide), v.to(wide), out.to(wide),
+                        lse, do.to(wide), q_offset=q_offset, causal=causal,
+                        sm_scale=sm_scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class FlashAttention(torch.autograd.Function):
     """Autograd's view of the flash route: the kernel (or the plain
-    chunked forward) forward, :func:`flash_backward` backward; no
-    cotangent for ``q_offset`` or the static arguments."""
+    chunked forward) forward; the backward kernel (or, for a CPU tensor,
+    :func:`flash_backward`) backward; no cotangent for ``q_offset`` or
+    the static arguments."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_offset, causal, sm_scale, q_block, kv_block):
@@ -138,7 +164,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, do, **ctx.args)
+        a = ctx.args
+        if q.device.type in ("cuda", "meta"):
+            dq, dk, dv = _backward(q, k, v, out, lse, do, a["q_offset"],
+                                   a["causal"], a["sm_scale"])
+        else:
+            dq, dk, dv = flash_backward(q, k, v, out, lse, do, **a)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -105,6 +105,23 @@ def attn_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     return nbytes, 4 * pairs * D * H * B, 4 * pairs * H * B
 
 
+def attn_bwd_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
+    """Bytes and operations of flash attention's recomputing backward
+    alone (the backward kernel), over the visible (query, key) pairs.
+    Bytes: q, out and dO read and dq written once, the keys and values
+    that some row sees read once and dk, dv written over every key (0
+    where no row sees it), by kv head, in their type; the float32
+    log-sum-exp and delta = rowsum(dO·O), once each.  Products, as
+    FlashAttention-2 counts the function: 10D a visible pair and head
+    (S = Q Kᵀ again, dP = dO Vᵀ, dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K).
+    Other: the exponential, difference and two scalings (4)."""
+    pairs = visible_pairs(Sq, Sk, q_offset, causal)
+    keys = min(Sk, q_offset + Sq) if causal else Sk
+    nbytes = (4 * B * Sq * H * D + 2 * B * (keys + Sk) * Hkv * D) \
+        * itemsize + 2 * B * Sq * H * 4
+    return nbytes, 10 * pairs * D * H * B, 4 * pairs * H * B
+
+
 def attn_grad_work(B, Sq, Sk, H, Hkv, D, q_offset, causal, itemsize):
     """Bytes and operations of flash attention's forward and recomputing
     backward together, over the visible (query, key) pairs: q, k, v and

@@ -158,6 +158,29 @@ def test_bound_of_each_kernel_row(row, want_ms, want_by):
     assert got[0] == pytest.approx(want_ms, abs=5e-7)
 
 
+@pytest.mark.parametrize("args,dtype,want_ms,want_nbytes", [
+    # qwen3-0.6b's training microbatch (f32, GQA 16/8), minicpm-2b's
+    # (bf16, MHA), zamba2-2.7b's shared attention (f32, D 80) and a rank
+    # of phase 18's qwen3 step (f32, 4 kv heads): all bound by products
+    ((2, 4096, 4096, 16, 8, 128, 0, True, 4), F32, 2.082917, 403701760),
+    ((1, 4096, 4096, 36, 36, 64, 0, True, 2), BF16, 0.195471, 152174592),
+    ((1, 4096, 4096, 32, 32, 80, 0, True, 4), F32, 1.301823, 336592896),
+    ((1, 2048, 2048, 8, 4, 128, 0, True, 4), F32, 0.130214, 50462720),
+])
+def test_bound_of_the_backward_kernel_alone(args, dtype, want_ms,
+                                            want_nbytes):
+    """The backward kernel's bound (``attn_bwd_work``: 10D products a
+    visible pair and head) at the four shapes its paths give it."""
+    nbytes, products, other = cs.attn_bwd_work(*args)
+    B, Sq, Sk, H, Hkv, D = args[:6]
+    pairs = Sq * (Sq + 1) // 2
+    assert products == 10 * pairs * D * H * B and other == 4 * pairs * H * B
+    assert nbytes == want_nbytes
+    got_ms, by = cs.bound(nbytes, products, other, dtype)
+    assert by == "products"
+    assert got_ms == pytest.approx(want_ms, abs=5e-7)
+
+
 def test_blur_bound_of_one_engine_image():
     """The all-native arm blurs one 224x224x3 image a launch: its bytes,
     read once and written once in float32."""

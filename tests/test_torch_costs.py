@@ -207,6 +207,65 @@ def test_meta_flash_route_counts_only_the_visible_pairs():
     assert c.kernel_breakdown[name]["flops"] == 4 * pairs * 16 * 4 * 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_flash_backward_records_one_launch_of_its_work_formula(dtype):
+    """On meta tensors the Function's backward is one launch of the
+    backward kernel's work (``work.attn_bwd_work``) beside the forward's
+    one launch: no plain einsum block runs, so the two kernels' products
+    are all the FLOPs; the gradients have the inputs' shapes and dtypes.
+    On the CPU the plain backward runs and records nothing."""
+    _, run, inputs, (f_bytes, f_products, _) = _attn(dtype)
+    meta = [t.to("meta") for t in inputs]
+    with costs.CostCounter() as c:
+        _, grads = _forward_backward(run, meta)
+    b_bytes, b_products, _ = work.attn_bwd_work(2, 40, 40, 4, 2, 16, 0, True,
+                                                dtype.itemsize)
+    assert c.kernel_breakdown == {
+        "flash_attention": {"launches": 1, "flops": f_products,
+                            "bytes": f_bytes},
+        "flash_attention_backward": {"launches": 1, "flops": b_products,
+                                     "bytes": b_bytes}}
+    assert c.flops == f_products + b_products
+    assert _layout(grads) == _layout(inputs)
+    with costs.CostCounter() as c:
+        _forward_backward(run, inputs)
+    assert c.kernel_breakdown == {} and c.flops > 0
+
+
+def test_meta_flash_backward_counts_only_the_visible_pairs():
+    """A prefill of 8 rows at offset 32 into 40 keys: 10D products per
+    visible pair and head; the keys past the causal edge read for no
+    pair, but dk and dv written for all 40."""
+    _, run, inputs, _ = _attn(torch.float32, Sq=8, Sk=40, q_offset=32)
+    with costs.CostCounter() as c:
+        _forward_backward(run, [t.to("meta") for t in inputs])
+    row = c.kernel_breakdown["flash_attention_backward"]
+    pairs = sum(33 + i for i in range(8))
+    assert row["flops"] == 10 * pairs * 16 * 4 * 2
+    assert row["bytes"] == ((4 * 8 * 4 + 2 * (40 + 40) * 2) * 16 * 2 * 4
+                            + 2 * 2 * 8 * 4 * 4)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,wide", [
+    (torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32)])
+def test_meta_flash_backward_runs_mixed_dtypes_in_the_wider(q_dtype,
+                                                            kv_dtype, wide):
+    """The mixed-dtype backward runs the kernel in the forward's wider
+    type (a float8 counting as bfloat16) and returns each gradient in its
+    input's dtype."""
+    _, run, (q, k, v), _ = _attn(torch.float32)
+    meta = (q.to("meta", q_dtype), k.to("meta", kv_dtype),
+            v.to("meta", kv_dtype))
+    with costs.CostCounter() as c:
+        _, grads = _forward_backward(run, meta)
+    nbytes, products, _ = work.attn_bwd_work(2, 40, 40, 4, 2, 16, 0, True,
+                                             wide.itemsize)
+    assert c.kernel_breakdown["flash_attention_backward"] == {
+        "launches": 1, "flops": products, "bytes": nbytes}
+    assert [g.dtype for g in grads] == [q_dtype, kv_dtype, kv_dtype]
+
+
 @pytest.mark.parametrize("sq,sk,off,causal", [
     (1, 1, 0, True), (7, 7, 0, True), (8, 40, 32, True), (8, 40, 35, True),
     (40, 8, 0, True), (5, 9, 2, True), (6, 11, 0, False)])

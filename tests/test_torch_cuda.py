@@ -193,13 +193,24 @@ def test_preprocess_kernel_takes_any_window(cuda, shape, res, crop, method):
 def test_kernel_wrappers_refuse_what_their_kernels_cannot_take(cuda):
     """No wrapper falls back to its plain version on the card: what its
     kernel cannot take raises."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
     from repro_torch.kernels.gaussian_blur import gaussian_blur_cuda
     q = torch.zeros(1, 8, 2, 96, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention_cuda(q, q, q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_cuda(q.half(), q.half(), q.half())
+    lse = torch.zeros(1, 8, 2, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_backward_cuda(q, q, q, q, lse, q)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_backward_cuda(*[q.half()] * 4, lse, q.half())
+    q = q[..., :64]
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_backward_cuda(q, q, q, q, lse, q.bfloat16())
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        flash_attention_backward_cuda(q, q, q, q, lse[:, :4], q)
     img = torch.zeros(1, 8, 8, 3, device=cuda)
     with pytest.raises(ValueError, match="ksize"):
         gaussian_blur_cuda(img, 0, 1.0)
@@ -1060,28 +1071,48 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
     (1, 600, 1700, 4, 4, 64, 1100, True, torch.float32),
     (2, 300, 700, 6, 2, 32, 0, False, torch.float32),
     (1, 1100, 1100, 4, 4, 64, 0, True, torch.bfloat16),
+    # zamba2's shared attention (D 80, MHA), qwen3's heads in bfloat16
+    # (D 128, GQA 16/8), minicpm's (D 64, MHA), head dim 16
+    (1, 700, 700, 4, 4, 80, 0, True, torch.float32),
+    (1, 600, 600, 16, 8, 128, 0, True, torch.bfloat16),
+    (2, 333, 333, 6, 6, 64, 0, True, torch.bfloat16),
+    (2, 200, 200, 4, 1, 16, 0, True, torch.float32),
+    # cross-attention: not causal, Sq != Sk, in bfloat16 and at D 80
+    (2, 32, 300, 6, 6, 64, 0, False, torch.bfloat16),
+    (1, 150, 70, 2, 2, 80, 0, False, torch.float32),
+    # a prefill into a cache whose tail no query sees (q_offset + Sq <
+    # Sk), with a q tile cut short; one query row, at an offset and at 0
+    (1, 100, 1000, 4, 2, 64, 500, True, torch.float32),
+    (1, 77, 900, 4, 4, 128, 400, True, torch.bfloat16),
+    (2, 1, 300, 4, 2, 128, 299, True, torch.float32),
+    (2, 1, 300, 4, 2, 64, 0, True, torch.bfloat16),
 ])
 def test_flash_function_backward_on_the_card(cuda, B, Sq, Sk, H, Hkv, D,
                                              q_offset, causal, dtype):
-    """The recomputing backward over K3's output and log-sum-exp against
-    autograd through the plain chunked forward, on the card.  Float32:
-    2e-4, the reference's tolerance for its flash gradients; bfloat16:
-    2e-2 absolute and relative (its bfloat16 flash tolerance)."""
+    """The backward kernel over K3's output and log-sum-exp against
+    autograd through the plain chunked forward, on the card: one launch
+    of the forward kernel and one of the backward kernel, gradients in
+    the inputs' dtype; dk and dv exactly 0 for keys no query sees.
+    Float32: 2e-4, the reference's tolerance for its flash gradients;
+    bfloat16: 2e-2 absolute and relative (its bfloat16 flash
+    tolerance)."""
     from repro_torch.kernels import flash_vjp
-    from repro_torch.kernels.flash_attention import launches
+    from repro_torch.kernels.flash_attention import (backward_launches,
+                                                     launches)
     q, k, v = _attn(Sq + 7 * Sk, B, Sq, Sk, H, Hkv, D, cuda, dtype)
     do = _attn(1, B, Sq, Sq, H, H, D, cuda, dtype)[0]
     grads = []
     for route in ("kernel", "plain"):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        before = launches.count
+        before = launches.count, backward_launches.count
         if route == "kernel":
             out = flash_vjp.flash_attention(*leaves, q_offset, causal)
-            assert launches.count == before + 1
+            assert launches.count == before[0] + 1
         else:
             out = ref.flash_attention_chunked(*leaves, causal=causal,
                                               q_offset=q_offset)[0]
         out.backward(do)
+        assert backward_launches.count == before[1] + (route == "kernel")
         grads.append([t.grad for t in leaves])
     if dtype == torch.bfloat16:
         # a bfloat16 decoder's queries against float32 encoder keys run
@@ -1093,12 +1124,51 @@ def test_flash_function_backward_on_the_card(cuda, B, Sq, Sk, H, Hkv, D,
         assert mixed.dtype == torch.bfloat16
         torch.testing.assert_close(mixed, want.to(torch.bfloat16), atol=0,
                                    rtol=0)
+    seen = q_offset + Sq if causal else Sk
     for got, want in zip(*grads):
         assert got.dtype == dtype
         if dtype == torch.float32:
             torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
         else:
             torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+    for got in grads[0][1:]:
+        assert bool((got[:, seen:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["strided do", "bf16 q, f32 k and v"])
+def test_flash_backward_kernel_takes_strided_do_and_mixed_dtypes(cuda, case):
+    """The backward kernel's wrapper takes an output cotangent that is
+    not contiguous (a slice, as autograd may hand it), and the Function
+    runs a bfloat16 q against float32 k and v in float32, returning dq
+    in bfloat16 and dk, dv in float32; both against autograd through
+    the plain chunked forward on the same tensors."""
+    from repro_torch.kernels import flash_vjp
+    from repro_torch.kernels.flash_attention import backward_launches
+    B, Sq, Sk, H, Hkv, D = 2, 300, 300, 4, 2, 64
+    q, k, v = _attn(5, B, Sq, Sk, H, Hkv, D, cuda)
+    wide = _attn(6, B, Sq, Sq, H, H, 2 * D, cuda)[0]
+    do = wide[..., :D]
+    assert not do.is_contiguous()
+    if case != "strided do":
+        q, do = q.to(torch.bfloat16), do.to(torch.bfloat16)
+    grads = []
+    for fn in (lambda *t: flash_vjp.flash_attention(*t),
+               lambda *t: ref.flash_attention_chunked(*t)[0]):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        before = backward_launches.count
+        fn(*leaves).backward(do)
+        grads.append(([t.grad for t in leaves],
+                      backward_launches.count - before))
+    (got, n_kernel), (want, n_plain) = grads
+    assert (n_kernel, n_plain) == (1, 0)
+    assert [g.dtype for g in got] == [q.dtype, k.dtype, v.dtype]
+    for g, w in zip(got, want):
+        if g.dtype == torch.float32 and case == "strided do":
+            torch.testing.assert_close(g, w, atol=2e-4, rtol=0)
+        else:   # dq rounded to bfloat16; the output's rounding in delta
+            torch.testing.assert_close(g.float(), w.float(), atol=2e-2,
                                        rtol=2e-2)
 
 

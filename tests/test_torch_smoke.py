@@ -34,8 +34,10 @@ def test_ab_compares_no_kernel_of_identical_sources(tmp_path):
 @pytest.mark.parametrize("edit,want", [
     ("rwkv6_scan.cu", ["rwkv6_scan"]),
     ("gaussian_blur.cu", ["gaussian_blur"]),
+    ("flash_attention_bwd.cu", ["flash_attention_backward"]),
     # the shared header: every kernel that includes it
-    ("tc.cuh", ["flash_attention", "mamba2_ssd", "rwkv6_scan"]),
+    ("tc.cuh", ["flash_attention", "flash_attention_backward", "mamba2_ssd",
+                "rwkv6_scan"]),
     ("preprocess.cu", ["preprocess"]),
 ])
 def test_ab_compares_the_kernels_whose_sources_differ(tmp_path, edit, want):
