@@ -270,7 +270,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.work import (  # noqa: E402
     FP32_FLOP_S, HBM_BYTES_S, PEAK_FLOPS, PRODUCT_FLOP_S, attn_bwd_work,
     attn_grad_work, attn_work,
-    ssd_grad_work, ssd_work, visible_pairs, wkv_grad_work, wkv_work)
+    ssd_grad_work, ssd_work, visible_pairs, wkv_bwd_work, wkv_grad_work,
+    wkv_work)
 
 # the blur kernel equals its plain version bit for bit (same taps, same
 # order, products and sums rounded separately)
@@ -310,12 +311,13 @@ K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
 # the output, whose rounding enters delta = rowsum(dO·O), and the grads)
 K3_GRAD_TOL, K3_GRAD_RTOL = 2e-4, 1e-4
 K3_GRAD_BF16_TOL = 2e-2
-# the SSD and WKV6 Functions' gradients (the kernel forward, the
-# recomputed chunked form's gradient backward) against autograd through
-# the plain chunked forward on the same tensors: the same float32
-# backward computed twice, 1e-5 of each gradient's largest magnitude;
-# a bfloat16 input's gradient is rounded to bfloat16 once in both, one
-# bfloat16 step apart at most (2^-7 relative beyond that)
+# the SSD and WKV6 Functions' gradients (the kernel forward; SSD's
+# backward the recomputed chunked form's gradient, WKV6's the backward
+# kernel, its closed-form gradient summed in float32) against autograd
+# through the plain chunked forward on the same tensors: 1e-5 of each
+# gradient's largest magnitude; a bfloat16 input's gradient is rounded to
+# bfloat16 once in both, one bfloat16 step apart at most (2^-7 relative
+# beyond that)
 SCAN_GRAD_TOL, SCAN_GRAD_BF16_RTOL = 1e-5, 2.0 ** -7
 # a training step on the card against the same step on the host, and a
 # resumed step against the straight run's: float32 sums in other orders
@@ -346,8 +348,8 @@ STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 
 ARCH = "zamba2-2.7b"
 # the hand-written kernels on the model and training paths
-MODEL_KERNELS = ("mamba2_ssd", "rwkv6_scan", "flash_attention",
-                 "flash_attention_backward")
+MODEL_KERNELS = ("mamba2_ssd", "rwkv6_scan", "rwkv6_scan_backward",
+                 "flash_attention", "flash_attention_backward")
 RWKV_ARCH = "rwkv6-1.6b"
 LONG_ARCH = "qwen3-0.6b"
 MOE_ARCH = "granite-moe-1b-a400m"
@@ -1215,13 +1217,15 @@ def phase_kernels():
         del o_lib, leaves
         return row
 
-    def scan_grad_case(kind, shape, dtype):
-        """K4 or K5 forward (the kernel) and the recomputing backward
-        through its autograd Function, with a cotangent for y only (as a
-        training step), against ``torch.autograd.grad`` through the
-        plain chunked forward on the same tensors on the card; timed
-        forward + backward, beside autograd through the plain forward
-        (no single PyTorch call computes either scan)."""
+    def scan_grad_case(kind, shape, dtype, earlier=None):
+        """K4 or K5 forward (the kernel) and its Function's backward (K4's
+        the recomputed chunked form's gradient, K5's the backward kernel),
+        with a cotangent for y only (as a training step), against
+        ``torch.autograd.grad`` through the plain chunked forward on the
+        same tensors on the card; timed forward + backward, beside
+        autograd through the plain forward (no single PyTorch call
+        computes either scan).  ``earlier``: the same row's times before
+        the backward kernel, by run."""
         from repro_torch.kernels import mamba2_ssd as ssd_mod
         from repro_torch.kernels import rwkv6_scan as wkv_mod
         if kind == "mamba2_ssd":
@@ -1285,9 +1289,72 @@ def phase_kernels():
                 "library_ms": None,
                 "library_call": "none: no single PyTorch call computes "
                                 "the scan or its gradient",
-                "route": ("K4" if kind == "mamba2_ssd" else "K5")
-                + " forward + the recomputed chunked form's gradient "
-                  "(torch.autograd.grad), float32",
+                "route": ("K4 forward + the recomputed chunked form's "
+                          "gradient (torch.autograd.grad), float32"
+                          if kind == "mamba2_ssd" else
+                          "K5 forward + the backward kernel "
+                          "rwkv6_scan_bwd.cu (fp32 FMA)"),
+                "earlier_ms": earlier,
+                "bytes": nbytes, "flops": products + other,
+                "products": products, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    def wkv_bwd_case(B, T, H, K, dtype):
+        """K5's backward kernel alone, y's cotangent only (as a training
+        step), against autograd through the plain chunked forward on the
+        same tensors under the scans' gradient gates, each gradient in its
+        input's dtype, two launches equal bit for bit (no atomics); timed
+        beside its plain version, ``ref.rwkv6_chunked_backward``."""
+        from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
+        r, k, v, w, u, _ = wkv_inputs(rng, B, T, H, K, dtype)
+        dy = torch.from_numpy(rng.standard_normal((B, T, H, K)).astype(
+            np.float32)).cuda().to(dtype)
+
+        def kernel():
+            return rwkv6_scan_backward_cuda(r, k, v, w, u, None, dy, None)[:5]
+
+        def plain():
+            return ref.rwkv6_chunked_backward(r, k, v, w, u, None, dy,
+                                              None)[:5]
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        leaves = [t.detach().requires_grad_() for t in (r, k, v, w, u)]
+        want = torch.autograd.grad(ref.rwkv6_chunked(*leaves)[0], leaves, dy)
+        del leaves
+        what = f"K5 backward kernel alone {(B, T, H, K)} {str(dtype)[6:]}"
+        err = 0.0
+        for name, g, wt, t in zip(("dr", "dk", "dv", "dw", "du"), got, want,
+                                  (r, k, v, w, u)):
+            top = float(wt.float().abs().max())
+            rtol = SCAN_GRAD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+            err = max(err, held(
+                f"{what}: {name} against autograd through the plain forward",
+                (g,), (wt,), SCAN_GRAD_TOL * max(top, 1e-30), rtol))
+            check(g.dtype == t.dtype, f"{what}: {name} in its input's "
+                  f"{t.dtype} ({g.dtype})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two launches give equal bits")
+        del want, again
+        plain_err = max(float((g.float() - p.float()).abs().max())
+                        for g, p in zip(got, plain()))
+        print(f"  {what}: against its plain version {plain_err:.4g}",
+              flush=True)
+        nbytes, products, other = wkv_bwd_work(B, T, H, K, K,
+                                               r.element_size())
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        return {"kernel": "rwkv6_scan_backward", "shape": [B, T, H, K],
+                "dtype": str(dtype), "max_abs_err": err,
+                "max_abs_err_vs_plain": plain_err,
+                "ms": time_ms(kernel, flush),
+                "plain_ms": time_ms(plain, flush, reps=3),
+                "library_ms": None,
+                "library_call": "none: no single PyTorch call computes "
+                                "the WKV6 gradient",
+                "route": "fp32 FMA: two walks (the states forward, the "
+                         "adjoints backward) saving every 16-step "
+                         "boundary, a CTA a 16-step block, du summed in "
+                         "order",
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
@@ -1403,9 +1470,19 @@ def phase_kernels():
     rows.append(scan_grad_case("mamba2_ssd", (1, 4096, 80, 64, 1, 64),
                                torch.float32))
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
-                               torch.bfloat16))
+                               torch.bfloat16,
+                               {"PR 20, call 1": 133.845566,
+                                "PR 20, call 2": 182.965004}))
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
-                               torch.float32))
+                               torch.float32,
+                               {"PR 20, call 1": 136.6,
+                                "PR 20, call 2": 140.7}))
+    # K5's backward kernel alone at rwkv6-1.6b's microbatch, in bfloat16
+    # (its training dtype) and float32
+    entries["rwkv6_scan_backward"] = wkv_bwd_case(2, 4096, 32, 64,
+                                                  torch.bfloat16)
+    rows.append(entries["rwkv6_scan_backward"])
+    rows.append(wkv_bwd_case(2, 4096, 32, 64, torch.float32))
     rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32,
                                20.554751))
     # K4's forward alone at phase 16's training shape (1 x 4,096, 80
@@ -1460,6 +1537,10 @@ def kernels_line(entries, path_launches):
                        "src/repro/kernels/mamba2_ssd.py:68"),
         "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan.py:78"),
+        # autodiff of the reference's chunked form: no Pallas kernel
+        "rwkv6_scan_backward": (
+            "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+            "src/repro/kernels/ref.py:232"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:77"),
         # the reference's _bwd: jnp, no Pallas kernel
@@ -2117,9 +2198,13 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
     1 x ``seq`` tokens, float32: 2 steps; (c) the same for rwkv6-1.6b at
     full width, 4 x ``seq`` as 2 microbatches of 2, bfloat16 compute;
     (d) one step of rwkv6-1.6b cut to 2 layers at the bfloat16 defaults,
-    1 x ``seq``, each leaf's gradient finite and not all zero.
-    ``device``, ``reduced``, ``seq`` and ``host_seq`` let a host without
-    a card rehearse it."""
+    1 x ``seq``, each leaf's gradient finite and not all zero; (e) one
+    ``make_train_step`` step of rwkv6-1.6b at full width cut to 2 layers,
+    1 x ``host_seq`` tokens, float32, on the card and on the host from
+    one state (loss and gradient norm), K5's backward kernel against its
+    plain version.  On the card K5's backward kernel launches once a
+    layer and microbatch.  ``device``, ``reduced``, ``seq`` and
+    ``host_seq`` let a host without a card rehearse it."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.dataio import lm_token_stream
@@ -2222,7 +2307,12 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
     out["rwkv6"] = _train_run(
         "2 steps", launches, RWKV_ARCH, device, steps=2, reduced=reduced,
         batch=4, seq=seq, microbatches=2, compute_dtype="bfloat16",
-        kernels=("rwkv6_scan",))
+        kernels=("rwkv6_scan", "rwkv6_scan_backward"))
+    nb, layers = out["rwkv6"]["launches"].get("rwkv6_scan_backward", 0), \
+        get_arch(RWKV_ARCH, reduced).num_layers
+    check(device != "cuda" or nb == layers * 2 * 2, "K5's backward kernel "
+          f"launched once a layer, microbatch and step ({nb} == "
+          f"{layers} x 2 x 2)")
     if device == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
@@ -2237,23 +2327,78 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
     state = init_train_state(api, torch.Generator(device=device)
                              .manual_seed(0))
     toks = torch.from_numpy(lm_token_stream(1, seq, cfg.vocab_size, 0))
-    before = launches["rwkv6_scan"].count
+    before = {k: c.count for k, c in launches.items()}
     state, m = make_train_step(api, tcfg, REPLICATED)(
         state, {"tokens": toks.to(device)})
-    k5 = launches["rwkv6_scan"].count - before
+    k5 = launches["rwkv6_scan"].count - before["rwkv6_scan"]
+    k5b = (launches["rwkv6_scan_backward"].count
+           - before["rwkv6_scan_backward"]
+           if "rwkv6_scan_backward" in launches else 0)
     out["rwkv6_leaves"] = {"loss": float(m["loss"]),
                            "grad_norm": float(m["grad_norm"]),
-                           "launches": k5,
+                           "launches": k5, "backward_launches": k5b,
                            "leaf_grad_norms": leaf_grads_from_m(state["m"],
                                                                 tcfg.b1)}
     print(f"  loss {float(m['loss'])}, grad norm {float(m['grad_norm'])}, "
-          f"rwkv6_scan launches {k5}", flush=True)
+          f"rwkv6_scan launches {k5}, rwkv6_scan_backward {k5b}",
+          flush=True)
     check(math.isfinite(float(m["loss"])), "16d: finite loss")
     check(device != "cuda" or k5 == 2 * cfg.num_layers,
           f"K5 launched forward and under remat in every layer ({k5})")
+    check(device != "cuda" or k5b == cfg.num_layers,
+          f"K5's backward kernel launched once in every layer ({k5b})")
     check_leaf_grads("16d", out["rwkv6_leaves"]["leaf_grad_norms"],
                      WKV_UPSTREAM)
     del state
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (e) card against host: K5's backward kernel on the card, its
+    # plain version on the host
+    cfg = get_arch(RWKV_ARCH, reduced).replace(num_layers=2)
+    print(f"phase 16e: one train step of {cfg.name} at {width}, 2 layers, "
+          f"1 x {host_seq} tokens, float32, on the card and on the host",
+          flush=True)
+    api = get_model(cfg)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=100,
+                       compute_dtype="float32", grad_reduce_dtype="float32")
+    step = make_train_step(api, tcfg, REPLICATED)
+    host = init_train_state(api, torch.Generator().manual_seed(0))
+    card = tree_map(lambda a: a.to(device, copy=True), host)
+    toks = torch.from_numpy(lm_token_stream(1, host_seq, cfg.vocab_size, 0))
+    before = {k: c.count for k, c in launches.items()}
+    t0 = time.perf_counter()
+    card, mc = step(card, {"tokens": toks.to(device)})
+    card_loss = float(mc["loss"])
+    card_s = time.perf_counter() - t0
+    counts = {k: c.count - before[k] for k, c in launches.items()}
+    t0 = time.perf_counter()
+    host, mh = step(host, {"tokens": toks})
+    host_s = time.perf_counter() - t0
+    loss_rel = abs(card_loss / float(mh["loss"]) - 1)
+    norm_rel = abs(float(mc["grad_norm"]) / float(mh["grad_norm"]) - 1)
+    moment_rel = {k: moment_diff(card[k], host[k]) for k in ("m", "v")}
+    out["rwkv6_card_vs_host"] = {
+        "card_ms": card_s * 1e3, "host_ms": host_s * 1e3,
+        "loss": [card_loss, float(mh["loss"])], "loss_rel": loss_rel,
+        "grad_norm": [float(mc["grad_norm"]), float(mh["grad_norm"])],
+        "grad_norm_rel": norm_rel, "moment_diff_over_leaf_max": moment_rel,
+        "launches": counts}
+    print(f"  card {card_s * 1e3:.3f} ms, host {host_s * 1e3:.3f} ms; loss "
+          f"{card_loss} / {float(mh['loss'])} (rel {loss_rel:.3g}); grad norm "
+          f"rel {norm_rel:.3g}; max |Δm|, |Δv| over the leaf's largest "
+          f"{moment_rel['m']:.3g}, {moment_rel['v']:.3g}; launches "
+          f"{counts}", flush=True)
+    if device == "cuda":
+        check(counts["rwkv6_scan_backward"] == cfg.num_layers,
+              "16e: K5's backward kernel launched once in every layer "
+              f"({counts['rwkv6_scan_backward']} == {cfg.num_layers})")
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"16e card vs host loss: {loss_rel:.3g} <= {TRAIN_LOSS_RTOL}")
+    check(norm_rel <= TRAIN_NORM_RTOL,
+          f"16e card vs host grad norm: {norm_rel:.3g} <= {TRAIN_NORM_RTOL}")
+    del card, host
     return out
 
 
@@ -3265,6 +3410,22 @@ def phase_ab(old_csrc, names=None):
                            lambda: rwkv6_scan_cuda(r, k, v, w, u, s0),
                            lambda: ref.rwkv6_chunked(r, k, v, w, u, s0))}
 
+    def wkv_backward_rows():
+        # rwkv6-1.6b's training microbatch, y's cotangent only, in
+        # bfloat16 (its training dtype) and float32
+        from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
+        for dtype in (torch.bfloat16, torch.float32):
+            r, k, v, w, u, _ = wkv_inputs(rng, 2, 4096, 32, 64, dtype)
+            dy = torch.from_numpy(rng.standard_normal(
+                (2, 4096, 32, 64)).astype(np.float32)).cuda().to(dtype)
+            yield {"kernel": "rwkv6_scan_backward", "shape": [2, 4096, 32, 64],
+                   "dtype": str(dtype),
+                   **turns("rwkv6_scan_backward",
+                           lambda: rwkv6_scan_backward_cuda(
+                               r, k, v, w, u, None, dy, None)[:5],
+                           lambda: ref.rwkv6_chunked_backward(
+                               r, k, v, w, u, None, dy, None)[:5])}
+
     def blur_rows():
         for shape, ksize, sigma in (((32, 224, 224, 3), 9, 2.0),
                                     ((1, 224, 224, 3), 9, 2.0),
@@ -3299,7 +3460,9 @@ def phase_ab(old_csrc, names=None):
     cases = {"flash_attention": flash_rows,
              "flash_attention_backward": flash_backward_rows,
              "mamba2_ssd": ssd_rows,
-             "rwkv6_scan": wkv_rows, "gaussian_blur": blur_rows,
+             "rwkv6_scan": wkv_rows,
+             "rwkv6_scan_backward": wkv_backward_rows,
+             "gaussian_blur": blur_rows,
              "preprocess": preprocess_rows}
     rows = []
     for name in names:
@@ -3973,6 +4136,7 @@ def main() -> int:
     launches = {"gaussian_blur": gb.launches,
                 "fused_resize_crop_normalize": pp.launches,
                 "mamba2_ssd": ssd.launches, "rwkv6_scan": wkv.launches,
+                "rwkv6_scan_backward": wkv.backward_launches,
                 "flash_attention": fa.launches,
                 "flash_attention_backward": fa.backward_launches}
     engine_path = ("gaussian_blur", "fused_resize_crop_normalize")

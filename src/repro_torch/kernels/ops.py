@@ -97,7 +97,8 @@ def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):
     dtype, final state (B,H,K,V) float32).  A CPU tensor takes the
     chunked closed form (what the JAX package runs off the TPU), a CUDA
     tensor the WKV6 kernel (K5); both under ``rwkv6_scan.RwkvWKV``, whose
-    backward differentiates the chunked form."""
+    backward is the closed-form gradient of the chunked form: the
+    backward kernel on a CUDA tensor, its plain version on a CPU one."""
     return wkv.rwkv6_scan(r, k, v, w, u, state, chunk=chunk)
 
 

@@ -4,8 +4,9 @@ oracle each CUDA kernel is held against on the card.
 Every plain version of the JAX package's ``ref.py``: attention (naive,
 chunked online softmax and grouped single-token decode), the Gaussian
 blur, the RWKV6 WKV scan and the Mamba2 SSD scan (each sequential and
-chunked), and :func:`recomputed_vjp`, the backward of the scans'
-``autograd.Function`` classes.
+chunked); :func:`rwkv6_chunked_backward`, the plain version of WKV6's
+backward kernel; and :func:`recomputed_vjp`, the backward of the SSD
+scan's ``autograd.Function``.
 """
 from __future__ import annotations
 
@@ -391,9 +392,9 @@ def recomputed_vjp(plain, inputs, needs, cotangents, **kw) -> list:
     cotangent, read as zeros).  The plain version is recomputed under
     ``torch.enable_grad()`` on detached copies of the inputs and
     differentiated by ``torch.autograd.grad``: each gradient comes back
-    in its input's dtype.  The backward of the SSD and WKV6 Functions,
-    as the JAX package differentiates the same chunked forms by
-    autodiff off the TPU."""
+    in its input's dtype.  The backward of the SSD Function, as the JAX
+    package differentiates the same chunked form by autodiff off the
+    TPU (WKV6's backward is :func:`rwkv6_chunked_backward`)."""
     leaves = [None if t is None else t.detach().requires_grad_(bool(n))
               for t, n in zip(inputs, needs)]
     wrt = [t for t in leaves if t is not None and t.requires_grad]
@@ -410,3 +411,105 @@ def recomputed_vjp(plain, inputs, needs, cotangents, **kw) -> list:
     return [None if t is None or not t.requires_grad
             else (torch.zeros_like(t) if found[id(t)] is None
                   else found[id(t)]) for t in leaves]
+
+
+def rwkv6_chunked_backward(r, k, v, w, u, state, dy, ds,
+                           needs=(True,) * 6, chunk: int = 64) -> list:
+    """The gradients of :func:`rwkv6_chunked` (``r, k, v, w, u, state``,
+    ``None`` where ``needs`` is unset or the input is ``None``) against
+    the cotangents ``dy`` of y and ``ds`` of the final state (``None``:
+    zeros), in closed form chunk by chunk in float32, each returned in
+    its input's dtype.  The plain version of the WKV6 backward kernel.
+
+    With S_t the state after step t and G_t its adjoint (G_T = ds,
+    G_{t-1} = diag(w_t) G_t + r_t dy_tᵀ): dr_t = S_{t-1} dy_t +
+    (u∘k_t)(v_t·dy_t), dk_t = G_t v_t + (u∘r_t)(v_t·dy_t), dv_t =
+    G_tᵀ k_t + (r_t·(u∘k_t)) dy_t, du = Σ (r_t∘k_t)(v_t·dy_t), ds0 = G_0
+    and dw_j = dlogw_j / w_j (0 where the clamp at 1e-30 cuts it), with
+    dr′ and dk′ the parts of dr and dk without the bonus and e the last
+    step of j's chunk: dlogw_j = rowsum(G_e∘S_e) + Σ_{j<t≤e} r_t∘dr′_t −
+    Σ_{j≤s≤e} k_s∘dk′_s, from quantities each chunk already has.  The
+    states at the chunk boundaries come from a walk forward over the
+    chunks, the adjoints from a walk backward; within a chunk the decay
+    from step s to step t is exp(lwp_t - lw_s) over a (c, c, K) cube,
+    as the forward's."""
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = torch.float32
+    dev = r.device
+    out_like = (r, k, v, w, u, state)
+    if not any(n and t is not None for n, t in zip(needs, out_like)):
+        return [None] * 6
+    dyf = (torch.zeros((B, T, H, V), dtype=f32, device=dev) if dy is None
+           else dy.to(f32))
+    pad = (-T) % chunk
+    rp, kp, vp, dyp = (F.pad(a.to(f32), (0, 0, 0, 0, 0, pad))
+                       for a in (r, k, v, dyf))
+    wp = F.pad(w.to(f32), (0, 0, 0, 0, 0, pad), value=1.0)
+    n = (T + pad) // chunk
+    # (n, B, H, c, K|V)
+    rb, kb, vb, wb, dyb = (a.reshape(B, n, chunk, H, -1)
+                           .permute(1, 0, 3, 2, 4)
+                           for a in (rp, kp, vp, wp, dyp))
+    uf = u.to(f32)
+    logw = torch.log(torch.clamp(wb, min=1e-30))
+    lw = torch.cumsum(logw, dim=3)
+    lwp = lw - logw                       # sum over strictly earlier steps
+    to_end = torch.exp(lw[:, :, :, -1:, :] - lw)   # exp(lw_e - lw_s)
+    chunk_decay = torch.exp(lw[:, :, :, -1, :])[..., None]   # (n,B,H,K,1)
+    s = (torch.zeros((B, H, K, V), dtype=f32, device=dev) if state is None
+         else state.to(f32))
+    starts = []                           # S before each chunk, then S_T
+    for i in range(n):
+        starts.append(s)
+        s = chunk_decay[i] * s + torch.einsum(
+            "bhck,bhcv->bhkv", kb[i] * to_end[i], vb[i])
+    starts.append(s)
+    g = (torch.zeros((B, H, K, V), dtype=f32, device=dev) if ds is None
+         else ds.to(f32))
+    ends = [g]                            # G after each chunk, then G_0
+    for i in reversed(range(n)):
+        g = chunk_decay[i] * g + torch.einsum(
+            "bhck,bhcv->bhkv", rb[i] * torch.exp(lwp[i]), dyb[i])
+        ends.append(g)
+    ends.reverse()                        # G_0, then G after each chunk
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev), -1)[None, None, :, :, None]
+    dr, dk, dv, dw = [], [], [], []
+    du = torch.zeros((H, K), dtype=f32, device=dev)
+    for i in range(n):
+        rc, kc, vc, dyc = rb[i], kb[i], vb[i], dyb[i]
+        sa, ge = starts[i], ends[i + 1]
+        # E[t, s] = exp(lwp_t - lw_s) for s < t, 0 elsewhere
+        e = torch.exp(torch.where(
+            tri, lwp[i][:, :, :, None, :] - lw[i][:, :, None, :, :], -1e30))
+        d = torch.einsum("bhtv,bhsv->bhts", dyc, vc)          # dy_t · v_s
+        att = torch.einsum("bhtk,bhtsk,bhsk->bhts", rc, e, kc)
+        drp = torch.exp(lwp[i]) * torch.einsum("bhkv,bhtv->bhtk", sa, dyc) \
+            + torch.einsum("bhts,bhtsk,bhsk->bhtk", d, e, kc)
+        dkp = to_end[i] * torch.einsum("bhkv,bhsv->bhsk", ge, vc) \
+            + torch.einsum("bhts,bhtsk,bhtk->bhsk", d, e, rc)
+        dvp = torch.einsum("bhkv,bhsk->bhsv", ge, kc * to_end[i]) \
+            + torch.einsum("bhts,bhtv->bhsv", att, dyc)
+        cur = torch.diagonal(d, dim1=2, dim2=3)[..., None]    # v_t · dy_t
+        dr.append(drp + uf[None, :, None, :] * kc * cur)
+        dk.append(dkp + uf[None, :, None, :] * rc * cur)
+        dv.append(dvp + (rc * uf[None, :, None, :] * kc).sum(-1, keepdim=True)
+                  * dyc)
+        du += (rc * kc * cur).sum(dim=(0, 2))
+        x, z = rc * drp, kc * dkp
+        x_after = torch.flip(torch.cumsum(torch.flip(x, [2]), 2), [2]) - x
+        z_from = torch.flip(torch.cumsum(torch.flip(z, [2]), 2), [2])
+        q = (ge * starts[i + 1]).sum(-1)[:, :, None, :]     # rowsum(G_e∘S_e)
+        wc = wb[i]
+        dw.append(torch.where(wc >= 1e-30, (q + x_after - z_from) / wc, 0.0))
+
+    def seq(parts, like):
+        full = torch.stack(parts).permute(1, 0, 3, 2, 4).reshape(
+            B, n * chunk, H, -1)[:, :T]
+        return full.to(like.dtype)
+
+    grads = [seq(dr, r), seq(dk, k), seq(dv, v), seq(dw, w), du.to(u.dtype),
+             None if state is None else ends[0].to(state.dtype)]
+    return [gr if nd and t is not None else None
+            for gr, nd, t in zip(grads, needs, out_like)]

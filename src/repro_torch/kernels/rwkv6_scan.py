@@ -21,12 +21,22 @@ its bytes.  The plain version is :func:`repro_torch.kernels.ref.rwkv6_chunked`.
 :func:`rwkv6_scan` is the differentiable route (``kernels/ops.py``
 takes it on both devices): a ``torch.autograd.Function`` whose forward
 is the kernel on a CUDA tensor and the plain chunked form on a CPU
-tensor, and whose backward recomputes the plain chunked form under
-autograd and differentiates it (:func:`ref.recomputed_vjp`), the
-gradient the JAX package takes of ``rwkv6_chunked_jnp`` off the TPU.
-The recompute takes the forward's mix of dtypes (a bfloat16 model's r,
-k, v and u beside float32 w), and each gradient comes back in its
-input's dtype.
+tensor, and whose backward is the backward kernel
+(``csrc/rwkv6_scan_bwd.cu``, :func:`rwkv6_scan_backward_cuda`) on a
+CUDA tensor, a record of its launch on a meta tensor, and its plain
+version :func:`ref.rwkv6_chunked_backward` (the closed-form gradient
+chunk by chunk in float32) on a CPU tensor: the gradient the JAX
+package takes of ``rwkv6_chunked_jnp`` by autodiff off the TPU.  The
+backward takes the forward's mix of dtypes (a bfloat16 model's r, k, v
+and u beside float32 w), and each gradient comes back in its input's
+dtype.
+
+The backward kernel walks the states forward and the adjoints backward
+by the plain recurrence, saving both at every 16-step block boundary
+(:func:`backward_walks` mirrors that geometry), then gives each
+(block, head, batch) a CTA of its own that computes the block's
+gradients from them (:func:`backward_blocks`), and sums ``du``'s block
+shares in a fixed order: no atomics, so two runs give equal bits.
 """
 from __future__ import annotations
 
@@ -37,15 +47,54 @@ import torch
 from repro_torch.kernels import _build, ref, work
 
 launches = _build.LaunchCounter("rwkv6_scan")
+backward_launches = _build.LaunchCounter("rwkv6_scan_backward")
 
 MAX_CHUNK = 64      # the chunk lengths accepted (the kernel tiles by 16)
 MAX_K = 64          # key dim the register tiles hold
 MAX_V = 64          # value dim the register tiles hold
+BWD_BLOCK = 16      # steps a block of the backward kernel covers
+BWD_COLUMNS = 16    # state columns a walk CTA of the backward kernel holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _build.declare("rwkv6_scan", "rwkv6_scan.cu", {
     "repro_rwkv6_scan": [ctypes.c_int] + [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]})
+_build.declare("rwkv6_scan_backward", "rwkv6_scan_bwd.cu", {
+    "repro_rwkv6_scan_backward": [ctypes.c_int] + [ctypes.c_void_p] * 17
+    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]})
+
+
+def _check_operands(what, r, k, v, w, u, state, **more):
+    """The shape, dtype and device checks both kernels' wrappers run:
+    ``(batch, T, H, K, V)``.  ``more`` names further operands (None
+    where absent) that must lie on r's device."""
+    for name, t in dict(k=k, v=v, w=w, u=u, state=state, **more).items():
+        if t is not None and t.device != r.device:
+            raise ValueError(f"{name} is on {t.device}, r on {r.device}")
+    if r.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 r, got {r.dtype}")
+    if k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"k and v must have r's dtype {r.dtype}, got "
+                        f"{k.dtype} and {v.dtype}")
+    if r.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"expected r (B,T,H,K) and v (B,T,H,V), got "
+                         f"{tuple(r.shape)} and {tuple(v.shape)}")
+    batch, T, H, K = r.shape
+    V = v.shape[3]
+    if (tuple(k.shape) != (batch, T, H, K)
+            or tuple(w.shape) != (batch, T, H, K)
+            or tuple(v.shape[:3]) != (batch, T, H)
+            or tuple(u.shape) != (H, K)
+            or (state is not None
+                and tuple(state.shape) != (batch, H, K, V))):
+        raise ValueError(f"{what}: inconsistent shapes")
+    if K > MAX_K or V > MAX_V:
+        raise ValueError(f"the kernel takes K <= {MAX_K} and V <= {MAX_V}, "
+                         f"got K={K}, V={V}")
+    if batch > 65535 or H > 65535:
+        raise ValueError(f"batch {batch} or heads {H} exceed the grid's "
+                         "65535")
+    return batch, T, H, K, V
 
 
 def rwkv6_scan_cuda(
@@ -66,34 +115,10 @@ def rwkv6_scan_cuda(
         raise ValueError("rwkv6_scan_cuda takes CUDA tensors, got r on "
                          f"{r.device}")
     _build.refuse_grad("rwkv6_scan", r, k, v, w, u, state)
-    for name, t in (("k", k), ("v", v), ("w", w), ("u", u),
-                    ("state", state)):
-        if t is not None and t.device != r.device:
-            raise ValueError(f"{name} is on {t.device}, r on {r.device}")
-    if r.dtype not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16 r, got {r.dtype}")
-    if k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"k and v must have r's dtype {r.dtype}, got "
-                        f"{k.dtype} and {v.dtype}")
-    if r.ndim != 4 or v.ndim != 4:
-        raise ValueError(f"expected r (B,T,H,K) and v (B,T,H,V), got "
-                         f"{tuple(r.shape)} and {tuple(v.shape)}")
-    batch, T, H, K = r.shape
-    V = v.shape[3]
-    if (tuple(k.shape) != (batch, T, H, K)
-            or tuple(w.shape) != (batch, T, H, K)
-            or tuple(v.shape[:3]) != (batch, T, H)
-            or tuple(u.shape) != (H, K)
-            or (state is not None
-                and tuple(state.shape) != (batch, H, K, V))):
-        raise ValueError("rwkv6_scan_cuda: inconsistent shapes")
-    if K > MAX_K or V > MAX_V:
-        raise ValueError(f"the kernel takes K <= {MAX_K} and V <= {MAX_V}, "
-                         f"got K={K}, V={V}")
+    batch, T, H, K, V = _check_operands("rwkv6_scan_cuda", r, k, v, w, u,
+                                        state)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
-    if batch > 65535:
-        raise ValueError(f"batch {batch} exceeds the grid's 65535")
     f32 = torch.float32
     if state is not None:
         state = state.to(f32).contiguous()
@@ -145,11 +170,163 @@ def rwkv6_scan_meta(r, k, v, w, u, state=None, *, chunk: int = 64
                         device="meta"))
 
 
+def backward_walks(T, V):
+    """The backward kernel's walks, as ``csrc/rwkv6_scan_bwd.cu`` runs
+    them for one (batch, head): the number of 16-step blocks; for each
+    walk CTA (direction, column group), its columns and the blocks it
+    steps through in order, each as (block, its steps in the order the
+    CTA takes them); and the boundaries it saves, in order (the states
+    forward from boundary 0, s0; the adjoints backward from boundary
+    ``nb``, ds)."""
+    nb = -(-T // BWD_BLOCK)
+    walks = []
+    for direction in ("states", "adjoints"):
+        for g in range(-(-V // BWD_COLUMNS)):
+            cols = range(g * BWD_COLUMNS, min((g + 1) * BWD_COLUMNS, V))
+            order = range(nb) if direction == "states" else \
+                range(nb - 1, -1, -1)
+            steps = []
+            for m in order:
+                block = range(m * BWD_BLOCK, min((m + 1) * BWD_BLOCK, T))
+                steps.append((m, list(block) if direction == "states"
+                              else list(reversed(block))))
+            saved = ([0] + [m + 1 for m, _ in steps] if direction == "states"
+                     else [nb] + [m for m, _ in steps])
+            walks.append({"direction": direction, "columns": cols,
+                          "blocks": steps, "saved": saved})
+    return nb, walks
+
+
+def backward_blocks(T):
+    """The backward kernel's block CTAs for one (batch, head): for each
+    block, the steps it writes gradients for, the boundary whose state
+    it reads (its start) and the boundary whose adjoint and state it
+    reads (its end)."""
+    nb = -(-T // BWD_BLOCK)
+    return [{"block": j, "steps": range(j * BWD_BLOCK,
+                                        min((j + 1) * BWD_BLOCK, T)),
+             "state": j, "end": j + 1} for j in range(nb)]
+
+
+def rwkv6_scan_backward_cuda(
+    r: torch.Tensor,    # (B, T, H, K) float32 | bfloat16, on CUDA
+    k: torch.Tensor,    # (B, T, H, K), r's dtype
+    v: torch.Tensor,    # (B, T, H, V), r's dtype
+    w: torch.Tensor,    # (B, T, H, K) decays, float32
+    u: torch.Tensor,    # (H, K)
+    state: torch.Tensor | None,   # (B, H, K, V) the initial state
+    dy: torch.Tensor | None,      # (B, T, H, V) y's cotangent
+    ds: torch.Tensor | None,      # (B, H, K, V) the final state's
+    *,
+    chunk: int = 64,
+) -> tuple:
+    """Launch the WKV6 backward on the current CUDA stream (the walks,
+    the blocks, the du sum).  Returns ``(dr, dk, dv, dw, du, ds0)``, each
+    in its input's dtype (``ds0`` None without an initial state); a
+    missing cotangent counts as zeros.  ``w``, ``u``, the states and the
+    cotangent ``ds`` are taken in float32, ``dy`` in r's dtype.  ``chunk``
+    is checked and not otherwise used: the kernel tiles by its own
+    16-step blocks."""
+    if not r.is_cuda:
+        raise ValueError("rwkv6_scan_backward_cuda takes CUDA tensors, got "
+                         f"r on {r.device}")
+    _build.refuse_grad("rwkv6_scan_backward (no double backward)",
+                       r, k, v, w, u, state, dy, ds)
+    batch, T, H, K, V = _check_operands("rwkv6_scan_backward_cuda", r, k, v,
+                                        w, u, state, dy=dy, ds=ds)
+    if ((dy is not None and tuple(dy.shape) != (batch, T, H, V))
+            or (ds is not None and tuple(ds.shape) != (batch, H, K, V))):
+        raise ValueError("rwkv6_scan_backward_cuda: inconsistent shapes")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk must be in 1..{MAX_CHUNK}, got {chunk}")
+    f32, dev = torch.float32, r.device
+    like = (k, v, w, u, state)      # the gradients' dtypes
+    dr = torch.empty((batch, T, H, K), dtype=r.dtype, device=dev)
+    dk = torch.empty((batch, T, H, K), dtype=r.dtype, device=dev)
+    dv = torch.empty((batch, T, H, V), dtype=r.dtype, device=dev)
+    dw = torch.empty((batch, T, H, K), dtype=f32, device=dev)
+    du = torch.empty((H, K), dtype=f32, device=dev)
+    ds0 = (None if state is None else
+           torch.empty((batch, H, K, V), dtype=f32, device=dev))
+    if T == 0 or batch == 0:
+        du.zero_()
+        if ds0 is not None:
+            ds0.zero_() if ds is None else ds0.copy_(ds)
+        return _grads_as_inputs((dr, dk, dv, dw, du, ds0), *like)
+    r, k = _build.strided(r, K), _build.strided(k, K)
+    v = _build.strided(v, V)
+    w = _build.strided(w.to(f32), K)
+    dy = (torch.zeros((batch, T, H, V), dtype=r.dtype, device=dev)
+          if dy is None else _build.strided(dy.to(r.dtype), V))
+    u = u.to(f32).contiguous()
+    s0 = None if state is None else state.to(f32).contiguous()
+    ds = None if ds is None else ds.to(f32).contiguous()
+    nb = -(-T // BWD_BLOCK)
+    states = torch.empty((batch, H, nb + 1, K, V), dtype=f32, device=dev)
+    adj = torch.empty_like(states)
+    du_part = torch.empty((batch, nb, H, K), dtype=f32, device=dev)
+    lib = _build.load("rwkv6_scan_backward")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_rwkv6_scan_backward(
+            _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            w.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            dy.data_ptr(), None if ds is None else ds.data_ptr(),
+            states.data_ptr(), adj.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), du.data_ptr(),
+            None if ds0 is None else ds0.data_ptr(), batch, T, H, K, V,
+            *_build.outer(r), *_build.outer(k), *_build.outer(v),
+            *_build.outer(w), *_build.outer(dy), stream)
+    _build.check(err, "rwkv6_scan_backward")
+    backward_launches.add()
+    return _grads_as_inputs((dr, dk, dv, dw, du, ds0), *like)
+
+
+def _grads_as_inputs(grads, k, v, w, u, state):
+    """``(dr, dk, dv, dw, du, ds0)`` with dk, dv, dw, du and ds0 in k's,
+    v's, w's, u's and the state's dtypes (dr is in r's already)."""
+    dr, dk, dv, dw, du, ds0 = grads
+    return (dr, dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            du.to(u.dtype), None if ds0 is None else ds0.to(state.dtype))
+
+
+def rwkv6_scan_backward_meta(r, k, v, w, u, state, dy, ds, *, chunk: int = 64
+                             ) -> tuple:
+    """The backward kernel's route for ``meta`` tensors: the gradients
+    of :func:`rwkv6_scan_backward_cuda`'s shapes and dtypes, no values,
+    its float32 scratch (the states and adjoints at every block
+    boundary) live beside them, and one launch of the backward's work
+    (:func:`work.wkv_bwd_work`) in the active cost counter.  An operand
+    on another device raises."""
+    for name, t in (("k", k), ("v", v), ("w", w), ("u", u),
+                    ("state", state), ("dy", dy), ("ds", ds)):
+        if t is not None and not t.is_meta:
+            raise ValueError(f"{name} is on {t.device}, r on meta")
+    batch, T, H, K = r.shape
+    V = v.shape[3]
+    grads = tuple(None if t is None else
+                  torch.empty(t.shape, dtype=t.dtype, device="meta")
+                  for t in (r, k, v, w, u, state))
+    if T and batch:
+        nb = -(-T // BWD_BLOCK)
+        scratch = torch.empty((2, batch, H, nb + 1, K, V),
+                              dtype=torch.float32, device="meta")
+        nbytes, products, _ = work.wkv_bwd_work(
+            batch, T, H, K, V, r.element_size(), state is not None,
+            ds is not None)
+        work.record_kernel("rwkv6_scan_backward", nbytes, products)
+        del scratch
+    return grads
+
+
 class RwkvWKV(torch.autograd.Function):
     """Autograd's view of the WKV6 scan: the kernel (the plain chunked
-    form on the CPU, the kernel's meta route on ``meta``) forward, the
-    recomputed plain chunked form's gradient backward.  Saves only the inputs; either output's cotangent may be
-    absent (a training step never reads the final state)."""
+    form on the CPU, the kernel's meta route on ``meta``) forward; the
+    backward kernel (its plain version
+    :func:`ref.rwkv6_chunked_backward` on the CPU, its meta route on
+    ``meta``) backward.  Saves only the inputs; either output's
+    cotangent may be absent (a training step never reads the final
+    state)."""
 
     @staticmethod
     def forward(ctx, r, k, v, w, u, state, chunk):
@@ -166,10 +343,19 @@ class RwkvWKV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, ds):
-        grads = ref.recomputed_vjp(
-            ref.rwkv6_chunked, ctx.saved_tensors, ctx.needs_input_grad[:6],
-            (dy, ds), chunk=ctx.chunk)
-        return (*grads, None)
+        inputs = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:6]
+        if inputs[0].is_cuda:
+            grads = rwkv6_scan_backward_cuda(*inputs, dy, ds,
+                                             chunk=ctx.chunk)
+        elif inputs[0].is_meta:
+            grads = rwkv6_scan_backward_meta(*inputs, dy, ds,
+                                             chunk=ctx.chunk)
+        else:
+            grads = ref.rwkv6_chunked_backward(*inputs, dy, ds, needs,
+                                               chunk=ctx.chunk)
+        return (*[g if n and t is not None else None
+                  for g, n, t in zip(grads, needs, inputs)], None)
 
 
 def rwkv6_scan(r, k, v, w, u, state=None, *, chunk: int = 64):

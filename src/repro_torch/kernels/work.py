@@ -79,6 +79,25 @@ def wkv_work(B, T, H, K, V, itemsize):
     return nbytes, 4 * K * V * steps, (K * V + 3 * K + 2 * V) * steps
 
 
+def wkv_bwd_work(B, T, H, K, V, itemsize, state=False, ds=False):
+    """Bytes, matrix-product operations and other operations of WKV6's
+    backward alone (the backward kernel), counted per step as
+    :func:`wkv_work` counts the forward.  Bytes: r, k, v and dy read and
+    dr, dk, dv written once in their type; w read and dw written once in
+    float32; u read and du written in float32; with an initial state, it
+    read and ds0 written, and with a final state's cotangent, it read, in
+    float32.  Products per (batch, head) step: the adjoint's update
+    r dyᵀ, the readouts dr = S dy, dk = G v and dv = Gᵀ k, and the
+    decay's sum of G ∘ S_prev, 2KV each (10KV).  Other: the adjoint's
+    decay w G (KV) and the bonus terms' gradients (6K + 4V)."""
+    nbytes = (2 * B * T * H * K + 2 * B * T * H * V) * itemsize \
+        + (2 * B * T * H * K + B * T * H * V) * itemsize \
+        + 2 * B * T * H * K * 4 + 2 * H * K * 4 \
+        + (2 * bool(state) + bool(ds)) * B * H * K * V * 4
+    steps = B * T * H
+    return nbytes, 10 * K * V * steps, (K * V + 6 * K + 4 * V) * steps
+
+
 def visible_pairs(Sq, Sk, q_offset, causal) -> int:
     """The (query, key) pairs attention must visit: every key when not
     causal, keys up to ``q_offset + row`` when causal."""

@@ -1012,11 +1012,11 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
                                                              with_state):
     """K4's and K5's Functions on the card: the forward is the kernel
     (one launch, output within the kernel's own tolerance of the plain
-    version), the backward launches nothing and equals autograd through
-    the plain chunked form on the same tensors (the same float32
-    backward: 1e-5 of each gradient's largest magnitude; a bfloat16
-    gradient one bfloat16 step, 2^-7 relative, beyond that), each
-    gradient in its input's dtype."""
+    version); K4's backward launches nothing, K5's launches its backward
+    kernel once; both equal autograd through the plain chunked form on
+    the same tensors (1e-5 of each gradient's largest magnitude; a
+    bfloat16 gradient one bfloat16 step, 2^-7 relative, beyond that),
+    each gradient in its input's dtype."""
     from repro_torch.kernels import mamba2_ssd, rwkv6_scan
     if kind == "ssd":
         x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(7, 2, 300, 8, 64, 2, 64, cuda,
@@ -1051,8 +1051,11 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
         return y.detach(), torch.autograd.grad(outs, leaves, cts)
 
     before = counter.count
+    backward_before = rwkv6_scan.backward_launches.count
     y, got = run(fn)
     assert counter.count == before + 1
+    assert rwkv6_scan.backward_launches.count == backward_before + (
+        kind == "wkv")
     y_p, want = run(plain)
     assert counter.count == before + 1
     torch.testing.assert_close(y.float(), y_p.float(), atol=tol[0],
@@ -1353,3 +1356,183 @@ def test_cancel_mid_fused_batch_on_the_card_releases_admission_slots(cuda):
         assert res["stats"]["failed"] == 0
     finally:
         eng.shutdown()
+
+
+# ------------------------------------------------------- K5's backward
+# the backward kernel against its plain version on the same tensors:
+# float32 gradients 1e-5 of the gradient's largest magnitude plus 1e-4
+# relative (tests/test_torch_scan_grads.py's float32 tolerance: the same
+# float32 gradient by the closed form, summed in another order); a
+# bfloat16 gradient one bfloat16 step, 2^-7 relative plus 1e-3 of its
+# largest magnitude (both round the float32 gradient once)
+WKV_BWD_TOL, WKV_BWD_RTOL = 1e-5, 1e-4
+WKV_BWD_BF16_TOL, WKV_BWD_BF16_RTOL = 1e-3, 2.0 ** -7
+
+
+def _wkv_bwd_inputs(seed, B, T, H, K, V, device, dtype, decay="model"):
+    """r, k ~ 0.5 N, v, dy, ds ~ N, u ~ 0.1 N, s0 ~ 0.1 N, drawn with
+    numpy, r, k, v, dy and u in ``dtype``; the decays the model's
+    (exp(-exp(-4 + N))), near 0 (U(0.02, 0.1)), near 1 (U(0.999, 1),
+    some exactly 1) or cut by the clamp (the model's, a fifth of them 0
+    or 1e-31)."""
+    rng = np.random.default_rng(seed)
+
+    def n(shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    shape = (B, T, H, K)
+    if decay == "near0":
+        w = rng.uniform(0.02, 0.1, shape)
+    elif decay == "near1":
+        w = np.where(rng.uniform(size=shape) < 0.1, 1.0,
+                     rng.uniform(0.999, 1.0, shape))
+    else:
+        w = np.exp(-np.exp(-4.0 + n(shape)))
+        if decay == "clamp":
+            cut = rng.uniform(size=shape)
+            w = np.where(cut < 0.1, 0.0, np.where(cut < 0.2, 1e-31, w))
+    t = {name: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for name, a in (("r", n(shape, 0.5)), ("k", n(shape, 0.5)),
+                         ("v", n((B, T, H, V))), ("w", w.astype(np.float32)),
+                         ("u", n((H, K), 0.1)), ("s0", n((B, H, K, V), 0.1)),
+                         ("dy", n((B, T, H, V))), ("ds", n((B, H, K, V))))}
+    for name in ("r", "k", "v", "dy", "u"):    # u too, as a bf16 model's
+        t[name] = t[name].to(dtype)
+    return t
+
+
+def _wkv_bwd_close(got, want, what, decays=None):
+    """Each gradient within the tolerances above of the plain version's.
+    With ``decays`` (the decays near 0), dw is held as w·dw = dlogw: dw =
+    dlogw / w multiplies dlogw's float32 rounding, a difference of sums
+    of terms up to 1/w larger than it, by 1/w in every implementation (the
+    plain version at chunk 16 and at chunk 64 differ by 1.3 times the
+    tolerance at w in (0.02, 0.1) on the CPU)."""
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        if w is None:
+            assert g is None, (what, name)
+            continue
+        if name == "dw" and decays is not None:
+            g, w = g * decays, w * decays
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert bool(torch.isfinite(g.float()).all()), (what, name)
+        top = float(w.float().abs().max()) or 1.0
+        if g.dtype == torch.bfloat16:
+            atol, rtol = WKV_BWD_BF16_TOL * top, WKV_BWD_BF16_RTOL
+        else:
+            atol, rtol = WKV_BWD_TOL * top, WKV_BWD_RTOL
+        torch.testing.assert_close(
+            g.float(), w.float(), atol=atol, rtol=rtol,
+            msg=lambda m, name=name: f"{what}: {name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,V,dtype,decay,state,dy,ds", [
+    # rwkv6-1.6b's training microbatch, y's cotangent only, both types
+    (2, 4096, 32, 64, 64, torch.bfloat16, "model", False, True, False),
+    (2, 4096, 32, 64, 64, torch.float32, "model", False, True, False),
+    # with and without s0 and either cotangent
+    (2, 130, 3, 64, 64, torch.float32, "model", True, True, True),
+    (2, 130, 3, 64, 64, torch.bfloat16, "model", True, False, True),
+    (1, 45, 2, 64, 64, torch.float32, "model", False, False, True),
+    (1, 45, 2, 64, 64, torch.float32, "model", True, True, False),
+    # 1-, 3- and 17-token calls; a ragged tail; K and V apart, no multiple
+    # of 16 (the walks' column groups cut short, no 16-byte copies)
+    (3, 1, 4, 64, 64, torch.float32, "model", True, True, True),
+    (2, 3, 4, 64, 64, torch.bfloat16, "model", True, True, True),
+    (2, 17, 4, 64, 64, torch.float32, "model", True, True, True),
+    (2, 100, 3, 16, 40, torch.float32, "model", True, True, True),
+    (1, 37, 5, 40, 24, torch.bfloat16, "model", True, True, True),
+    (1, 33, 2, 8, 64, torch.float32, "model", False, True, True),
+    # decays near 0, near 1 (some exactly 1) and cut by the clamp
+    (2, 90, 3, 64, 64, torch.float32, "near0", True, True, True),
+    (2, 90, 3, 64, 64, torch.float32, "near1", True, True, True),
+    (2, 90, 3, 64, 64, torch.float32, "clamp", True, True, True),
+])
+def test_wkv_backward_kernel_matches_plain(cuda, B, T, H, K, V, dtype, decay,
+                                           state, dy, ds):
+    """The backward kernel (one launch) against
+    ``ref.rwkv6_chunked_backward`` on the same tensors on the card, each
+    gradient in its input's dtype; a second launch gives equal bits (no
+    atomics); where the clamp cuts the decay, dw is 0."""
+    from repro_torch.kernels.rwkv6_scan import (backward_launches,
+                                                rwkv6_scan_backward_cuda)
+    t = _wkv_bwd_inputs(T + K + V, B, T, H, K, V, cuda, dtype, decay)
+    args = (t["r"], t["k"], t["v"], t["w"], t["u"],
+            t["s0"] if state else None, t["dy"] if dy else None,
+            t["ds"] if ds else None)
+    before = backward_launches.count
+    got = rwkv6_scan_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert backward_launches.count == before + 1
+    # the clamp's log-decays of -69 a step: the plain version at the
+    # kernel's 16-step block, whose cumulative sums are as short
+    want = ref.rwkv6_chunked_backward(*args, chunk=16 if decay == "clamp"
+                                      else 64)
+    _wkv_bwd_close(got, want, f"{(B, T, H, K, V)} {dtype} {decay}",
+                   t["w"] if decay == "near0" else None)
+    again = rwkv6_scan_backward_cuda(*args)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+    if decay == "clamp":
+        assert bool((got[3][t["w"] < 1e-30] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_backward_kernel_reads_strided_operands(cuda, dtype):
+    """r, k, v and dy read in place through their batch and time strides
+    (slices of wider buffers, as a packed projection gives), and a dy
+    whose rows are no 16-byte multiple apart (copied): the same
+    gradients as contiguous copies."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
+    B, T, H, K = 2, 70, 4, 64
+    t = _wkv_bwd_inputs(3, B, T, H, K, K, cuda, dtype)
+    packed = torch.cat([t["r"], t["k"], t["v"]], dim=2)     # (B,T,3H,K)
+    r, k, v = packed[:, :, :H], packed[:, :, H:2 * H], packed[:, :, 2 * H:]
+    wide = torch.zeros((B, T + 5, H, K), dtype=dtype, device=cuda)
+    wide[:, 2:T + 2] = t["dy"]
+    dy = wide[:, 2:T + 2]
+    assert not dy.is_contiguous() and not r.is_contiguous()
+    got = rwkv6_scan_backward_cuda(r, k, v, t["w"], t["u"], t["s0"], dy,
+                                   t["ds"])
+    want = rwkv6_scan_backward_cuda(
+        *(x.contiguous() for x in (r, k, v)), t["w"], t["u"], t["s0"],
+        dy.contiguous(), t["ds"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    odd = torch.zeros((B, T, H, K + 1), dtype=dtype, device=cuda)
+    odd[..., :K] = t["dy"]
+    got = rwkv6_scan_backward_cuda(t["r"], t["k"], t["v"], t["w"], t["u"],
+                                   t["s0"], odd[..., :K], t["ds"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_wkv_backward_wrapper_refuses_what_its_kernel_cannot_take(cuda):
+    """Head sizes past 64, float16 operands, a CPU operand, inconsistent
+    cotangent shapes and a chunk out of range raise; nothing launches."""
+    from repro_torch.kernels.rwkv6_scan import (backward_launches,
+                                                rwkv6_scan_backward_cuda)
+    t = _wkv_bwd_inputs(0, 1, 20, 2, 64, 64, cuda, torch.float32)
+    args = [t["r"], t["k"], t["v"], t["w"], t["u"], None, t["dy"], None]
+    before = backward_launches.count
+    big = _wkv_bwd_inputs(0, 1, 20, 2, 80, 64, cuda, torch.float32)
+    with pytest.raises(ValueError, match="K <= 64"):
+        rwkv6_scan_backward_cuda(big["r"], big["k"], big["v"], big["w"],
+                                 big["u"], None, big["dy"], None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rwkv6_scan_backward_cuda(*[a.half() for a in args[:3]], *args[3:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        rwkv6_scan_backward_cuda(*args[:6], t["dy"].cpu(), None)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        rwkv6_scan_backward_cuda(*[a if a is None else a.cpu()
+                                   for a in args])
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        rwkv6_scan_backward_cuda(*args[:6], t["dy"][:, :10], None)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        rwkv6_scan_backward_cuda(*args[:7], t["ds"][:, :1])
+    with pytest.raises(ValueError, match="chunk"):
+        rwkv6_scan_backward_cuda(*args, chunk=65)
+    assert backward_launches.count == before

@@ -4,9 +4,11 @@
 against ``jax.vjp`` of the JAX package's chunked forms
 (``repro.kernels.ref.mamba2_ssd_chunked_jnp``, ``rwkv6_chunked_jnp``),
 which is what the reference differentiates off the TPU.  On the CPU the
-Function's forward is the plain chunked form and its backward the same
+Function's forward is the plain chunked form; SSD's backward is the same
 PyTorch code the card runs (the recomputed chunked form's gradient), so
-these tests hold the card's backward too.
+these tests hold the card's SSD backward too, and WKV6's is the plain
+version of its backward kernel (``ref.rwkv6_chunked_backward``; the
+kernel itself is held against it in ``tests/test_torch_cuda.py``).
 
 Same numpy inputs and cotangents (for ``y`` and the final state) in
 both packages; with an initial state and without one; a length that is
@@ -227,8 +229,12 @@ def test_wkv_function_gradients_match_the_reference_vjp(dtype, with_state,
 
 
 def test_wkv_function_without_the_state_cotangent_matches_autograd():
-    """Only y's cotangent, a bfloat16 model's mix of dtypes: equal to
-    autograd through the plain chunked form on the same tensors."""
+    """Only y's cotangent, a bfloat16 model's mix of dtypes: the
+    Function's CPU backward is the plain backward
+    (``ref.rwkv6_chunked_backward``) on the same tensors, bit for bit, and
+    within the bfloat16 tolerances above of autograd through the plain
+    chunked form (the closed form sums in another order than autograd,
+    then both round to bfloat16 once)."""
     from repro_torch.kernels import ref
     c = _wkv_case(5, 1, 40, 2, 8, with_state=False)
     names = ["r", "k", "v", "w", "u"]
@@ -242,7 +248,9 @@ def test_wkv_function_without_the_state_cotangent_matches_autograd():
     dy = torch.from_numpy(c["dy"]).to(torch.bfloat16)
     (wkv.rwkv6_scan(*a, chunk=16)[0].float() * dy.float()).sum().backward()
     (ref.rwkv6_chunked(*b, chunk=16)[0].float() * dy.float()).sum().backward()
-    for name, t, u in zip(names, a, b):
+    plain = ref.rwkv6_chunked_backward(*[t.detach() for t in a], None, dy,
+                                       None, chunk=16)
+    for name, t, u, p in zip(names, a, b, plain):
         assert t.grad.dtype == t.dtype
-        torch.testing.assert_close(t.grad, u.grad, atol=0, rtol=0,
-                                   msg=name)
+        torch.testing.assert_close(t.grad, p, atol=0, rtol=0, msg=name)
+        _check(t.grad, u.grad.float().numpy(), f"d{name}", True)

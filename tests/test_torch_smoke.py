@@ -35,9 +35,10 @@ def test_ab_compares_no_kernel_of_identical_sources(tmp_path):
     ("rwkv6_scan.cu", ["rwkv6_scan"]),
     ("gaussian_blur.cu", ["gaussian_blur"]),
     ("flash_attention_bwd.cu", ["flash_attention_backward"]),
+    ("rwkv6_scan_bwd.cu", ["rwkv6_scan_backward"]),
     # the shared header: every kernel that includes it
     ("tc.cuh", ["flash_attention", "flash_attention_backward", "mamba2_ssd",
-                "rwkv6_scan"]),
+                "rwkv6_scan", "rwkv6_scan_backward"]),
     ("preprocess.cu", ["preprocess"]),
 ])
 def test_ab_compares_the_kernels_whose_sources_differ(tmp_path, edit, want):
@@ -117,8 +118,9 @@ def test_phase_10_rehearsed_on_the_cpu():
 def test_phase_16_rehearsed_on_the_cpu():
     """Phase 16 on reduced configs: zamba2 cut to 2 hybrid groups, host
     against host (the card's copy is a CPU copy), both families through
-    ``launch.train.run``, and every leaf's gradient of rwkv6 cut to 2
-    layers finite and not all zero."""
+    ``launch.train.run``, every leaf's gradient of rwkv6 cut to 2 layers
+    finite and not all zero, and rwkv6 cut to 2 layers host against
+    host."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba2_ssd, rwkv6_scan
     launches = {"flash_attention": fa.launches,
@@ -128,6 +130,8 @@ def test_phase_16_rehearsed_on_the_cpu():
                                  seq=40, host_seq=24)
     assert out["card_vs_host"]["loss_rel"] == 0.0
     assert out["card_vs_host"]["grad_norm_rel"] == 0.0
+    assert out["rwkv6_card_vs_host"]["loss_rel"] == 0.0
+    assert out["rwkv6_card_vs_host"]["grad_norm_rel"] == 0.0
     assert len(out["zamba2"]["losses"]) == len(out["rwkv6"]["losses"]) == 2
     norms = out["rwkv6_leaves"]["leaf_grad_norms"]
     assert all(0.0 < v < float("inf") for v in norms.values())
