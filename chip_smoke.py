@@ -270,8 +270,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.work import (  # noqa: E402
     FP32_FLOP_S, HBM_BYTES_S, PEAK_FLOPS, PRODUCT_FLOP_S, attn_bwd_work,
     attn_grad_work, attn_work,
-    ssd_grad_work, ssd_work, visible_pairs, wkv_bwd_work, wkv_grad_work,
-    wkv_work)
+    ssd_bwd_work, ssd_grad_work, ssd_work, visible_pairs, wkv_bwd_work,
+    wkv_grad_work, wkv_work)
 
 # the blur kernel equals its plain version bit for bit (same taps, same
 # order, products and sums rounded separately)
@@ -311,10 +311,11 @@ K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
 # the output, whose rounding enters delta = rowsum(dO·O), and the grads)
 K3_GRAD_TOL, K3_GRAD_RTOL = 2e-4, 1e-4
 K3_GRAD_BF16_TOL = 2e-2
-# the SSD and WKV6 Functions' gradients (the kernel forward; SSD's
-# backward the recomputed chunked form's gradient, WKV6's the backward
-# kernel, its closed-form gradient summed in float32) against autograd
-# through the plain chunked forward on the same tensors: 1e-5 of each
+# the SSD and WKV6 Functions' gradients (the kernel forward, the
+# backward kernel: SSD's closed-form gradient on the tensor cores in
+# 3xTF32, WKV6's summed in float32) and the backward kernels alone,
+# against autograd through the plain chunked forward on the same
+# tensors: 1e-5 of each
 # gradient's largest magnitude; a bfloat16 input's gradient is rounded to
 # bfloat16 once in both, one bfloat16 step apart at most (2^-7 relative
 # beyond that)
@@ -348,8 +349,9 @@ STRONG_DECAY_SHIFT = math.log(8.0) + 4.0
 
 ARCH = "zamba2-2.7b"
 # the hand-written kernels on the model and training paths
-MODEL_KERNELS = ("mamba2_ssd", "rwkv6_scan", "rwkv6_scan_backward",
-                 "flash_attention", "flash_attention_backward")
+MODEL_KERNELS = ("mamba2_ssd", "mamba2_ssd_backward", "rwkv6_scan",
+                 "rwkv6_scan_backward", "flash_attention",
+                 "flash_attention_backward")
 RWKV_ARCH = "rwkv6-1.6b"
 LONG_ARCH = "qwen3-0.6b"
 MOE_ARCH = "granite-moe-1b-a400m"
@@ -1218,9 +1220,9 @@ def phase_kernels():
         return row
 
     def scan_grad_case(kind, shape, dtype, earlier=None):
-        """K4 or K5 forward (the kernel) and its Function's backward (K4's
-        the recomputed chunked form's gradient, K5's the backward kernel),
-        with a cotangent for y only (as a training step), against
+        """K4 or K5 forward (the kernel) and its Function's backward (the
+        backward kernel), with a cotangent for y only (as a training
+        step), against
         ``torch.autograd.grad`` through the plain chunked forward on the
         same tensors on the card; timed forward + backward, beside
         autograd through the plain forward (no single PyTorch call
@@ -1263,7 +1265,7 @@ def phase_kernels():
         (y, got), (y_p, want) = grads(kernel), grads(plain)
         torch.cuda.synchronize()
         what = (f"{'K4' if kind == 'mamba2_ssd' else 'K5'} forward + "
-                f"recomputing backward {tuple(shape)} {str(dtype)[6:]}")
+                f"backward kernel {tuple(shape)} {str(dtype)[6:]}")
         if dtype == torch.float32:
             fwd_err = held(f"{what}: the Function's output against the "
                            "plain forward", (y,), (y_p,), tol)
@@ -1289,8 +1291,8 @@ def phase_kernels():
                 "library_ms": None,
                 "library_call": "none: no single PyTorch call computes "
                                 "the scan or its gradient",
-                "route": ("K4 forward + the recomputed chunked form's "
-                          "gradient (torch.autograd.grad), float32"
+                "route": ("K4 forward + the backward kernel "
+                          "mamba2_ssd_bwd.cu (mma.sync 3xTF32)"
                           if kind == "mamba2_ssd" else
                           "K5 forward + the backward kernel "
                           "rwkv6_scan_bwd.cu (fp32 FMA)"),
@@ -1355,6 +1357,75 @@ def phase_kernels():
                          "adjoints backward) saving every 16-step "
                          "boundary, a CTA a 16-step block, du summed in "
                          "order",
+                "bytes": nbytes, "flops": products + other,
+                "products": products, "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    def ssd_bwd_case(B, T, H, P, G, N, dtype):
+        """K4's backward kernel alone, y's cotangent only (as a training
+        step), against autograd through the plain chunked forward on
+        float32 copies of the same tensors under the scans' gradient
+        gates, each gradient in its input's dtype (the reference's
+        rounded once), two launches equal bit for bit (no atomics); timed
+        beside its plain version, ``ref.mamba2_ssd_chunked_backward``."""
+        from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
+        x, dt, A, Bm, Cm, D, _ = ssd_inputs(rng, B, T, H, P, G, N, dtype)
+        dy = torch.from_numpy(rng.standard_normal((B, T, H, P)).astype(
+            np.float32)).cuda().to(dtype)
+        chunk = min(128, max(T, 8))
+
+        def kernel():
+            return mamba2_ssd_backward_cuda(x, dt, A, Bm, Cm, D, None, dy,
+                                            None)[:6]
+
+        def plain():
+            return ref.mamba2_ssd_chunked_backward(
+                x, dt, A, Bm, Cm, D, None, dy, None, chunk=chunk)[:6]
+
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        # autograd on float32 copies, each gradient rounded to its input's
+        # dtype once (the plain forward casts a bfloat16 x once a use, so
+        # autograd through it would round dx twice)
+        leaves = [t.detach().float().requires_grad_()
+                  for t in (x, dt, A, Bm, Cm, D)]
+        want = [g.to(t.dtype) for g, t in zip(torch.autograd.grad(
+            ref.mamba2_ssd_chunked(*leaves, chunk=chunk)[0], leaves,
+            dy.float()), (x, dt, A, Bm, Cm, D))]
+        del leaves
+        what = f"K4 backward kernel alone {(B, T, H, P)} {str(dtype)[6:]}"
+        err = 0.0
+        for name, g, wt, t in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
+                                  want, (x, dt, A, Bm, Cm, D)):
+            top = float(wt.float().abs().max())
+            rtol = SCAN_GRAD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+            err = max(err, held(
+                f"{what}: {name} against autograd through the plain forward",
+                (g,), (wt,), SCAN_GRAD_TOL * max(top, 1e-30), rtol))
+            check(g.dtype == t.dtype, f"{what}: {name} in its input's "
+                  f"{t.dtype} ({g.dtype})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two launches give equal bits")
+        del want, again
+        plain_err = max(float((g.float() - p.float()).abs().max())
+                        for g, p in zip(got, plain()))
+        print(f"  {what}: against its plain version {plain_err:.4g}",
+              flush=True)
+        nbytes, products, other = ssd_bwd_work(B, T, H, P, G, N,
+                                               x.element_size())
+        bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        return {"kernel": "mamba2_ssd_backward", "shape": [B, T, H, P],
+                "G": G, "N": N, "dtype": str(dtype), "max_abs_err": err,
+                "max_abs_err_vs_plain": plain_err,
+                "ms": time_ms(kernel, flush),
+                "plain_ms": time_ms(plain, flush, reps=3),
+                "library_ms": None,
+                "library_call": "none: no single PyTorch call computes "
+                                "the SSD gradient",
+                "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
+                          "mma.sync TF32, bf16 operands exact") +
+                         ": local shares, a walk over the 64-step block "
+                         "boundaries, a CTA a block, group sums in order",
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
@@ -1468,7 +1539,15 @@ def phase_kernels():
     # backward at zamba2's shared attention (1 x 4,096, 32 heads of 80,
     # float32)
     rows.append(scan_grad_case("mamba2_ssd", (1, 4096, 80, 64, 1, 64),
-                               torch.float32))
+                               torch.float32,
+                               {"the recomputing backward, run 2": 47.499216,
+                                "the recomputing backward, run 1": 50.252144}))
+    # K4's backward kernel alone at zamba2-2.7b's microbatch, in float32
+    # (its training dtype) and bfloat16
+    entries["mamba2_ssd_backward"] = ssd_bwd_case(1, 4096, 80, 64, 1, 64,
+                                                  torch.float32)
+    rows.append(entries["mamba2_ssd_backward"])
+    rows.append(ssd_bwd_case(1, 4096, 80, 64, 1, 64, torch.bfloat16))
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
                                torch.bfloat16,
                                {"PR 20, call 1": 133.845566,
@@ -1535,6 +1614,10 @@ def kernels_line(entries, path_launches):
             "src/repro/kernels/preprocess.py:79"),
         "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                        "src/repro/kernels/mamba2_ssd.py:68"),
+        # autodiff of the reference's chunked form: no Pallas kernel
+        "mamba2_ssd_backward": (
+            "src/repro_torch/kernels/csrc/mamba2_ssd_bwd.cu",
+            "src/repro/kernels/ref.py:316"),
         "rwkv6_scan": ("src/repro_torch/kernels/csrc/rwkv6_scan.cu",
                        "src/repro/kernels/rwkv6_scan.py:78"),
         # autodiff of the reference's chunked form: no Pallas kernel
@@ -2273,6 +2356,9 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
         check(counts["mamba2_ssd"] == 2 * cfg.num_layers,
               "K4 launched forward and under remat in every Mamba2 layer "
               f"({counts['mamba2_ssd']} == {2 * cfg.num_layers})")
+        nb = counts.get("mamba2_ssd_backward", 0)
+        check(nb == cfg.num_layers, "K4's backward kernel launched once in "
+              f"every Mamba2 layer ({nb} == {cfg.num_layers})")
         check(host_seq <= 1024 or counts["flash_attention"] == 2 * n_app,
               "K3 launched forward and under remat at every shared-block "
               f"application ({counts['flash_attention']} == {2 * n_app})")
@@ -2295,8 +2381,12 @@ def phase_scan_training(launches, device="cuda", reduced=False, seq=4096,
     out["zamba2"] = _train_run(
         "2 steps", launches, ARCH, device, steps=2, reduced=reduced,
         batch=1, seq=seq, compute_dtype="float32",
-        kernels=("mamba2_ssd", "flash_attention",
+        kernels=("mamba2_ssd", "mamba2_ssd_backward", "flash_attention",
                  "flash_attention_backward"))
+    nb, layers = out["zamba2"]["launches"].get("mamba2_ssd_backward", 0), \
+        get_arch(ARCH, reduced).num_layers
+    check(device != "cuda" or nb == layers * 2, "K4's backward kernel "
+          f"launched once a layer and step ({nb} == {layers} x 2)")
     if device == "cuda":
         gc.collect()
         torch.cuda.empty_cache()
@@ -2710,6 +2800,7 @@ def tp_rank_main(rank: int, store: str, device: str, reduced: bool) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     counters = {"flash_attention": fa.launches, "mamba2_ssd": ssd.launches,
+                "mamba2_ssd_backward": ssd.backward_launches,
                 "rwkv6_scan": wkv.launches,
                 "flash_attention_backward": fa.backward_launches}
     if device == "cuda":
@@ -3426,6 +3517,23 @@ def phase_ab(old_csrc, names=None):
                            lambda: ref.rwkv6_chunked_backward(
                                r, k, v, w, u, None, dy, None)[:5])}
 
+    def ssd_backward_rows():
+        # zamba2-2.7b's training microbatch, y's cotangent only, in float32
+        # (its training dtype) and bfloat16
+        from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, Bm, Cm, D, _ = ssd_inputs(rng, 1, 4096, 80, 64, 1, 64,
+                                                dtype)
+            dy = torch.from_numpy(rng.standard_normal(
+                (1, 4096, 80, 64)).astype(np.float32)).cuda().to(dtype)
+            yield {"kernel": "mamba2_ssd_backward", "shape": [1, 4096, 80, 64],
+                   "dtype": str(dtype),
+                   **turns("mamba2_ssd_backward",
+                           lambda: mamba2_ssd_backward_cuda(
+                               x, dt, A, Bm, Cm, D, None, dy, None)[:6],
+                           lambda: ref.mamba2_ssd_chunked_backward(
+                               x, dt, A, Bm, Cm, D, None, dy, None)[:6])}
+
     def blur_rows():
         for shape, ksize, sigma in (((32, 224, 224, 3), 9, 2.0),
                                     ((1, 224, 224, 3), 9, 2.0),
@@ -3460,6 +3568,7 @@ def phase_ab(old_csrc, names=None):
     cases = {"flash_attention": flash_rows,
              "flash_attention_backward": flash_backward_rows,
              "mamba2_ssd": ssd_rows,
+             "mamba2_ssd_backward": ssd_backward_rows,
              "rwkv6_scan": wkv_rows,
              "rwkv6_scan_backward": wkv_backward_rows,
              "gaussian_blur": blur_rows,
@@ -4135,7 +4244,9 @@ def main() -> int:
     faces256 = synthetic_faces(256, 250, seed=1)
     launches = {"gaussian_blur": gb.launches,
                 "fused_resize_crop_normalize": pp.launches,
-                "mamba2_ssd": ssd.launches, "rwkv6_scan": wkv.launches,
+                "mamba2_ssd": ssd.launches,
+                "mamba2_ssd_backward": ssd.backward_launches,
+                "rwkv6_scan": wkv.launches,
                 "rwkv6_scan_backward": wkv.backward_launches,
                 "flash_attention": fa.launches,
                 "flash_attention_backward": fa.backward_launches}

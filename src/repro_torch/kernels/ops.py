@@ -108,6 +108,7 @@ def mamba2_ssd(x, dt, A, Bm, Cm, D=None, state=None, *, chunk: int = 128):
     state (B,H,P,N) float32).  The chunk follows the TPU wrapper's rule
     ``min(chunk, max(T, 8))`` on both routes: the kernel (K4) on a CUDA
     tensor, the chunked form on a CPU tensor, both under
-    ``mamba2_ssd.MambaSSD``, whose backward differentiates the chunked
-    form."""
+    ``mamba2_ssd.MambaSSD``, whose backward is the closed-form gradient
+    of the chunked form: the backward kernel on a CUDA tensor, its plain
+    version on a CPU one."""
     return ssd.mamba2_ssd(x, dt, A, Bm, Cm, D, state, chunk=chunk)

@@ -4,9 +4,10 @@ oracle each CUDA kernel is held against on the card.
 Every plain version of the JAX package's ``ref.py``: attention (naive,
 chunked online softmax and grouped single-token decode), the Gaussian
 blur, the RWKV6 WKV scan and the Mamba2 SSD scan (each sequential and
-chunked); :func:`rwkv6_chunked_backward`, the plain version of WKV6's
-backward kernel; and :func:`recomputed_vjp`, the backward of the SSD
-scan's ``autograd.Function``.
+chunked); :func:`rwkv6_chunked_backward` and
+:func:`mamba2_ssd_chunked_backward`, the plain versions of the scans'
+backward kernels; and :func:`recomputed_vjp`, autograd through a plain
+forward, which the tests hold those against.
 """
 from __future__ import annotations
 
@@ -392,9 +393,10 @@ def recomputed_vjp(plain, inputs, needs, cotangents, **kw) -> list:
     cotangent, read as zeros).  The plain version is recomputed under
     ``torch.enable_grad()`` on detached copies of the inputs and
     differentiated by ``torch.autograd.grad``: each gradient comes back
-    in its input's dtype.  The backward of the SSD Function, as the JAX
-    package differentiates the same chunked form by autodiff off the
-    TPU (WKV6's backward is :func:`rwkv6_chunked_backward`)."""
+    in its input's dtype.  The independent reference of the scans'
+    closed-form backwards (:func:`rwkv6_chunked_backward`,
+    :func:`mamba2_ssd_chunked_backward`), as the JAX package
+    differentiates the same chunked forms by autodiff off the TPU."""
     leaves = [None if t is None else t.detach().requires_grad_(bool(n))
               for t, n in zip(inputs, needs)]
     wrt = [t for t in leaves if t is not None and t.requires_grad]
@@ -511,5 +513,138 @@ def rwkv6_chunked_backward(r, k, v, w, u, state, dy, ds,
 
     grads = [seq(dr, r), seq(dk, k), seq(dv, v), seq(dw, w), du.to(u.dtype),
              None if state is None else ends[0].to(state.dtype)]
+    return [gr if nd and t is not None else None
+            for gr, nd, t in zip(grads, needs, out_like)]
+
+
+def mamba2_ssd_chunked_backward(x, dt, A, Bm, Cm, D, state, dy, dh,
+                                needs=(True,) * 7, chunk: int = 128) -> list:
+    """The gradients of :func:`mamba2_ssd_chunked` (``x, dt, A, Bm, Cm,
+    D, state``, ``None`` where ``needs`` is unset or the input is
+    ``None``) against the cotangents ``dy`` of y and ``dh`` of the final
+    state (``None``: zeros), in closed form chunk by chunk in float32,
+    each returned in its input's dtype.  The plain version of the SSD
+    backward kernel.
+
+    Per chunk, with la = cumsum(A dt), L_ts = exp(la_t - la_s) for s <=
+    t, w_s = exp(la_last - la_s) dt_s, h_in the state entering the chunk
+    and G_out the adjoint of the state leaving it:
+    dx_s = sum_t (C_t.B_s) L_ts dt_s dy_t + w_s G_out B_s + D dy_s,
+    dB_s = dt_s sum_t L_ts (dy_t.x_s) C_t + w_s G_outᵀ x_s,
+    dC_t = sum_s L_ts dt_s (dy_t.x_s) B_s + exp(la_t) h_inᵀ dy_t (both
+    summed over the heads of B's and C's group), and the adjoint passed
+    back, G_in = exp(la_last) G_out + sum_t exp(la_t) dy_t C_tᵀ (after
+    the first chunk, the initial state's gradient).  With M_ts = (C_t.B_s)
+    L_ts dt_s (dy_t.x_s) and u_s = w_s x_sᵀ G_out B_s, the gradient of
+    la is dla_t = rowsum_t(M) - colsum_t(M) + exp(la_t) dy_t.(h_in C_t)
+    - u_t, and at the chunk's last step also + exp(la_last)<G_out, h_in>
+    + sum_s u_s; da_r = sum_{t>=r} dla_t (within the chunk), ddt_r =
+    colsum_r(M) / dt_r + u_r / dt_r + A da_r (formed without the
+    division), and dD = sum x.dy per head.  dA = sum dt da, regrouped with
+    c_t the sum of dt from the chunk's start (la = A c): sum_{s<=t} M_ts
+    (c_t - c_s) + sum_t q_t c_t + sum_s u_s (c_last - c_s) + c_last
+    exp(la_last)<G_out, h_in>, q_t = exp(la_t) dy_t.(h_in C_t).  Each
+    weight is a span of steps, small where its term is large; sum dt da
+    weights dla by la itself, up to -100 over a 64-step chunk at strong
+    decays, where dla's terms cancel, and came out 4-15 times further
+    from a float64 reference.  Every exponent
+    is a sum of A dt over a span of steps, so <= 0.  The states at the
+    chunk boundaries come from a walk forward over the chunks, the
+    adjoints from a walk backward; the padded tail (dt = 0, x = B = C =
+    dy = 0) adds nothing."""
+    B_, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    f32 = torch.float32
+    dev = x.device
+    out_like = (x, dt, A, Bm, Cm, D, state)
+    if not any(n and t is not None for n, t in zip(needs, out_like)):
+        return [None] * 7
+    dyf = (torch.zeros((B_, T, H, P), dtype=f32, device=dev) if dy is None
+           else dy.to(f32))
+    pad = (-T) % chunk
+    n = (T + pad) // chunk
+
+    def blocks(a):
+        """(B, T, heads, width) -> (B, H, n, c, width), heads repeated to
+        H and the tail padded with zeros."""
+        a = F.pad(a.to(f32), (0, 0, 0, 0, 0, pad))
+        if a.shape[2] != H:
+            a = a.repeat_interleave(rep, dim=2)
+        return a.reshape(B_, n, chunk, H, -1).permute(0, 3, 1, 2, 4)
+
+    xf, dyb, bf, cf = blocks(x), blocks(dyf), blocks(Bm), blocks(Cm)
+    dtf = blocks(dt[..., None])[..., 0]                    # (B,H,n,c)
+    Af = A.to(f32)[None, :, None, None]
+    la = torch.cumsum(Af * dtf, dim=3)
+    la_last = la[..., -1:]
+    to_end = torch.exp(la_last - la)                       # exp(la_last - la_s)
+    from_start = torch.exp(la)                             # exp(la_t)
+    w = to_end * dtf
+    chunk_decay = torch.exp(la_last[..., 0])[..., None, None]   # (B,H,n,1,1)
+    # the boundary states forward and the adjoints backward
+    hloc = torch.einsum("bhjsp,bhjsn->bhjpn", xf * w[..., None], bf)
+    gloc = torch.einsum("bhjtp,bhjtn->bhjpn", dyb * from_start[..., None], cf)
+    h = (torch.zeros((B_, H, P, N), dtype=f32, device=dev) if state is None
+         else state.to(f32))
+    h_in = []
+    for j in range(n):
+        h_in.append(h)
+        h = chunk_decay[:, :, j] * h + hloc[:, :, j]
+    g = (torch.zeros((B_, H, P, N), dtype=f32, device=dev) if dh is None
+         else dh.to(f32))
+    g_out = [g] * n
+    for j in reversed(range(n)):
+        g_out[j] = g
+        g = chunk_decay[:, :, j] * g + gloc[:, :, j]
+    h_in, g_out = torch.stack(h_in, 2), torch.stack(g_out, 2)
+    # within each chunk: L_ts dt_s on s <= t
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=dev))
+    L = torch.exp(torch.where(tri, la[..., :, None] - la[..., None, :],
+                              -1e30))
+    ld = L * dtf[..., None, :]
+    cb = torch.einsum("bhjtn,bhjsn->bhjts", cf, bf)        # C_t . B_s
+    dyx = torch.einsum("bhjtp,bhjsp->bhjts", dyb, xf)      # dy_t . x_s
+    p1, p2 = cb * ld, dyx * ld
+    gb = torch.einsum("bhjpn,bhjsn->bhjsp", g_out, bf)     # G_out B_s
+    dx = torch.einsum("bhjts,bhjtp->bhjsp", p1, dyb) + w[..., None] * gb
+    if D is not None:
+        dx = dx + D.to(f32)[None, :, None, None, None] * dyb
+    db = torch.einsum("bhjts,bhjtn->bhjsn", p2, cf) + w[..., None] * \
+        torch.einsum("bhjsp,bhjpn->bhjsn", xf, g_out)
+    hdy = torch.einsum("bhjtp,bhjpn->bhjtn", dyb, h_in)    # h_inᵀ dy_t
+    dc = torch.einsum("bhjts,bhjsn->bhjtn", p2, bf) + \
+        from_start[..., None] * hdy
+    # the decays' gradient, local to each chunk
+    s_mat = cb * L * dyx                                   # M_ts / dt_s
+    m = s_mat * dtf[..., None, :]
+    col = s_mat.sum(-2)
+    v = to_end * (xf * gb).sum(-1)                         # u_s / dt_s
+    u = dtf * v
+    q = from_start * (hdy * cf).sum(-1)
+    gh = torch.exp(la_last[..., 0]) * (g_out * h_in).sum((-2, -1))
+    dla = m.sum(-1) - m.sum(-2) + q - u
+    last = gh + u.sum(-1)
+    dla = torch.cat([dla[..., :-1], dla[..., -1:] + last[..., None]], -1)
+    da = torch.flip(torch.cumsum(torch.flip(dla, [-1]), -1), [-1])
+    ddt = col + v + Af * da
+    c = torch.cumsum(dtf, dim=3)                           # la = A c
+    span = torch.where(tri, c[..., :, None] - c[..., None, :], 0.0)
+    dA = ((m * span).sum((-2, -1)) + (q * c).sum(-1)
+          + (u * (c[..., -1:] - c)).sum(-1) + c[..., -1] * gh).sum((0, 2))
+
+    def seq(a):
+        """(B, H, n, c, width) -> (B, T, H, width)."""
+        return a.permute(0, 2, 3, 1, 4).reshape(B_, n * chunk, H, -1)[:, :T]
+
+    def grouped(a):
+        return seq(a).reshape(B_, T, G, rep, -1).sum(3)
+
+    grads = [seq(dx).to(x.dtype), seq(ddt[..., None])[..., 0].to(dt.dtype),
+             dA.to(A.dtype),
+             grouped(db).to(Bm.dtype), grouped(dc).to(Cm.dtype),
+             None if D is None else (xf * dyb).sum((0, 2, 3, 4)).to(D.dtype),
+             None if state is None else g.to(state.dtype)]
     return [gr if nd and t is not None else None
             for gr, nd, t in zip(grads, needs, out_like)]

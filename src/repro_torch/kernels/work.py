@@ -98,6 +98,28 @@ def wkv_bwd_work(B, T, H, K, V, itemsize, state=False, ds=False):
     return nbytes, 10 * K * V * steps, (K * V + 6 * K + 4 * V) * steps
 
 
+def ssd_bwd_work(B, T, H, P, G, N, itemsize, state=False, dh=False):
+    """Bytes, matrix-product operations and other operations of SSD's
+    backward alone (the backward kernel), counted per step as
+    :func:`ssd_work` counts the forward.  Bytes: x and dy read and dx
+    written once in their type; B and C read and dB, dC written once by
+    group in their type; dt read and ddt written once, A and D read and
+    dA, dD written, in float32; with an initial state, it read and its
+    gradient written, and with a final state's cotangent, it read, in
+    float32.  Products per (batch, head) step, :func:`ssd_grad_work`'s
+    backward: C_t · B_s and dy_t · x_s again and their products (2N +
+    2P), and the readout's two (dh += dy Cᵀ and dC = hᵀ dy) and the
+    update's three (dx = dt dh B, dB = dt dhᵀ x, and the decay's sum of
+    dh ∘ h_prev), 2NP each.  Other: the forward's (the adjoint's decay,
+    the weights and the skip's gradient)."""
+    nbytes = (3 * B * T * H * P + 4 * B * T * G * N) * itemsize \
+        + (2 * B * T * H + 4 * H) * 4 \
+        + (2 * bool(state) + bool(dh)) * B * H * P * N * 4
+    steps = B * T * H
+    return (nbytes, (2 * N + 2 * P + 10 * N * P) * steps,
+            (3 + 7 * P + N * P) * steps)
+
+
 def visible_pairs(Sq, Sk, q_offset, causal) -> int:
     """The (query, key) pairs attention must visit: every key when not
     causal, keys up to ``q_offset + row`` when causal."""

@@ -289,6 +289,62 @@ def test_wkv_backward_work_at_the_training_shape():
     assert with_states - nbytes == 3 * 2 * 32 * 64 * 64 * 4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_meta_ssd_backward_records_one_launch_of_its_work_formula(
+        dtype, with_state):
+    """On meta tensors the SSD Function's backward is one launch of the
+    backward kernel's work (``work.ssd_bwd_work``, with the initial state
+    when present; a sum of both outputs gives the final state a
+    cotangent) beside the forward's one launch: the chunked form is not
+    recomputed op by op, so the two kernels' products are all the FLOPs;
+    the gradients have the inputs' shapes and dtypes.  On the CPU the
+    plain backward runs and records nothing."""
+    _, run, inputs, (f_bytes, f_products, _) = _ssd(dtype)
+    if with_state:
+        inputs = inputs + (torch.randn((2, 4, 8, 8)) * 0.1,)
+    meta = [t.to("meta") for t in inputs]
+    with costs.CostCounter() as c:
+        _, grads = _forward_backward(run, meta)
+    b_bytes, b_products, _ = work.ssd_bwd_work(2, 24, 4, 8, 2, 8,
+                                               dtype.itemsize, with_state,
+                                               True)
+    assert c.kernel_breakdown == {
+        "mamba2_ssd": {"launches": 1, "flops": f_products, "bytes": f_bytes},
+        "mamba2_ssd_backward": {"launches": 1, "flops": b_products,
+                                "bytes": b_bytes}}
+    assert c.flops == f_products + b_products
+    assert _layout(grads) == _layout(inputs)
+    with costs.CostCounter() as c:
+        _forward_backward(run, inputs)
+    assert c.kernel_breakdown == {} and c.flops > 0
+
+
+def test_ssd_backward_work_at_the_training_shape():
+    """zamba2-2.7b's training microbatch (1 x 4,096, 80 heads of 64, one
+    group of state 64), y's cotangent only: x, dy read and dx written,
+    B, C read and dB, dC written by group, in their type; dt read and ddt
+    written, A, D read and dA, dD written in float32 (258.5 MB in
+    float32, 130.5 MB in bfloat16: 0.077 and 0.039 ms at 3.35 TB/s);
+    2N + 2P + 10NP products a step (13.5 GFLOP: 0.082 ms at 495/3 TF/s),
+    the backward half of ``ssd_grad_work``'s."""
+    steps, elems, grouped = 4096 * 80, 4096 * 80 * 64, 4096 * 64
+    for itemsize in (4, 2):
+        nbytes, products, other = work.ssd_bwd_work(1, 4096, 80, 64, 1, 64,
+                                                    itemsize)
+        assert nbytes == (3 * elems + 4 * grouped) * itemsize \
+            + 2 * steps * 4 + 4 * 80 * 4
+        assert products == (2 * 64 + 2 * 64 + 10 * 64 * 64) * steps
+        assert other == (3 + 7 * 64 + 64 * 64) * steps
+    _, grad_products, _ = work.ssd_grad_work(1, 4096, 80, 64, 1, 64, 4)
+    _, fwd_products, _ = work.ssd_work(1, 4096, 80, 64, 1, 64, 4)
+    assert products == grad_products - fwd_products
+    assert round(products / 1e9, 1) == 13.5
+    with_states = work.ssd_bwd_work(1, 4096, 80, 64, 1, 64, 4, True, True)[0]
+    assert with_states - work.ssd_bwd_work(1, 4096, 80, 64, 1, 64, 4)[0] \
+        == 3 * 80 * 64 * 64 * 4
+
+
 @pytest.mark.parametrize("q_dtype,kv_dtype,wide", [
     (torch.float8_e4m3fn, torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32, torch.float32)])

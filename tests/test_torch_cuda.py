@@ -21,10 +21,12 @@ land one bfloat16 step apart: 2^-7 relative plus 5e-3 absolute, a
 sixth of a typical output (about 0.03 for a row over 4096 keys).
 
 K4's and K5's autograd Functions: the forward within the kernel's own
-tolerance above, the gradients within 1e-5 of each gradient's largest
-magnitude of autograd through the plain chunked form on the card (the
-same float32 backward; a bfloat16 gradient one bfloat16 step, 2^-7
-relative, beyond that).  Reduced zamba2 and rwkv6 trained on the card
+tolerance above, the gradients (the backward kernels') within 1e-5 of
+each gradient's largest magnitude of autograd through the plain chunked
+form on the card (the same float32 gradient in closed form, summed in
+another order; a bfloat16 gradient one bfloat16 step, 2^-7 relative,
+beyond that).  The backward kernels alone against their plain versions:
+see their sections below.  Reduced zamba2 and rwkv6 trained on the card
 agree with the host in loss (1e-5) and gradient norm (1e-4).
 
 Reduced granite-moe, whisper and internvl2 on the card agree with the
@@ -1012,11 +1014,14 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
                                                              with_state):
     """K4's and K5's Functions on the card: the forward is the kernel
     (one launch, output within the kernel's own tolerance of the plain
-    version); K4's backward launches nothing, K5's launches its backward
-    kernel once; both equal autograd through the plain chunked form on
+    version); the backward launches the scan's backward kernel once; both
+    equal autograd through the plain chunked form on
     the same tensors (1e-5 of each gradient's largest magnitude; a
     bfloat16 gradient one bfloat16 step, 2^-7 relative, beyond that),
-    each gradient in its input's dtype."""
+    each gradient in its input's dtype.  SSD's reference runs on float32
+    copies and rounds each gradient once: the plain forward casts a
+    bfloat16 x once a use, so autograd through it rounds dx twice, where
+    the backward kernel rounds once."""
     from repro_torch.kernels import mamba2_ssd, rwkv6_scan
     if kind == "ssd":
         x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(7, 2, 300, 8, 64, 2, 64, cuda,
@@ -1044,19 +1049,26 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
     dh = torch.from_numpy(rng.standard_normal(
         (2, 8, 64, 64)).astype(np.float32)).to(cuda)
 
-    def run(forward):
-        leaves = [t.detach().requires_grad_() for t in inputs]
+    def run(forward, wide=False):
+        leaves = [(t.detach().float() if wide else t.detach())
+                  .requires_grad_() for t in inputs]
         y, h = forward(*leaves)
         outs, cts = ([y, h], [dy, dh]) if with_state else ([y], [dy])
-        return y.detach(), torch.autograd.grad(outs, leaves, cts)
+        grads = torch.autograd.grad(outs, leaves,
+                                    [c.to(o.dtype) for c, o in zip(cts, outs)])
+        return (y.detach().to(inputs[0].dtype),
+                [g.to(t.dtype) for g, t in zip(grads, inputs)])
 
     before = counter.count
-    backward_before = rwkv6_scan.backward_launches.count
+    backward_before = (mamba2_ssd.backward_launches.count,
+                       rwkv6_scan.backward_launches.count)
     y, got = run(fn)
     assert counter.count == before + 1
-    assert rwkv6_scan.backward_launches.count == backward_before + (
-        kind == "wkv")
-    y_p, want = run(plain)
+    assert (mamba2_ssd.backward_launches.count,
+            rwkv6_scan.backward_launches.count) == (
+        backward_before[0] + (kind == "ssd"),
+        backward_before[1] + (kind == "wkv"))
+    y_p, want = run(plain, wide=kind == "ssd")
     assert counter.count == before + 1
     torch.testing.assert_close(y.float(), y_p.float(), atol=tol[0],
                                rtol=tol[1])
@@ -1536,3 +1548,227 @@ def test_wkv_backward_wrapper_refuses_what_its_kernel_cannot_take(cuda):
     with pytest.raises(ValueError, match="chunk"):
         rwkv6_scan_backward_cuda(*args, chunk=65)
     assert backward_launches.count == before
+
+
+# ------------------------------------------------------- K4's backward
+# the backward kernel against its plain version on the same tensors:
+# float32 gradients 1e-5 of the gradient's largest magnitude plus 1e-4
+# relative (tests/test_torch_scan_grads.py's float32 tolerance: the same
+# float32 gradient by the closed form, summed in another order and the
+# products in 3xTF32); a bfloat16 gradient one bfloat16 step, 2^-7
+# relative plus 1e-3 of its largest magnitude (both round the float32
+# gradient once)
+SSD_BWD_TOL, SSD_BWD_RTOL = 1e-5, 1e-4
+SSD_BWD_BF16_TOL, SSD_BWD_BF16_RTOL = 1e-3, 2.0 ** -7
+
+
+def _ssd_bwd_inputs(seed, B, T, H, P, G, N, device, dtype, decay="model"):
+    """``_ssd_inputs`` with the cotangents dy (in x's dtype) and dh
+    (float32), and dt scaled for decays near 0 (A dt about -1e-4 a step)
+    or strong (about -1.6 a step: la reaches -100 over a 64-step block
+    and exp(la) underflows across it)."""
+    x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(seed, B, T, H, P, G, N, device,
+                                          dtype)
+    rng = np.random.default_rng(seed + 1)
+    if decay == "near0":
+        dt = torch.from_numpy(rng.uniform(0.5, 1.5, (B, T, H)).astype(
+            np.float32)).to(device) * 1e-4 / -A
+    elif decay == "strong":
+        dt = torch.from_numpy(rng.uniform(1.2, 2.0, (B, T, H)).astype(
+            np.float32)).to(device) / -A
+    dy = torch.from_numpy(rng.standard_normal((B, T, H, P)).astype(
+        np.float32)).to(device, dtype)
+    dh = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(
+        np.float32)).to(device)
+    return {"x": x, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D, "h0": h0,
+            "dy": dy, "dh": dh}
+
+
+def _ssd_bwd_close(got, want, what):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"), got,
+                          want):
+        if w is None:
+            assert g is None, (what, name)
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        assert bool(torch.isfinite(g.float()).all()), (what, name)
+        top = float(w.float().abs().max()) or 1.0
+        if g.dtype == torch.bfloat16:
+            atol, rtol = SSD_BWD_BF16_TOL * top, SSD_BWD_BF16_RTOL
+        else:
+            atol, rtol = SSD_BWD_TOL * top, SSD_BWD_RTOL
+        torch.testing.assert_close(
+            g.float(), w.float(), atol=atol, rtol=rtol,
+            msg=lambda m, name=name: f"{what}: {name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,G,N,dtype,decay,state,D,dy,dh", [
+    # zamba2-2.7b's training microbatch, y's cotangent only, both types
+    (1, 4096, 80, 64, 1, 64, torch.float32, "model", False, True, True,
+     False),
+    (1, 4096, 80, 64, 1, 64, torch.bfloat16, "model", False, True, True,
+     False),
+    # with and without the initial state, D and either cotangent
+    (2, 130, 4, 64, 2, 64, torch.float32, "model", True, True, True, True),
+    (2, 130, 4, 64, 2, 64, torch.bfloat16, "model", True, False, False,
+     True),
+    (1, 45, 2, 64, 1, 64, torch.float32, "model", False, False, False, True),
+    (1, 45, 2, 64, 1, 64, torch.float32, "model", True, True, True, False),
+    # 1-, 3- and 17-token calls; ragged tails; grouped B/C; P and N no
+    # multiple of 4 or 8 (no vector loads, the tiles cut short)
+    (3, 1, 4, 64, 2, 64, torch.float32, "model", True, True, True, True),
+    (2, 3, 4, 64, 4, 64, torch.bfloat16, "model", True, True, True, True),
+    (2, 17, 6, 64, 3, 64, torch.float32, "model", True, True, True, True),
+    (2, 300, 16, 64, 4, 64, torch.float32, "model", True, True, True, True),
+    (1, 77, 3, 40, 3, 24, torch.float32, "model", True, True, True, True),
+    (1, 37, 2, 6, 1, 10, torch.bfloat16, "model", True, True, True, True),
+    # decays near 0 and strong
+    (2, 150, 3, 64, 1, 64, torch.float32, "near0", True, True, True, True),
+    (2, 150, 3, 64, 1, 64, torch.float32, "strong", True, True, True, True),
+])
+def test_ssd_backward_kernel_matches_plain(cuda, B, T, H, P, G, N, dtype,
+                                           decay, state, D, dy, dh):
+    """The backward kernel (one launch) against
+    ``ref.mamba2_ssd_chunked_backward`` on the same tensors on the card,
+    each gradient in its input's dtype; a second launch gives equal bits
+    (no atomics).  The plain version runs at the kernel's 64-step block:
+    the chunked form is exact at any length, and strong decays' la sums
+    keep float32's bits only relative to their own size (in every
+    implementation), so equal blocks round alike."""
+    from repro_torch.kernels.mamba2_ssd import (backward_launches,
+                                                mamba2_ssd_backward_cuda)
+    t = _ssd_bwd_inputs(T + P + N, B, T, H, P, G, N, cuda, dtype, decay)
+    args = (t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], t["D"] if D else None,
+            t["h0"] if state else None, t["dy"] if dy else None,
+            t["dh"] if dh else None)
+    before = backward_launches.count
+    got = mamba2_ssd_backward_cuda(*args)
+    torch.cuda.synchronize()
+    assert backward_launches.count == before + 1
+    want = ref.mamba2_ssd_chunked_backward(*args, chunk=64)
+    _ssd_bwd_close(got, want, f"{(B, T, H, P, G, N)} {dtype} {decay}")
+    again = mamba2_ssd_backward_cuda(*args)
+    for g, a in zip(got, again):
+        assert (g is None and a is None) or torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_reads_strided_operands(cuda, dtype):
+    """x, B and C read in place as strided slices of one packed
+    in-projection (as the model hands them over), dy through its strides
+    (a slice of a wider buffer, as the gated norm's backward may give),
+    and a dy whose rows are no 16-byte multiple apart (copied): the same
+    gradients as contiguous copies."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
+    B, T, H, P, N = 2, 130, 8, 64, 64
+    t = _ssd_bwd_inputs(5, B, T, H, P, 1, N, cuda, dtype)
+    packed = torch.cat([t["x"].reshape(B, T, H * P),
+                        t["Bm"].reshape(B, T, N),
+                        t["Cm"].reshape(B, T, N)], dim=-1)
+    xv, bv, cv = torch.split(packed, [H * P, N, N], dim=-1)
+    x, Bm, Cm = (xv.reshape(B, T, H, P), bv.reshape(B, T, 1, N),
+                 cv.reshape(B, T, 1, N))
+    wide = torch.zeros((B, T + 5, H, P), dtype=dtype, device=cuda)
+    wide[:, 2:T + 2] = t["dy"]
+    dy = wide[:, 2:T + 2]
+    assert not dy.is_contiguous() and not Bm.is_contiguous()
+    rest = (t["D"], t["h0"])
+    got = mamba2_ssd_backward_cuda(x, t["dt"], t["A"], Bm, Cm, *rest, dy,
+                                   t["dh"])
+    want = mamba2_ssd_backward_cuda(
+        x.contiguous(), t["dt"], t["A"], Bm.contiguous(), Cm.contiguous(),
+        *rest, dy.contiguous(), t["dh"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    odd = torch.zeros((B, T, H, P + 1), dtype=dtype, device=cuda)
+    odd[..., :P] = t["dy"]
+    got = mamba2_ssd_backward_cuda(x, t["dt"], t["A"], Bm, Cm, *rest,
+                                   odd[..., :P], t["dh"])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_ssd_function_backward_runs_only_the_kernel(cuda, monkeypatch):
+    """On CUDA tensors the Function's backward is the backward kernel,
+    one launch a call: neither the plain backward nor autograd through
+    the plain forward runs (both made to raise here)."""
+    from repro_torch.kernels import mamba2_ssd
+    t = _ssd_bwd_inputs(9, 1, 200, 4, 64, 1, 64, cuda, torch.float32)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(ref, "mamba2_ssd_chunked_backward", refuse)
+    monkeypatch.setattr(ref, "recomputed_vjp", refuse)
+    leaves = [t[k].detach().requires_grad_()
+              for k in ("x", "dt", "A", "Bm", "Cm", "D")]
+    before = mamba2_ssd.backward_launches.count
+    y, _ = mamba2_ssd.mamba2_ssd(*leaves)
+    y.backward(t["dy"])
+    assert mamba2_ssd.backward_launches.count == before + 1
+    assert all(bool(torch.isfinite(v.grad).all()) for v in leaves)
+
+
+@pytest.mark.cuda
+def test_ssd_backward_wrapper_refuses_what_its_kernel_cannot_take(cuda):
+    """Head sizes or states past 64, float16 operands, a CPU operand and
+    inconsistent cotangent shapes raise; nothing launches."""
+    from repro_torch.kernels.mamba2_ssd import (backward_launches,
+                                                mamba2_ssd_backward_cuda)
+    t = _ssd_bwd_inputs(0, 1, 20, 2, 64, 1, 64, cuda, torch.float32)
+    args = [t["x"], t["dt"], t["A"], t["Bm"], t["Cm"], t["D"], None, t["dy"],
+            None]
+    before = backward_launches.count
+    big = _ssd_bwd_inputs(0, 1, 20, 2, 80, 1, 64, cuda, torch.float32)
+    with pytest.raises(ValueError, match="P <= 64"):
+        mamba2_ssd_backward_cuda(big["x"], big["dt"], big["A"], big["Bm"],
+                                 big["Cm"], None, None, big["dy"], None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        mamba2_ssd_backward_cuda(args[0].half(), *args[1:3],
+                                 *[a.half() for a in args[3:5]], *args[5:])
+    with pytest.raises(ValueError, match="is on cpu"):
+        mamba2_ssd_backward_cuda(*args[:7], t["dy"].cpu(), None)
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        mamba2_ssd_backward_cuda(*[a if a is None else a.cpu()
+                                   for a in args])
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        mamba2_ssd_backward_cuda(*args[:7], t["dy"][:, :10], None)
+    with pytest.raises(ValueError, match="inconsistent shapes"):
+        mamba2_ssd_backward_cuda(*args[:8], t["dh"][:, :1])
+    assert backward_launches.count == before
+
+
+@pytest.mark.cuda
+def test_ssd_backward_library_reports_the_mirrors_geometry(cuda):
+    """The built library's block length and walk width are the ones the
+    wrapper sizes its scratch by and ``backward_blocks`` /
+    ``backward_walks`` mirror."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mamba2_ssd as m
+    assert m.kernel_geometry(_build.load("mamba2_ssd_backward")) == (
+        m.BWD_BLOCK, m.BWD_WALK_THREADS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_holds_chunk_128_at_strong_decays(cuda, dtype):
+    """At strong decays (la about -1.6 a step, -200 over the Function's
+    128-step chunk) the kernel, tiling by its 64-step blocks, against an
+    independently blocked reference: the plain version at the Function's
+    chunk 128 on the same tensors, with the initial state, D and both
+    cotangents, grouped B/C and a ragged tail.  Tolerances as
+    ``test_ssd_backward_kernel_matches_plain``'s.  Autograd through the
+    plain forward is no yardstick here: its dA sums dt times the reverse
+    sum of la's gradient, weighting terms that cancel by la itself, and
+    strays past the float32 gate here, where both blockings of the closed
+    form agree."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
+    t = _ssd_bwd_inputs(21, 2, 300, 4, 64, 2, 64, cuda, dtype, "strong")
+    args = [t[k] for k in ("x", "dt", "A", "Bm", "Cm", "D", "h0", "dy",
+                           "dh")]
+    _ssd_bwd_close(mamba2_ssd_backward_cuda(*args),
+                   ref.mamba2_ssd_chunked_backward(*args, chunk=128),
+                   f"strong decays {dtype} against chunk 128")

@@ -4,11 +4,13 @@
 against ``jax.vjp`` of the JAX package's chunked forms
 (``repro.kernels.ref.mamba2_ssd_chunked_jnp``, ``rwkv6_chunked_jnp``),
 which is what the reference differentiates off the TPU.  On the CPU the
-Function's forward is the plain chunked form; SSD's backward is the same
-PyTorch code the card runs (the recomputed chunked form's gradient), so
-these tests hold the card's SSD backward too, and WKV6's is the plain
-version of its backward kernel (``ref.rwkv6_chunked_backward``; the
-kernel itself is held against it in ``tests/test_torch_cuda.py``).
+Function's forward is the plain chunked form and its backward the plain
+version of the scan's backward kernel (``ref.mamba2_ssd_chunked_backward``
+and ``ref.rwkv6_chunked_backward``, the closed-form gradients chunk by
+chunk in float32; ``tests/test_torch_ssd_backward.py`` and
+``tests/test_torch_wkv_backward.py`` hold them over every case the
+kernels take, and ``tests/test_torch_cuda.py`` the kernels against
+them).
 
 Same numpy inputs and cotangents (for ``y`` and the final state) in
 both packages; with an initial state and without one; a length that is

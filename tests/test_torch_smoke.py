@@ -36,9 +36,10 @@ def test_ab_compares_no_kernel_of_identical_sources(tmp_path):
     ("gaussian_blur.cu", ["gaussian_blur"]),
     ("flash_attention_bwd.cu", ["flash_attention_backward"]),
     ("rwkv6_scan_bwd.cu", ["rwkv6_scan_backward"]),
+    ("mamba2_ssd_bwd.cu", ["mamba2_ssd_backward"]),
     # the shared header: every kernel that includes it
     ("tc.cuh", ["flash_attention", "flash_attention_backward", "mamba2_ssd",
-                "rwkv6_scan", "rwkv6_scan_backward"]),
+                "mamba2_ssd_backward", "rwkv6_scan", "rwkv6_scan_backward"]),
     ("preprocess.cu", ["preprocess"]),
 ])
 def test_ab_compares_the_kernels_whose_sources_differ(tmp_path, edit, want):
