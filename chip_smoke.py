@@ -1149,8 +1149,8 @@ def phase_kernels():
                           torch.float32 else "wgmma bf16") + ") + the "
                           "backward kernel flash_attention_bwd.cu (" + (
                           "mma.sync 3xTF32" if dtype == torch.float32 else
-                          "mma.sync bf16 m16n8k16") + "; dQ pass, then "
-                          "dK/dV pass)"),
+                          "wgmma bf16, TMA producer warp") +
+                          "; dQ pass, then dK/dV pass)"),
                 "earlier_ms": earlier,
                 "max_abs_err_vs_f32": err32,
                 "library_max_abs_err_vs_f32": lib_err32,
@@ -1202,6 +1202,8 @@ def phase_kernels():
         nbytes, products, other = attn_bwd_work(B, S, S, H, Hkv, D, 0, True,
                                                 q.element_size())
         bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        # the two passes' own floor: S and dP recomputed, 14D a pair
+        floor_ms = bound(nbytes, products * 14 // 10, other, dtype)[0]
         row = {"kernel": "flash_attention_backward", "shape": [B, S, H, D],
                "kv": [S, Hkv], "causal": True, "dtype": str(dtype),
                "max_abs_err": err, "ms": time_ms(kernel, flush),
@@ -1211,11 +1213,12 @@ def phase_kernels():
                                "F.scaled_dot_product_attention(is_causal, "
                                "enable_gqa) forward: its backward alone",
                "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
-                         "mma.sync bf16 m16n8k16") + ", two passes (dQ; "
+                         "wgmma bf16: a TMA producer warp, two consumer "
+                         "warpgroups") + ", two passes (dQ; "
                          "dK/dV)",
                "bytes": nbytes, "flops": products + other,
                "products": products, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+               "bound_by": bound_by, "floor_14d_ms": floor_ms}
         del o_lib, leaves
         return row
 
@@ -3458,13 +3461,16 @@ def phase_ab(old_csrc, names=None):
 
     def flash_backward_rows():
         # the training shapes: qwen3-0.6b's microbatch (float32, GQA 16/8,
-        # D 128) and minicpm-2b's (bfloat16, MHA, D 64), causal
+        # D 128; and in bfloat16, phase 19b's train cell) and minicpm-2b's
+        # (bfloat16, MHA, D 64), causal
         from repro_torch.kernels import flash_vjp
         from repro_torch.kernels.flash_attention import \
             flash_attention_backward_cuda
         for (B, S, H, Hkv, D), dtype in (((2, 4096, 16, 8, 128),
                                           torch.float32),
                                          ((1, 4096, 36, 36, 64),
+                                          torch.bfloat16),
+                                         ((2, 4096, 16, 8, 128),
                                           torch.bfloat16)):
             q, do, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
                 np.float32)).cuda().to(dtype)

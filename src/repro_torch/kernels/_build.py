@@ -139,9 +139,12 @@ def load(name: str) -> ctypes.CDLL:
 
 def open_library(name: str, path: Path) -> ctypes.CDLL:
     """Load a built library of kernel ``name`` with its entry points'
-    argtypes declared."""
+    argtypes declared (an earlier commit's build may lack an entry point
+    declared since; it is left out)."""
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _DECLARED[name][1].items():
+        if not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib

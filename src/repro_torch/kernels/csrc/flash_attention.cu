@@ -463,10 +463,7 @@ __global__ void __launch_bounds__(288, 1)
         // V MN-major: 16 keys a step (two atoms), boxes BK * SW apart
         const uint64_t dv =
             tc::desc(v_addr + kk * 16 * SW, BK * SW, 8 * SW, SW);
-        if constexpr (DP == 16) tc::wgmma_rs_m64n16k16(o, p[kk], dv);
-        if constexpr (DP == 32) tc::wgmma_rs_m64n32k16(o, p[kk], dv);
-        if constexpr (DP == 64) tc::wgmma_rs_m64n64k16(o, p[kk], dv);
-        if constexpr (DP == 128) tc::wgmma_rs_m64n128k16(o, p[kk], dv);
+        tc::wgmma_rs<DP>(o, p[kk], dv);
       }
       tc::wgmma_commit();
       tc::wgmma_wait<0>();
@@ -493,31 +490,6 @@ __global__ void __launch_bounds__(288, 1)
   }
 }
 
-// bf16 (D, rows, heads, batch) with element strides sr, D, sb; boxes of
-// sw / 2 columns by box_rows rows, written with the sw-byte swizzle;
-// rows past the end, and columns past D in a box that crosses it, read
-// as zeros.  A dimension of size 1 is never
-// stepped: its stride is taken as packed.
-bool make_map(CUtensorMap* map, const void* base, int D, int rows, int heads,
-              int batch, long long sr, long long sb, int box_rows, int sw) {
-  if (rows == 1) sr = (long long)heads * D;
-  if (batch == 1) sb = sr * rows;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)D * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)sw / 2, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-             : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_32B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch(int dtype, const Args& a, int batch, cudaStream_t stream) {
   auto* kernel32 = fa_f32<D>;
@@ -536,12 +508,12 @@ int launch(int dtype, const Args& a, int batch, cudaStream_t stream) {
   } else {
     Maps maps;
     constexpr int SW = Bf16Cfg<D>::SW;
-    if (!make_map(&maps.q, a.q, D, a.Sq, a.H, batch, a.sqt, a.sqb,
-                  Bf16Cfg<D>::BQ, SW) ||
-        !make_map(&maps.k, a.k, D, a.Sk, a.Hkv, batch, a.skt, a.skb,
-                  Bf16Cfg<D>::BK, SW) ||
-        !make_map(&maps.v, a.v, D, a.Sk, a.Hkv, batch, a.svt, a.svb,
-                  Bf16Cfg<D>::BK, SW))
+    if (!tc::make_map(&maps.q, a.q, D, a.Sq, a.H, batch, a.sqt, a.sqb,
+                      Bf16Cfg<D>::BQ, SW) ||
+        !tc::make_map(&maps.k, a.k, D, a.Sk, a.Hkv, batch, a.skt, a.skb,
+                      Bf16Cfg<D>::BK, SW) ||
+        !tc::make_map(&maps.v, a.v, D, a.Sk, a.Hkv, batch, a.svt, a.svb,
+                      Bf16Cfg<D>::BK, SW))
       return (int)cudaErrorInvalidValue;
     dim3 grid((a.Sq + Bf16Cfg<D>::BQ - 1) / Bf16Cfg<D>::BQ, a.H, batch);
     kernel16<<<grid, Bf16Cfg<D>::THREADS, smem, stream>>>(maps, a);

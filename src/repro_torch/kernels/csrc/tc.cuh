@@ -5,7 +5,9 @@
 // - cp.async: 16-byte asynchronous copies from global to shared memory
 //   (zero-filled past an edge), committed and waited on in groups;
 // - TMA: a box of a 4-D tensor map (made on the host) copied into shared
-//   memory, completing on an mbarrier; mbarrier init / arrive / wait;
+//   memory, completing on an mbarrier; mbarrier init / arrive / wait (a
+//   wait that never ends traps, or, in kernels that hand registers over,
+//   gives up);
 // - mma.sync.m16n8k8 in TF32 with fp32 accumulation, and the 3xTF32
 //   product that keeps close to a float32 operand's accuracy: x = big +
 //   small, each half rounded to the nearest TF32 value, and a b ~
@@ -13,7 +15,11 @@
 // - wgmma.mma_async for bf16 operands with fp32 accumulation: the
 //   shared-memory matrix descriptor of the no-swizzle (interleaved)
 //   layout, the fence / commit / wait of a warpgroup, the product with
-//   both operands in shared memory (SS) and with A in registers (RS).
+//   both operands in shared memory (SS) and with A in registers (RS);
+// - setmaxnreg, which hands registers from a producer warpgroup to the
+//   consumer warpgroups;
+// - on the host, the 4-D tensor map of a bf16 (B, S, heads, D) operand
+//   that the TMA copies read.
 //
 // Fragment layouts (g = lane / 4, t = lane % 4), as the PTX ISA gives
 // them:
@@ -37,6 +43,7 @@
 // the step between atoms along K and LBO between blocks of W bytes
 // along M/N.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
@@ -165,6 +172,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (n > (1u << 24)) __trap();
   }
 }
+// the same wait without the trap, for kernels whose roles take their own
+// register counts by setmaxnreg: a trap in their code makes ptxas give
+// every role the launch's count.  After about 2^24 polls it returns as if
+// the phase had completed, so a barrier that never completes gives wrong
+// numbers and not a card that hangs.
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0; n < (1u << 24); ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
 // one box of a 4-D tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
                                             uint64_t* bar, int c0, int c1,
@@ -212,6 +239,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// 2^x on the special-function unit, subnormal results flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -226,6 +260,17 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (+)= A B over k16: A (64 x 16) and B (16 x 64) both K-major in shared
+// memory, described by da and db; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 // d += A B over k16: A (64 x 16) bf16 in registers (the m64 accumulator
@@ -279,6 +324,68 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the SS product of width N (64 or 128) and the RS product of width N
+// (16, 32, 64 or 128), picked at compile time
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  static_assert(N == 64 || N == 128, "SS wgmma at N 64 or 128");
+  if constexpr (N == 64) wgmma_ss_m64n64k16(d, da, db, scale_d);
+  if constexpr (N == 128) wgmma_ss_m64n128k16(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "RS wgmma at N 16, 32, 64 or 128");
+  if constexpr (N == 16) wgmma_rs_m64n16k16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_m64n32k16(d, a, db);
+  if constexpr (N == 64) wgmma_rs_m64n64k16(d, a, db);
+  if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, db);
+}
+
+// ------------------------------------------------------------- setmaxnreg
+// Registers handed between warpgroups (sm_90a): every warp of a
+// warpgroup that exists runs it (a warpgroup may be a lone warp).  dec
+// lowers the warpgroup's count a thread to N and returns the rest to the
+// CTA's pool; inc waits until the pool holds enough to raise it to N.
+// ptxas honours it only where the roles split once and never rejoin.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------- tensor maps (host)
+// bf16 (D, rows, heads, batch) with element strides sr, D, sb; boxes of
+// sw / 2 columns by box_rows rows, written with the sw-byte swizzle;
+// rows past the end, and columns past D in a box that crosses it, read
+// as zeros.  A dimension of size 1 is never stepped: its stride is taken
+// as packed.
+inline bool make_map(CUtensorMap* map, const void* base, int D, int rows,
+                     int heads, int batch, long long sr, long long sb,
+                     int box_rows, int sw) {
+  if (rows == 1) sr = (long long)heads * D;
+  if (batch == 1) sb = sr * rows;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)D * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)sw / 2, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+             : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tc

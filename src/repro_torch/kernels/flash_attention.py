@@ -26,13 +26,15 @@ for the recomputing backward.  The plain version is
 The recomputing backward (``csrc/flash_attention_bwd.cu``,
 :func:`flash_attention_backward_cuda`) takes q, k, v, the forward's
 output and log-sum-exp and the output's cotangent, and returns dq, dk
-and dv in their dtype, on ``mma.sync`` for both types (bfloat16
-m16n8k16, float32 in 3xTF32).  Two deterministic passes: a dQ pass
-(one CTA per 128-row q block and head, walking key tiles; it also
-writes ``delta = rowsum(dO·O)``) and a dK/dV pass (one CTA per 128-key
-block and kv head, walking the q tiles of its G heads that can see the
-block).  :func:`backward_walks` and :func:`backward_tiles` give its
-launch geometry.  The plain version is
+and dv in their dtype.  Two deterministic passes: a dQ pass (one CTA per
+128-row q block and head, walking key tiles; it also writes ``delta =
+rowsum(dO·O)``) and a dK/dV pass (one CTA per 128-key block and kv
+head, walking the q tiles of its G heads that can see the block).
+bfloat16 runs on ``wgmma``: a producer warp feeds a two-stage ring of
+walk tiles by TMA to two warpgroups of 64 fixed rows; float32 on
+``mma.sync`` in 3xTF32, eight warps of 16 rows.  :func:`backward_walks`
+and :func:`backward_tiles` give each route's launch geometry, which the
+built library reports (:func:`backward_geometry`).  The plain version is
 :func:`repro_torch.kernels.flash_vjp.flash_backward`.
 """
 from __future__ import annotations
@@ -56,14 +58,36 @@ _build.declare("flash_attention", "flash_attention.cu", {
 _build.declare("flash_attention_backward", "flash_attention_bwd.cu", {
     "repro_flash_attention_backward": [ctypes.c_int] + [ctypes.c_void_p] * 10
     + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_longlong] * 10
-    + [ctypes.c_void_p]})
+    + [ctypes.c_void_p],
+    "repro_flash_attention_backward_geometry": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]})
 
-BWD_ROWS = 128      # the backward's fixed tile: eight warps of 16 rows
+BWD_ROWS = 128      # the backward's fixed tile, in both routes
 
 
-def bwd_walk_rows(D: int) -> int:
-    """Rows of the backward kernel's walk tiles at head dim ``D``."""
+def bwd_walk_rows(D: int, dtype) -> int:
+    """Rows of the backward kernel's walk tiles at head dim ``D``: the
+    float32 route's (``mma.sync``), or the bfloat16 route's (``wgmma``)."""
+    if dtype == torch.bfloat16:
+        return 64 if D >= 80 else 128
     return 32 if D == 128 else 64
+
+
+def bwd_unit_rows(dtype) -> int:
+    """Fixed rows of the unit that skips a walk tile past the causal edge:
+    a warp of 16 rows (float32) or a warpgroup of 64 (bfloat16)."""
+    return 64 if dtype == torch.bfloat16 else 16
+
+
+def backward_geometry(lib, D: int, dtype) -> tuple[int, int, int]:
+    """The built backward library's own fixed rows, walk rows and
+    skipping unit at head dim ``D`` for ``dtype``'s route, which
+    :data:`BWD_ROWS`, :func:`bwd_walk_rows` and :func:`bwd_unit_rows`
+    must equal."""
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.repro_flash_attention_backward_geometry(
+        _DTYPES[dtype], D, out), "flash_attention_backward geometry")
+    return tuple(out)
 
 
 def flash_attention_cuda(
@@ -150,8 +174,8 @@ def flash_attention_meta(q, k, v, *, q_offset: int = 0, causal: bool = True,
             torch.empty((batch, Sq, H), dtype=torch.float32, device="meta"))
 
 
-def backward_walks(Sq, Sk, q_offset, causal, D):
-    """The backward kernel's grid and walks, as
+def backward_walks(Sq, Sk, q_offset, causal, D, dtype):
+    """The backward kernel's grid and walks for ``dtype``'s route, as
     ``csrc/flash_attention_bwd.cu`` computes them.  ``keys``: for each
     128-key block of the dK/dV pass, its first q tile (from the causal
     start ``max(0, k0 - q_offset)``, tile 0 when not causal) and the
@@ -159,7 +183,7 @@ def backward_walks(Sq, Sk, q_offset, causal, D):
     query sees the block); ``queries``: for each 128-row q block of the
     dQ pass, the number of key tiles it walks (up to the causal edge of
     its last row)."""
-    W = bwd_walk_rows(D)
+    W = bwd_walk_rows(D, dtype)
     keys = []
     for k0 in range(0, Sk, BWD_ROWS):
         first = max(0, k0 - q_offset) if causal else 0
@@ -173,28 +197,29 @@ def backward_walks(Sq, Sk, q_offset, causal, D):
     return keys, queries
 
 
-def backward_tiles(Sq, Sk, q_offset, causal, D):
-    """Every (keys, queries) rectangle a warp of the backward kernel
-    computes, for one head: ``("dkdv" | "dq", key range, query range)``
-    for each warp's 16 rows against each tile of its CTA's walk that the
-    warp does not skip (rows all past Sk or Sq, or all before the
-    tile's causal edge)."""
-    W = bwd_walk_rows(D)
-    keys, queries = backward_walks(Sq, Sk, q_offset, causal, D)
+def backward_tiles(Sq, Sk, q_offset, causal, D, dtype):
+    """Every (keys, queries) rectangle a unit of the backward kernel
+    (:func:`bwd_unit_rows`: a warp, or a warpgroup in bfloat16) computes,
+    for one head: ``("dkdv" | "dq", key range, query range)`` for each
+    unit's rows against each tile of its CTA's walk that the unit does
+    not skip (rows all past Sk or Sq, or all before the tile's causal
+    edge)."""
+    W, U = bwd_walk_rows(D, dtype), bwd_unit_rows(dtype)
+    keys, queries = backward_walks(Sq, Sk, q_offset, causal, D, dtype)
     for kb, (start, n) in enumerate(keys):
-        for x0 in range(kb * BWD_ROWS, (kb + 1) * BWD_ROWS, 16):
+        for x0 in range(kb * BWD_ROWS, (kb + 1) * BWD_ROWS, U):
             for i0 in range(start * W, (start + n) * W, W):
                 if x0 < Sk and (not causal
                                 or x0 <= q_offset + min(i0 + W, Sq) - 1):
-                    yield ("dkdv", range(x0, min(x0 + 16, Sk)),
+                    yield ("dkdv", range(x0, min(x0 + U, Sk)),
                            range(i0, min(i0 + W, Sq)))
     for qb, n in enumerate(queries):
-        for x0 in range(qb * BWD_ROWS, (qb + 1) * BWD_ROWS, 16):
+        for x0 in range(qb * BWD_ROWS, (qb + 1) * BWD_ROWS, U):
             for k0 in range(0, n * W, W):
                 if x0 < Sq and (not causal
-                                or k0 <= q_offset + min(x0 + 16, Sq) - 1):
+                                or k0 <= q_offset + min(x0 + U, Sq) - 1):
                     yield ("dq", range(k0, min(k0 + W, Sk)),
-                           range(x0, min(x0 + 16, Sq)))
+                           range(x0, min(x0 + U, Sq)))
 
 
 def flash_attention_backward_cuda(

@@ -1101,6 +1101,17 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
     (1, 77, 900, 4, 4, 128, 400, True, torch.bfloat16),
     (2, 1, 300, 4, 2, 128, 299, True, torch.float32),
     (2, 1, 300, 4, 2, 64, 0, True, torch.bfloat16),
+    # the bfloat16 route's edges: head dims 16, 32 and 80 (the 32- and
+    # 64-byte swizzles, and 80 padded to 128 columns); Sq and Sk that no
+    # TMA box divides, so boxes are cut short; causal offsets whose first
+    # q tile starts inside a key block; four q heads a kv head at D 128
+    (2, 200, 200, 4, 1, 16, 0, True, torch.bfloat16),
+    (1, 333, 517, 6, 3, 32, 184, True, torch.bfloat16),
+    (1, 700, 700, 4, 4, 80, 0, True, torch.bfloat16),
+    (1, 150, 70, 2, 2, 80, 0, False, torch.bfloat16),
+    (2, 77, 333, 4, 2, 64, 100, True, torch.bfloat16),
+    (1, 130, 1000, 8, 2, 128, 437, True, torch.bfloat16),
+    (1, 300, 300, 8, 2, 128, 0, True, torch.bfloat16),
 ])
 def test_flash_function_backward_on_the_card(cuda, B, Sq, Sk, H, Hkv, D,
                                              q_offset, causal, dtype):
@@ -1185,6 +1196,75 @@ def test_flash_backward_kernel_takes_strided_do_and_mixed_dtypes(cuda, case):
         else:   # dq rounded to bfloat16; the output's rounding in delta
             torch.testing.assert_close(g.float(), w.float(), atol=2e-2,
                                        rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_bf16_reads_strided_operands(cuda, D):
+    """The bfloat16 route's tensor maps step q, k, v and dO by their own
+    sequence strides: slices of packed projections (q, k and v of one
+    (B, S, H + 2 Hkv, D) tensor, dO of a wider one) go in without a copy
+    and give the gradients of their contiguous copies bit for bit, within
+    the card's bfloat16 gradient tolerance of ``flash_backward``."""
+    from repro_torch.kernels import _build, flash_vjp
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    B, S, H, Hkv = 2, 300, 8, 2
+    rng = np.random.default_rng(29)
+
+    def n(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(torch.bfloat16)
+    qkv = n((B, S, H + 2 * Hkv, D))
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    do = n((B, S, H + 3, D))[:, :, :H]
+    for t in (q, k, v, do):
+        assert not t.is_contiguous() and _build.strided(t, D) is t
+    out, lse = flash_attention_cuda(q, k, v, q_offset=37)
+    got = flash_attention_backward_cuda(q, k, v, out, lse, do, q_offset=37)
+    packed = [t.contiguous() for t in (q, k, v, do)]
+    want = flash_attention_backward_cuda(*packed[:3], out, lse, packed[3],
+                                         q_offset=37)
+    plain = flash_vjp.flash_backward(*packed[:3], out, lse, packed[3],
+                                     q_offset=37)
+    for g, w, p in zip(got, want, plain):
+        assert torch.equal(g, w)
+        torch.testing.assert_close(g.float(), p.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Hkv", [(64, 36), (128, 8), (80, 4)])
+def test_flash_backward_bf16_launches_are_bit_equal(cuda, D, Hkv):
+    """Two launches of the bfloat16 backward on the same tensors give the
+    same dq, dk and dv bit for bit: both passes sum in a fixed order and
+    use no atomics (a resumed training step equals the straight run)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward_cuda, flash_attention_cuda)
+    H = 36 if D == 64 else 16
+    q, k, v = _attn(29, 1, 1100, 1100, H, Hkv, D, cuda, torch.bfloat16)
+    do = _attn(30, 1, 1100, 1100, H, H, D, cuda, torch.bfloat16)[0]
+    out, lse = flash_attention_cuda(q, k, v)
+    first = flash_attention_backward_cuda(q, k, v, out, lse, do)
+    second = flash_attention_backward_cuda(q, k, v, out, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_backward_library_reports_the_mirrors_geometry(cuda):
+    """The built backward library's fixed rows, walk rows and skipping
+    unit of each route and head dim are the ones ``backward_walks`` and
+    ``backward_tiles`` mirror (``BWD_ROWS``, ``bwd_walk_rows``,
+    ``bwd_unit_rows``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    lib = _build.load("flash_attention_backward")
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in fa.HEAD_DIMS:
+            assert fa.backward_geometry(lib, D, dtype) == (
+                fa.BWD_ROWS, fa.bwd_walk_rows(D, dtype),
+                fa.bwd_unit_rows(dtype)), (dtype, D)
 
 
 @pytest.mark.cuda
