@@ -311,6 +311,11 @@ K3_BF16_ATOL, K3_BF16_RTOL = 5e-3, 2.0 ** -7
 # the output, whose rounding enters delta = rowsum(dO·O), and the grads)
 K3_GRAD_TOL, K3_GRAD_RTOL = 2e-4, 1e-4
 K3_GRAD_BF16_TOL = 2e-2
+# the float32 route of the backward kernel, as the kernels line names it
+K3_BWD_F32_ROUTE = ("wgmma 3xTF32: a pre-pass writing TF32-split images, "
+                    "two consumer warpgroups taking the walk's tiles in "
+                    "turn, each fed by TMA bulk copies from its own "
+                    "producer")
 # the SSD and WKV6 Functions' gradients (the kernel forward, the
 # backward kernel: SSD's closed-form gradient on the tensor cores in
 # 3xTF32, WKV6's summed in float32) and the backward kernels alone,
@@ -1075,8 +1080,8 @@ def phase_kernels():
         backward.  Both the Function's and SDPA's gradients are also held
         against float32 plain gradients (printed, not gated: in bfloat16
         SDPA's error is the yardstick of the kernel's).  ``earlier``: the
-        same row's ms on an H100 when the backward was the plain
-        ``torch.einsum`` blocks (``PERF.md`` §6 names the runs)."""
+        same row's ms on an H100 with earlier backwards, by route
+        (``PERF.md`` §6 names the runs)."""
         from repro_torch.kernels import flash_vjp
 
         def n(shape):
@@ -1148,7 +1153,7 @@ def phase_kernels():
                 "route": ("K3 forward (" + ("mma.sync 3xTF32" if dtype ==
                           torch.float32 else "wgmma bf16") + ") + the "
                           "backward kernel flash_attention_bwd.cu (" + (
-                          "mma.sync 3xTF32" if dtype == torch.float32 else
+                          K3_BWD_F32_ROUTE if dtype == torch.float32 else
                           "wgmma bf16, TMA producer warp") +
                           "; dQ pass, then dK/dV pass)"),
                 "earlier_ms": earlier,
@@ -1158,12 +1163,16 @@ def phase_kernels():
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    def attn_bwd_case(B, S, H, Hkv, D, dtype):
+    def attn_bwd_case(B, S, H, Hkv, D, dtype, earlier=None):
         """The backward kernel alone, causal, over K3's output and
         log-sum-exp, against its plain version (``flash_backward``, the
         reference's ``_bwd`` in ``torch.einsum``) on the same tensors;
         timed beside SDPA's backward alone (``torch.autograd.grad``
-        through one SDPA forward, the graph kept)."""
+        through one SDPA forward, the graph kept).  In float32 the plain
+        version's gradients are float32 plain gradients: SDPA's error
+        against them is printed beside the kernel's.  ``earlier``: the
+        row's ms with earlier backward kernels, by route (``PERF.md`` §6
+        names the runs)."""
         from repro_torch.kernels import flash_vjp
         from repro_torch.kernels.flash_attention import \
             flash_attention_backward_cuda
@@ -1189,7 +1198,6 @@ def phase_kernels():
             err = held(what, got, want, K3_GRAD_TOL, K3_GRAD_RTOL)
         else:
             err = held(what, got, want, K3_GRAD_BF16_TOL, K3_GRAD_BF16_TOL)
-        del got, want
         leaves = [t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v)]
         o_lib = F.scaled_dot_product_attention(*leaves, is_causal=True,
@@ -1198,6 +1206,15 @@ def phase_kernels():
 
         def library():
             return torch.autograd.grad(o_lib, leaves, dot, retain_graph=True)
+
+        lib_err = None
+        if dtype == torch.float32:
+            lib_err = max(float((g.transpose(1, 2) - w).abs().max())
+                          for g, w in zip(library(), want))
+            print(f"  {what[:what.index(':')]}: against float32 plain "
+                  f"gradients, the kernel {err:.4g}, SDPA's backward "
+                  f"{lib_err:.4g}", flush=True)
+        del got, want
 
         nbytes, products, other = attn_bwd_work(B, S, S, H, Hkv, D, 0, True,
                                                 q.element_size())
@@ -1212,10 +1229,12 @@ def phase_kernels():
                "library_call": "torch.autograd.grad through one "
                                "F.scaled_dot_product_attention(is_causal, "
                                "enable_gqa) forward: its backward alone",
-               "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
+               "route": (K3_BWD_F32_ROUTE if dtype == torch.float32 else
                          "wgmma bf16: a TMA producer warp, two consumer "
                          "warpgroups") + ", two passes (dQ; "
                          "dK/dV)",
+               "earlier_ms": earlier,
+               "library_max_abs_err_vs_f32": lib_err,
                "bytes": nbytes, "flops": products + other,
                "products": products, "bound_ms": bound_ms,
                "bound_by": bound_by, "floor_14d_ms": floor_ms}
@@ -1526,13 +1545,15 @@ def phase_kernels():
                           library=True))
     rows.append(attn_case(2, 4096, 4096, 16, 8, 128, library=True))
     rows.append(attn_grad_case(2, 4096, 16, 8, 128, torch.float32,
-                               25.818064))
+                               {"mma.sync backward kernel": 14.390976,
+                                "torch.einsum backward": 25.818064}))
     rows.append(attn_grad_case(1, 4096, 36, 36, 64, torch.bfloat16,
                                19.220528))
     # the backward kernel alone at qwen3-0.6b's microbatch (float32) and
     # minicpm-2b's (bfloat16), against the backward's bound
     entries["flash_attention_backward"] = attn_bwd_case(
-        2, 4096, 16, 8, 128, torch.float32)
+        2, 4096, 16, 8, 128, torch.float32,
+        {"mma.sync backward kernel": 11.226624})
     rows.append(entries["flash_attention_backward"])
     rows.append(attn_bwd_case(1, 4096, 36, 36, 64, torch.bfloat16))
     # the scans' training slice (phase 16): K4 forward + backward at
@@ -1566,7 +1587,8 @@ def phase_kernels():
     rows.append(entries["rwkv6_scan_backward"])
     rows.append(wkv_bwd_case(2, 4096, 32, 64, torch.float32))
     rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32,
-                               20.554751))
+                               {"mma.sync backward kernel": 8.668752,
+                                "torch.einsum backward": 20.554751}))
     # K4's forward alone at phase 16's training shape (1 x 4,096, 80
     # heads of 64), then the shapes each rank of phase 18 launches
     # (model_par=2): qwen3-0.6b's prefill (2 x 1,536 rows, 8 q and 4 kv
@@ -1584,7 +1606,8 @@ def phase_kernels():
     rows.append(attn_case(2, 1536, 1536, 8, 4, 64, library=True))
     rows.append(attn_case(1, 2048, 2048, 8, 4, 128, library=True))
     rows.append(attn_grad_case(1, 2048, 8, 4, 128, torch.float32,
-                               3.339664))
+                               {"mma.sync backward kernel": 2.187552,
+                                "torch.einsum backward": 3.339664}))
     rows.append(attn_case(1, 1536, 1537, 16, 16, 80, library=True))
     # the shapes phase 19b's cells launch: qwen3-0.6b's train cell (2 x
     # 4,096 rows, GQA 16/8 at D 128, causal) on K3's bfloat16 route and
@@ -3461,8 +3484,10 @@ def phase_ab(old_csrc, names=None):
 
     def flash_backward_rows():
         # the training shapes: qwen3-0.6b's microbatch (float32, GQA 16/8,
-        # D 128; and in bfloat16, phase 19b's train cell) and minicpm-2b's
-        # (bfloat16, MHA, D 64), causal
+        # D 128; and in bfloat16, phase 19b's train cell), minicpm-2b's
+        # (bfloat16, MHA, D 64), zamba2-2.7b's shared attention (float32,
+        # MHA, D 80) and phase 18's per-rank qwen3 step (float32, 8 q and
+        # 4 kv heads), causal
         from repro_torch.kernels import flash_vjp
         from repro_torch.kernels.flash_attention import \
             flash_attention_backward_cuda
@@ -3471,7 +3496,11 @@ def phase_ab(old_csrc, names=None):
                                          ((1, 4096, 36, 36, 64),
                                           torch.bfloat16),
                                          ((2, 4096, 16, 8, 128),
-                                          torch.bfloat16)):
+                                          torch.bfloat16),
+                                         ((1, 4096, 32, 32, 80),
+                                          torch.float32),
+                                         ((1, 2048, 8, 4, 128),
+                                          torch.float32)):
             q, do, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
                 np.float32)).cuda().to(dtype)
                 for s in ((B, S, H, D), (B, S, H, D), (B, S, Hkv, D),
@@ -4204,6 +4233,20 @@ def nvidia_smi_line() -> str:
     return out[0]
 
 
+def ptxas_summary(log: str) -> dict:
+    """The spills and the serialized ``wgmma`` that ``-Xptxas -v``
+    reports over every kernel of one library: bytes of spill stores and
+    loads summed, and the kernels whose products ptxas serialized
+    (C7510-C7518, "wgmma.mma_async instructions are serialized")."""
+    import re
+    stores = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
+    loads = sum(int(m) for m in re.findall(r"(\d+) bytes spill loads", log))
+    serialized = len(set(re.findall(
+        r"instructions are serialized.*?function '([^']+)'", log)))
+    return {"spill_store_bytes": stores, "spill_load_bytes": loads,
+            "wgmma_serialized": serialized}
+
+
 def main() -> int:
     import torch
     if len(sys.argv) == 6 and sys.argv[1] == "--tp-rank":
@@ -4234,11 +4277,18 @@ def main() -> int:
     t0 = time.monotonic()
     paths = _build.build_all()
     build_s = time.monotonic() - t0
+    ptxas = {}
     for name, path in paths.items():
-        report = [ln.strip() for ln in path.with_suffix(".log").read_text()
-                  .splitlines() if "registers" in ln or "spill" in ln]
+        log = path.with_suffix(".log").read_text()
+        report = [ln.strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln]
         print(f"  built {name} -> {path.name}: " + " | ".join(report),
               flush=True)
+        ptxas[name] = ptxas_summary(log)
+        print(f"  {name}: {ptxas[name]['spill_store_bytes']} bytes of spill "
+              f"stores, {ptxas[name]['spill_load_bytes']} of spill loads; "
+              f"wgmma serialized in {ptxas[name]['wgmma_serialized']} "
+              "kernels", flush=True)
     print(f"  build {build_s:.3f} s", flush=True)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -4261,7 +4311,7 @@ def main() -> int:
     # ---- the engine's image path: counts zeroed just before, read just after
     for c in launches.values():
         c.reset()
-    details = {"build_s": build_s, "card": smi}
+    details = {"build_s": build_s, "card": smi, "ptxas": ptxas}
     details["static_hash"] = phase_static_hash(VDMSAsyncEngine, TransportModel)
     details["native"] = phase_native(VDMSAsyncEngine, TransportModel,
                                      faces64, launches)

@@ -20,12 +20,12 @@
 // ms in bf16 (0.487 at 14D), 2.08 ms in float32 as 3xTF32.
 //
 // Two passes, both deterministic (no atomics):
-//   1. the dQ pass, one CTA per (128-row q block, head, batch): writes
-//      delta = rowsum(dO o O) of its rows (float32, (B,Sq,H), read again
-//      by pass 2), then walks the key tiles up to the causal edge,
+//   1. the dQ pass, one CTA per (q block, head, batch): writes delta =
+//      rowsum(dO o O) of its rows (float32, read again by pass 2; in the
+//      float32 route the pre-pass writes it), then walks the key tiles up to the causal edge,
 //      recomputing S = Q K^T and dP = dO V^T, and accumulates dQ += dS K
 //      in registers; dQ is written once in q's type;
-//   2. the dK/dV pass, one CTA per (128-key block, kv head, batch):
+//   2. the dK/dV pass, one CTA per (key block, kv head, batch):
 //      holds its K and V rows in shared memory and walks, for each of
 //      the G q heads of its kv head in turn, the q tiles that can see the
 //      block (from the causal start max(0, k0 - q_offset); every tile
@@ -41,8 +41,8 @@
 // and dS go from the accumulators to the next product's A operand in
 // place: neither is transposed through shared memory.
 //
-// Both routes share that plan: a fixed tile of R = 128 rows (A: K or Q,
-// B: V or dO) and a walk of W-row tiles (C: Q or K, D: dO or V).  X1 = A
+// Both routes share that plan: a fixed tile of R rows (128 in bf16, 64 in
+// float32; A: K or Q, B: V or dO) and a walk of W-row tiles (C: Q or K, D: dO or V).  X1 = A
 // C^T, X2 = B D^T; P = exp2(X1 scale log2e - lse log2e) under the
 // forward's finite -1e30 mask (applied only on tiles that cross Sk, Sq or
 // the causal edge), dS = P (X2 - delta) scale; then acc_C += dS C (dK or
@@ -93,15 +93,54 @@
 //   and dQ as they are written (exact where the scale is a power of two,
 //   D 16 and 64).
 //
-// float32 route, on mma.sync (m16n8k8) in 3xTF32 (tc.cuh: each operand
-// split into big and small TF32 halves, about 22 bits), as the forward's
-// float32 route: eight warps of 16 fixed rows, W = 64 (32 at D = 128 to
-// keep the registers under 255 with no spill), double-buffered by 16-byte
-// cp.async (lse and delta of a q tile beside it in pass 2); rows padded by
-// 4 floats, so every fragment load is free of bank conflicts; an
-// accumulator passes to the A operand with its k slots t and t + 4 taken
-// as rows 2t and 2t + 1, and the B operand is read in the same order.
-// Head dim 80 is taken as it is (84-float rows).
+// float32 route, on wgmma in 3xTF32 (each product a_s b_b + a_b b_s + a_b
+// b_b over TF32 halves, about 21-22 bits), fed by TMA bulk copies from a
+// producer warp.  What bounded the mma.sync route it replaced (on an
+// H100: 18.4% of the bound, 11.2 ms at qwen3-0.6b's microbatch): mma.sync
+// below wgmma's rate, eight warps staging their own tiles by cp.async, and
+// every fragment load splitting its operand into TF32 halves again (each
+// walk tile eight times, once a warp).  Hopper's tf32 wgmma reads both
+// shared-memory operands K-major only, so the products over the walk rows
+// (dV += P^T dO, dK += dS^T Q, dQ += dS K) need their B operand with the
+// sequence contiguous, which no TMA box can transpose.  So:
+// - a pre-pass (a third launch, bound by bytes) writes each operand once
+//   as images (Scratch, below): both TF32 halves, padded to 32-float
+//   chunks of the head dim, already in the 128-byte swizzle, in pieces of
+//   16 KB; Q, dO and K also transposed with the sequence permuted in
+//   groups of 8, so that the accumulators pass to the A operand in place;
+//   and (lse log2e, delta) of every q row.  About 3.5 times the operands'
+//   float32 bytes (0.74 GB at qwen3-0.6b's microbatch, about 0.3 ms).
+// - the passes are pure copy and product: a CTA holds R = 64 fixed rows
+//   (their two operands, both halves: 128 KB at D = 128) and two consumer
+//   warpgroups that take the walk's tiles in turn, even and odd, each fed
+//   by its own producer thread through its own ring of pieces (W walk
+//   rows x 32 head-dim columns, both halves; W = 64, but 32 in the dK/dV
+//   pass at D >= 80) by bulk copies completing on mbarriers.  While one
+//   warpgroup waits on its products or runs a tile's exponentials, the
+//   other's products keep the tensor cores busy.  At the end the second
+//   warpgroup's partial gradients are added into the first's through
+//   shared memory (a fixed order: the sums stay deterministic).  Each
+//   piece is one commit group, handed back once its products are done,
+//   one group behind.
+// - X1 and X2 are SS products m64nWk8 (3 a k8 step, over the head dim's
+//   real columns); P and dS are split into TF32 halves from the
+//   accumulators into the A operand of RS products m64n32k8 (m64n16k8 for
+//   a last chunk of 16 columns, at D 16 and 80), one 32-column chunk of
+//   the gradient a piece.  dS is split only after dV's products have
+//   completed, so at most one of the two is held in halves: at D = 128 a
+//   dK/dV thread holds dK, dV (64 + 64), X1, X2 (16 + 16) and one split
+//   (32).
+// - setmaxnreg: 384 threads launch at 168 registers; the producer
+//   warpgroup drops to 40 (its 64-bit address arithmetic spills at 24),
+//   the consumers rise to 232.  No spill at any head dim (-Xptxas -v).
+//   ptxas serializes every wgmma of a kernel when products are in flight
+//   across a branch whose two sides join, so a tile's products sit in one
+//   straight-line region (a dead tile takes a separate branch before any
+//   product) and the pieces are handed back by predicated arrives, not a
+//   branch on the lane.  The elementwise work uses exp2f, as the mma.sync
+//   route did.
+// - head dims 16 and 80 are padded to 32 and 96 columns in the images
+//   (zeros); the products skip the k8 steps past D.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,386 +175,684 @@ struct Args {
   long long sdb, sdt;  // dout
 };
 
-// The fragments of one product step (16 rows x KS of k), per type:
-// load_a: A of a row-major tile at p (row 0, k 0) with pitch ld;
-// load_bn: B of two 8-column slices from a tile stored [n][k] (n rows
-//   at p); load_bk: the same from a tile stored [k][n] (k rows at p), in
-//   the k order of to_a; to_a: the A operand of k step kk from
-//   accumulator slices (8 columns each) of a 16-row product.
-template <typename T>
-struct Mma;
+// ------------------------------------------------------------ float32 route
+// The pre-pass writes every operand the two passes read as images: each a
+// sequence of pieces of 4,096 floats (16 KB), a piece being both TF32
+// halves (big, then small: tc::split_exact) of 64 rows x 32 floats, each
+// half laid out as a K-major wgmma operand with the 128-byte swizzle (the
+// float at row r, column f at r 32 + ((f / 4) ^ (r % 8)) 4 + f % 4).
+// - natural (nq, ndo, nk, nv): piece ((b heads + h) tiles + tile) NC + c
+//   holds sequence rows 64 tile.. of head-dim columns 32 c..32 c + 31:
+//   the head dim is K, for S = Q K^T and dP = dO V^T and the fixed tiles;
+// - transposed (tq, tdo, tk): the same piece index holds head-dim
+//   columns 32 c.. as rows and the tile's 64 sequence rows as K, in two
+//   atom columns of 32, each group of 8 sequence rows stored 0, 2, 4, 6,
+//   1, 3, 5, 7 (tc.cuh's k order for an accumulator passed as A): the B
+//   operand of dV += P^T dO, dK += dS^T Q and dQ += dS K;
+// - ld: (B, H, 64 TQ) pairs (lse log2e, delta) of the q rows, 0 past Sq.
+// Rows past the sequence and columns past D are zeros.
+constexpr int TILE = 64;       // rows of an image tile
+constexpr int PIECE_F = 4096;  // floats of an image piece, both halves
 
-template <>
-struct Mma<float> {
-  static constexpr int KS = 8, PAD = 4;
-  struct A {
-    uint32_t b[4], s[4];
-  };
-  struct B {
-    uint32_t b[2], s[2];
-  };
-  static __device__ __forceinline__ void load_a(A& a, const float* p, int ld,
-                                                int lane) {
-    const float* x = p + (lane >> 2) * ld + (lane & 3);
-    tc::split(x[0], a.b[0], a.s[0]);
-    tc::split(x[8 * ld], a.b[1], a.s[1]);
-    tc::split(x[4], a.b[2], a.s[2]);
-    tc::split(x[8 * ld + 4], a.b[3], a.s[3]);
-  }
-  static __device__ __forceinline__ void load_bn(B (&b)[2], const float* p,
-                                                 int ld, int lane) {
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const float* x = p + (s * 8 + (lane >> 2)) * ld + (lane & 3);
-      tc::split(x[0], b[s].b[0], b[s].s[0]);
-      tc::split(x[4], b[s].b[1], b[s].s[1]);
-    }
-  }
-  // k slots t and t + 4 are rows 2t and 2t + 1
-  static __device__ __forceinline__ void load_bk(B (&b)[2], const float* p,
-                                                 int ld, int lane) {
-    const float* x = p + 2 * (lane & 3) * ld + (lane >> 2);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      tc::split(x[s * 8], b[s].b[0], b[s].s[0]);
-      tc::split(x[ld + s * 8], b[s].b[1], b[s].s[1]);
-    }
-  }
-  // slice kk: column 2t in slot t, column 2t + 1 in slot t + 4
-  template <int N>
-  static __device__ __forceinline__ void to_a(A& a, const float (&c)[N][4],
-                                              int kk) {
-    tc::split(c[kk][0], a.b[0], a.s[0]);
-    tc::split(c[kk][2], a.b[1], a.s[1]);
-    tc::split(c[kk][1], a.b[2], a.s[2]);
-    tc::split(c[kk][3], a.b[3], a.s[3]);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const A& a,
-                                             const B& b) {
-    tc::mma_3xtf32(d, a.b, a.s, b.b, b.s);
-  }
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-  static __device__ __forceinline__ void store2(float* p, float x, float y) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  }
+struct Scratch {
+  float *nq, *ndo, *tq, *tdo, *nk, *nv, *tk, *ld;
+  int TQ, TK;  // image tiles of q and of k
 };
 
-template <typename T, int D>
-struct Cfg {
-  static constexpr int THREADS = 256;                   // eight warps
-  static constexpr int R = 128;                         // fixed-tile rows
-  static constexpr int W = D == 128 ? 32 : 64;          // walk-tile rows
-  static constexpr int LD = D + Mma<T>::PAD;            // staged row pitch
-  static constexpr int EPC = 16 / (int)sizeof(T);       // elements a chunk
-  static constexpr int C = D / EPC;                     // 16-byte chunks a row
-  static constexpr size_t SMEM =
-      (size_t)(2 * R + 4 * W) * LD * sizeof(T) + 4 * W * sizeof(float);
-};
-
-// Which 16-byte chunk (row, c) of a rows x C-chunk tile the idx-th copy
-// moves: eight rows of one chunk per quarter warp.
-template <int C>
-__device__ __forceinline__ void chunk_of(int idx, int& row, int& c) {
-  const int q = idx >> 3;
-  c = q % C;
-  row = (q / C) * 8 + (idx & 7);
+// the float32 route's scratch in floats; with s, its pieces carved from
+// base in this order
+long long tf_scratch(int batch, int Sq, int Sk, int H, int Hkv, int D,
+                     float* base, Scratch* s) {
+  const int NC = (D + 31) / 32;
+  const int TQ = (Sq + TILE - 1) / TILE, TK = (Sk + TILE - 1) / TILE;
+  const long long nq = (long long)batch * H * TQ * NC * PIECE_F;
+  const long long nk = (long long)batch * Hkv * TK * NC * PIECE_F;
+  if (s != nullptr) {
+    s->nq = base;
+    s->ndo = s->nq + nq;
+    s->tq = s->ndo + nq;
+    s->tdo = s->tq + nq;
+    s->nk = s->tdo + nq;
+    s->nv = s->nk + nk;
+    s->tk = s->nv + nk;
+    s->ld = s->tk + nk;
+    s->TQ = TQ;
+    s->TK = TK;
+  }
+  return 4 * nq + 3 * nk + (long long)batch * H * TQ * TILE * 2;
 }
 
-// KEYS: the dK/dV pass (fixed rows: 128 keys of a kv head; walk: q
-// tiles of its G heads); otherwise the dQ pass (fixed rows: 128 queries
-// of a head; walk: key tiles).
-template <typename T, int D, bool KEYS>
-__global__ void __launch_bounds__(256, 1) fa_bwd(Args a) {
-  using M = Mma<T>;
-  using Cf = Cfg<T, D>;
-  constexpr int R = Cf::R, W = Cf::W, LD = Cf::LD, C = Cf::C, EPC = Cf::EPC;
-  constexpr int KS = M::KS;
-  constexpr int NW = W / 8;  // score slices of 8 walk rows
-  constexpr int ND = D / 8;  // output slices of 8 columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Ar = reinterpret_cast<T*>(smem);  // R x LD: K | Q
-  T* Br = Ar + R * LD;                 // R x LD: V | dO
-  T* Cw = Br + R * LD;                 // 2 stages of W x LD: Q | K
-  T* Dw = Cw + 2 * W * LD;             // 2 stages of W x LD: dO | V
-  float* Ls = reinterpret_cast<float*>(Dw + 2 * W * LD);  // 2 x W lse
-  float* Ds = Ls + 2 * W;                                 // 2 x W delta
+// sequence row of position s in a group of 8 of a transposed piece
+__device__ __forceinline__ int perm8(int s) { return s < 4 ? 2 * s : 2 * s - 7; }
+
+// The pre-pass: one CTA a (64-row tile, head, batch) of each of q, dout,
+// k and v, in that order.  Stages the tile (zeros past the sequence and
+// past D), writes its natural pieces and, for q, dout and k, its
+// transposed pieces; for dout also delta = rowsum(dO o O) and lse log2e
+// of its rows.  Bound by bytes: it reads the four operands and out once
+// and writes 3.5 times their float32 size (7 images of two halves, V's
+// transposed one not needed).
+template <int D>
+__global__ void __launch_bounds__(256) fa_bwd_prep(const Args a,
+                                                   const Scratch s,
+                                                   int batch) {
+  constexpr int NC = (D + 31) / 32, DP = 32 * NC, LDX = DP + 1;
+  __shared__ float X[TILE * LDX];
+  const int tid = threadIdx.x;
+  long long job = blockIdx.x;
+  const long long nqj = (long long)batch * a.H * s.TQ;
+  const long long nkj = (long long)batch * a.Hkv * s.TK;
+  int kind = 0;  // q, dout, k, v
+  if (job >= nqj) {
+    job -= nqj, kind = 1;
+    if (job >= nqj) {
+      job -= nqj, kind = 2;
+      if (job >= nkj) job -= nkj, kind = 3;
+    }
+  }
+  const bool qside = kind < 2;
+  const int heads = qside ? a.H : a.Hkv, tiles = qside ? s.TQ : s.TK;
+  const int S = qside ? a.Sq : a.Sk;
+  const int tile = (int)(job % tiles);
+  job /= tiles;
+  const int h = (int)(job % heads), b = (int)(job / heads);
+  const float* src;
+  long long sb, st;
+  float* nat;
+  float* tr = nullptr;
+  switch (kind) {
+    case 0: src = static_cast<const float*>(a.q), sb = a.sqb, st = a.sqt;
+            nat = s.nq, tr = s.tq; break;
+    case 1: src = static_cast<const float*>(a.dout), sb = a.sdb, st = a.sdt;
+            nat = s.ndo, tr = s.tdo; break;
+    case 2: src = static_cast<const float*>(a.k), sb = a.skb, st = a.skt;
+            nat = s.nk, tr = s.tk; break;
+    default: src = static_cast<const float*>(a.v), sb = a.svb, st = a.svt;
+             nat = s.nv;
+  }
+  src += b * sb + (long long)h * D;
+  const int row0 = tile * TILE;
+  for (int i = tid; i < TILE * (DP / 4); i += 256) {
+    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S && c < D)
+      x = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * st + c);
+    float* p = X + r * LDX + c;
+    p[0] = x.x, p[1] = x.y, p[2] = x.z, p[3] = x.w;
+  }
+  __syncthreads();
+  const long long piece0 = (((long long)b * heads + h) * tiles + tile) * NC;
+  // natural pieces: a thread a 16-byte chunk j of row r of chunk c
+  for (int i = tid; i < NC * TILE * 8; i += 256) {
+    const int j = i & 7, r = (i >> 3) & (TILE - 1), c = i >> 9;
+    float big[4], small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tc::split_exact(X[r * LDX + 32 * c + 4 * j + e], big[e], small[e]);
+    float* dst = nat + (piece0 + c) * PIECE_F + r * 32 + ((j ^ (r & 7)) << 2);
+    *reinterpret_cast<float4*>(dst) = make_float4(big[0], big[1], big[2], big[3]);
+    *reinterpret_cast<float4*>(dst + PIECE_F / 2) =
+        make_float4(small[0], small[1], small[2], small[3]);
+  }
+  // transposed pieces: a thread a 16-byte chunk j of head-dim row rr of
+  // atom column kc of chunk n
+  if (tr != nullptr) {
+    for (int i = tid; i < NC * 2 * 32 * 8; i += 256) {
+      const int j = i & 7, rr = (i >> 3) & 31, kc = (i >> 8) & 1, n = i >> 9;
+      float big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int pos = 4 * j + e;
+        const int row = kc * 32 + (pos & ~7) + perm8(pos & 7);
+        tc::split_exact(X[row * LDX + 32 * n + rr], big[e], small[e]);
+      }
+      float* dst = tr + (piece0 + n) * PIECE_F + kc * 1024 + rr * 32 +
+                   ((j ^ (rr & 7)) << 2);
+      *reinterpret_cast<float4*>(dst) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(dst + PIECE_F / 2) =
+          make_float4(small[0], small[1], small[2], small[3]);
+    }
+  }
+  if (kind == 1) {  // a warp a row: delta in a fixed order, and lse log2e
+    const int warp = tid >> 5, lane = tid & 31;
+    const float* op = static_cast<const float*>(a.out) + b * a.sob + (long long)h * D;
+    float* ld = s.ld + (((long long)b * a.H + h) * s.TQ * TILE + row0) * 2;
+    for (int r = warp; r < TILE; r += 8) {
+      const int i = row0 + r;
+      float sum = 0.f;
+      if (i < a.Sq)
+        for (int c = lane; c < D; c += 32)
+          sum += op[(long long)i * a.sot + c] * X[r * LDX + c];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0)
+        *reinterpret_cast<float2*>(ld + 2 * r) =
+            i < a.Sq ? make_float2(a.lse[((long long)b * a.Sq + i) * a.H + h] * LOG2E, sum)
+                     : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// x (+)= the fixed chunk at fixed (A) times the walk piece at walk (C^T,
+// W rows): chunk c's k8 steps within D, three TF32 products a step, small
+// terms first; chunk 0's first product overwrites x
+template <int D, int W>
+__device__ __forceinline__ void tf32_scores(float (&x)[W / 2], uint32_t fixed,
+                                            uint32_t walk, int c) {
+  constexpr int FHALF = TILE * 32 * 4, HALF = W * 32 * 4;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    if (32 * c + 8 * kk < D) {
+      const uint32_t o = kk * 32;
+      const uint64_t ab = tc::desc(fixed + o, 16, 1024, 128);
+      const uint64_t as = tc::desc(fixed + FHALF + o, 16, 1024, 128);
+      const uint64_t bb = tc::desc(walk + o, 16, 1024, 128);
+      const uint64_t bs = tc::desc(walk + HALF + o, 16, 1024, 128);
+      tc::wgmma_tf32_ss<W>(x, as, bb, c > 0 || kk > 0);
+      tc::wgmma_tf32_ss<W>(x, ab, bs, 1);
+      tc::wgmma_tf32_ss<W>(x, ab, bb, 1);
+    }
+}
+
+// P or dS from the accumulators as the A operand of k8 step kk, both
+// halves (tc::split): k slot t is walk column 2t, slot t + 4 column 2t + 1
+template <int W>
+__device__ __forceinline__ void tf32_to_a(const float (&x)[W / 2],
+                                          uint32_t (&fb)[W / 8][4],
+                                          uint32_t (&fs)[W / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < W / 8; ++kk) {
+    tc::split(x[4 * kk], fb[kk][0], fs[kk][0]);
+    tc::split(x[4 * kk + 2], fb[kk][1], fs[kk][1]);
+    tc::split(x[4 * kk + 1], fb[kk][2], fs[kk][2]);
+    tc::split(x[4 * kk + 3], fb[kk][3], fs[kk][3]);
+  }
+}
+
+// acc's head-dim columns 32 C.. (32 of them, 16 for a last chunk of 16)
+// += A (fb, fs) times the transposed piece at walk (K: the W walk rows),
+// three TF32 products a k8 step
+template <int D, int W, int C>
+__device__ __forceinline__ void tf32_grads(float (&acc)[D / 2],
+                                           const uint32_t (&fb)[W / 8][4],
+                                           const uint32_t (&fs)[W / 8][4],
+                                           uint32_t walk) {
+  if constexpr (32 * C < D) {
+    constexpr int N = D - 32 * C >= 32 ? 32 : 16, HALF = W * 32 * 4;
+#pragma unroll
+    for (int kk = 0; kk < W / 8; ++kk) {
+      const uint32_t o = (kk / 4) * 4096 + (kk % 4) * 32;
+      const uint64_t bb = tc::desc(walk + o, 16, 1024, 128);
+      const uint64_t bs = tc::desc(walk + HALF + o, 16, 1024, 128);
+      tc::wgmma_tf32_rs<N, 16 * C>(acc, fs[kk], bb);
+      tc::wgmma_tf32_rs<N, 16 * C>(acc, fb[kk], bs);
+      tc::wgmma_tf32_rs<N, 16 * C>(acc, fb[kk], bb);
+    }
+  }
+}
+
+template <int D, bool KEYS>
+struct TfCfg {
+  // two consumer warpgroups, which take the walk's tiles in turn (even,
+  // odd) against the same fixed rows, each fed through its own ring by its
+  // own producer thread, and a producer warpgroup, of which warps 8 and 9
+  // issue the copies (setmaxnreg hands registers over by warpgroups): 168
+  // registers a thread at launch, then 40 for the producers (their 64-bit
+  // address arithmetic spills at 24) and 232 for the consumers
+  static constexpr int THREADS = 384;
+  static constexpr int REGS = 232;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int R = 64;               // fixed rows, M of every product
+  // walk rows, N of S and dP: 64, but 32 in the dK/dV pass at D >= 80,
+  // where a thread holds dK and dV (2 x D / 2 floats) beside the scores
+  // and one split (at 64 rows they pass the 232 registers); at D 128 the
+  // dQ pass's rings of 16 KB pieces are three deep, which still runs
+  // faster than 32-row pieces six deep
+  static constexpr int W = KEYS && D >= 80 ? 32 : 64;
+  static constexpr int NC = (D + 31) / 32;   // 32-float chunks of a row
+  static constexpr int FIXED = TILE * 32 * 2 * 4;  // bytes of a fixed piece
+  static constexpr int HALF = W * 32 * 4;    // bytes of a walk piece's half
+  static constexpr int PIECE = 2 * HALF;
+  static constexpr int LDB = 2 * W * 2 * 4;  // two stages of (lse, delta)
+  static constexpr int BARS = 512;           // room for the mbarriers
+  // the fixed tiles (both halves of A and B), then as many walk pieces as
+  // fit in the 227 KB an SM gives a block, past 1024 bytes of alignment,
+  // split into the two rings
+  static constexpr int STAGES =
+      (232448 - 1024 - LDB - BARS - 2 * NC * FIXED) / PIECE / 2;
+  static constexpr size_t SMEM = 1024 + 2 * (size_t)NC * FIXED +
+                                 2 * (size_t)STAGES * PIECE + LDB + BARS;
+  static_assert(STAGES >= 3 && 1 + 4 * STAGES + 4 <= BARS / 8, "smem plan");
+  // the second warpgroup's partial gradients pass through the rings
+  static_assert(2 * (size_t)STAGES * PIECE >= (KEYS ? 2 : 1) * (D / 2) * 128 * 4,
+                "room for the partial sums");
+};
+
+// KEYS: the dK/dV pass (fixed: 64 keys of a kv head, K and V; walk: the
+// q tiles of its G heads, pieces Q, dO, dO^T, Q^T); otherwise the dQ pass
+// (fixed: 64 rows of a head, Q and dO; walk: key tiles, pieces K, V,
+// K^T).  Warps 0-3 and 4-7 are consumer warpgroups 0 and 1, which take
+// the even and the odd walk tiles and sum their partial gradients at the
+// end (1's into 0's, a fixed order); lane 0 of warp 8 + w is warpgroup
+// w's producer (warp 8's also loads the fixed tiles).
+template <int D, bool KEYS>
+__global__ void __launch_bounds__(384, 1)
+    fa_bwd_tf32(const Args a, const Scratch s) {
+  using Cf = TfCfg<D, KEYS>;
+  constexpr int R = Cf::R, W = Cf::W, NC = Cf::NC, ST = Cf::STAGES;
+  constexpr int FIXED = Cf::FIXED, HALF = Cf::HALF, PIECE = Cf::PIECE;
+  constexpr int OPS = KEYS ? 4 : 3;  // walk operands a tile
+  constexpr int NS = W / 2;          // score accumulators a thread holds
+  constexpr int NA = D / 2;          // accumulators of one gradient
+  constexpr int LAG = 1;             // commit groups left in flight
+  extern __shared__ __align__(128) unsigned char tsm[];
+  unsigned char* fixa = tsm + ((1024 - (tc::smem_u32(tsm) & 1023)) & 1023);
+  unsigned char* fixb = fixa + NC * FIXED;
+  unsigned char* rings = fixb + NC * FIXED;  // 2 rings of ST walk pieces
+  float* lds = reinterpret_cast<float*>(rings + 2 * ST * PIECE);
+  uint64_t* fixed_full = reinterpret_cast<uint64_t*>(lds + 4 * W);
+  uint64_t* fulls = fixed_full + 1;  // 2 x ST: a piece landed
+  uint64_t* empties = fulls + 2 * ST;  // 2 x ST: its warpgroup's 4 warps are done
+  uint64_t* ld_full = empties + 2 * ST;  // warpgroup w's stage w: a q
+  uint64_t* ld_empty = ld_full + 2;      // tile's (lse, delta) landed, used
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z;
   const int G = a.H / a.Hkv;
-  const int r0 = warp * 16;  // this warp's rows in the fixed tile
-  const float scale2 = a.scale * LOG2E;
-
-  // the fixed tile and the walk
+  // the fixed tile and the walk, as the bf16 route's: blockIdx.x runs
+  // over (batch, head), blockIdx.y over the fixed blocks, heaviest
+  // causal walk first
+  const int heads = KEYS ? a.Hkv : a.H;
+  const int b = blockIdx.x / heads;
   int row0, nrows, hk, h = 0, tstart = 0, ntile, total;
   if (KEYS) {
-    hk = blockIdx.y;
-    row0 = blockIdx.x * R;
+    hk = blockIdx.x % heads;
+    row0 = blockIdx.y * R;
     nrows = a.Sk;
     const int first = a.causal ? max(0, row0 - a.q_offset) : 0;
     tstart = first / W;
     ntile = first < a.Sq ? (a.Sq + W - 1) / W - tstart : 0;
     total = G * ntile;
   } else {
-    h = blockIdx.y;
+    h = blockIdx.x % heads;
     hk = h / G;
-    row0 = (gridDim.x - 1 - blockIdx.x) * R;  // heaviest causal blocks first
+    row0 = (gridDim.y - 1 - blockIdx.y) * R;
     nrows = a.Sq;
     const int qrows = min(R, a.Sq - row0);
     const int end = a.causal ? min(a.Sk, a.q_offset + row0 + qrows) : a.Sk;
     ntile = (end + W - 1) / W;
     total = ntile;
   }
-  const T* q = static_cast<const T*>(a.q) + b * a.sqb;
-  const T* kp = static_cast<const T*>(a.k) + b * a.skb + (long long)hk * D;
-  const T* vp = static_cast<const T*>(a.v) + b * a.svb + (long long)hk * D;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.sdb;
 
-  {  // the fixed tile, zero past the end
-    const T* pa = KEYS ? kp : q + (long long)h * D;
-    const T* pb = KEYS ? vp : dop + (long long)h * D;
-    const long long sa = KEYS ? a.skt : a.sqt, sb = KEYS ? a.svt : a.sdt;
-    for (int i = tid; i < R * C; i += Cf::THREADS) {
-      int r, c;
-      chunk_of<C>(i, r, c);
-      const bool ok = row0 + r < nrows;
-      tc::cp_async16(Ar + r * LD + c * EPC,
-                     ok ? pa + (row0 + r) * sa + c * EPC : pa, ok);
-      tc::cp_async16(Br + r * LD + c * EPC,
-                     ok ? pb + (row0 + r) * sb + c * EPC : pb, ok);
+  if (tid == 0) {
+    tc::mbar_init(fixed_full, 1);
+    for (int i = 0; i < 2 * ST; ++i) {
+      tc::mbar_init(fulls + i, 1);
+      tc::mbar_init(empties + i, 4);
     }
+    for (int i = 0; i < 2; ++i) {
+      tc::mbar_init(ld_full + i, 1);
+      tc::mbar_init(ld_empty + i, 4);
+    }
+    tc::mbar_init_fence();
   }
-  auto load_walk = [&](int it, int st) {
-    T* cd = Cw + st * W * LD;
-    T* dd = Dw + st * W * LD;
-    if (KEYS) {  // q tile of head hk G + it / ntile: Q, dO, lse, delta
-      const int hh = hk * G + it / ntile;
-      const int i0 = (tstart + it % ntile) * W;
-      const T* pc = q + (long long)hh * D;
-      const T* pd = dop + (long long)hh * D;
-      for (int i = tid; i < W * C; i += Cf::THREADS) {
-        int r, c;
-        chunk_of<C>(i, r, c);
-        const bool ok = i0 + r < a.Sq;
-        tc::cp_async16(cd + r * LD + c * EPC,
-                       ok ? pc + (i0 + r) * a.sqt + c * EPC : pc, ok);
-        tc::cp_async16(dd + r * LD + c * EPC,
-                       ok ? pd + (i0 + r) * a.sdt + c * EPC : pd, ok);
-      }
-      for (int r = tid; r < W; r += Cf::THREADS) {
-        const bool ok = i0 + r < a.Sq;
-        const long long at = ((long long)b * a.Sq + i0 + r) * a.H + hh;
-        tc::cp_async4(Ls + st * W + r, ok ? a.lse + at : a.lse, ok);
-        tc::cp_async4(Ds + st * W + r, ok ? a.delta + at : a.delta, ok);
-      }
-    } else {  // key tile: K, V
-      const int k0 = it * W;
-      for (int i = tid; i < W * C; i += Cf::THREADS) {
-        int r, c;
-        chunk_of<C>(i, r, c);
-        const bool ok = k0 + r < a.Sk;
-        tc::cp_async16(cd + r * LD + c * EPC,
-                       ok ? kp + (k0 + r) * a.skt + c * EPC : kp, ok);
-        tc::cp_async16(dd + r * LD + c * EPC,
-                       ok ? vp + (k0 + r) * a.svt + c * EPC : vp, ok);
+  __syncthreads();
+
+  if (warp >= 8) {  // ---- producers: lane 0 of warp 8 + w feeds warpgroup w
+    tc::setmaxnreg_dec<Cf::PRODUCER_REGS>();
+    const int w = warp - 8;
+    if (w > 1 || lane != 0) return;
+    if (w == 0) {
+      const int fh = KEYS ? hk : h, ftiles = KEYS ? s.TK : s.TQ;
+      const long long fp = (((long long)b * heads + fh) * ftiles + row0 / TILE) * NC;
+      const float* ia = KEYS ? s.nk : s.nq;
+      const float* ib = KEYS ? s.nv : s.ndo;
+      tc::mbar_expect_tx(fixed_full, 2 * NC * FIXED);
+      for (int c = 0; c < NC; ++c) {
+        tc::bulk_load(fixa + c * FIXED, ia + (fp + c) * PIECE_F, FIXED, fixed_full);
+        tc::bulk_load(fixb + c * FIXED, ib + (fp + c) * PIECE_F, FIXED, fixed_full);
       }
     }
-  };
-  if (total > 0) load_walk(0, 0);
-  tc::cp_async_commit();
+    unsigned char* ring = rings + w * ST * PIECE;
+    uint64_t* full = fulls + w * ST;
+    uint64_t* empty = empties + w * ST;
+    const int wheads = KEYS ? a.H : a.Hkv, wtiles = KEYS ? s.TQ : s.TK;
+    int slot = 0, n = 0;  // the next piece's stage and its use of it
+    for (int it = w, k = 0; it < total; it += 2, ++k) {
+      const int hh = KEYS ? hk * G + it / ntile : hk;
+      const int w0 = KEYS ? (tstart + it % ntile) * W : it * W;
+      // the tile's first piece in an image, and floats into each half
+      const long long off = (((long long)b * wheads + hh) * wtiles + w0 / TILE) *
+                                NC * PIECE_F + (w0 % TILE) * 32;
+      if constexpr (KEYS) {
+        if (k > 0) tc::mbar_wait_bounded(ld_empty + w, (k - 1) & 1);
+        tc::mbar_expect_tx(ld_full + w, W * 8);
+        tc::bulk_load(lds + w * 2 * W,
+                      s.ld + (((long long)b * a.H + hh) * s.TQ * TILE + w0) * 2,
+                      W * 8, ld_full + w);
+      }
+#pragma unroll
+      for (int op = 0; op < OPS; ++op) {
+        const float* src =
+            (KEYS ? (op == 0 ? s.nq : op == 1 ? s.ndo : op == 2 ? s.tdo : s.tq)
+                  : (op == 0 ? s.nk : op == 1 ? s.nv : s.tk)) + off;
+        for (int c = 0; c < NC; ++c, src += PIECE_F) {
+          if (n > 0) tc::mbar_wait_bounded(empty + slot, (n - 1) & 1);
+          unsigned char* dst = ring + slot * PIECE;
+          tc::mbar_expect_tx(full + slot, PIECE);
+          tc::bulk_load(dst, src, HALF, full + slot);
+          tc::bulk_load(dst + HALF, src + PIECE_F / 2, HALF, full + slot);
+          if (++slot == ST) slot = 0, ++n;
+        }
+      }
+    }
+    return;
+  }
 
-  // the dQ pass: delta of this warp's rows (written for pass 2) and the
-  // rows' log-sum-exp, in base 2; rows g and g + 8 of the warp
+  // ---- consumers: warpgroup wg takes walk tiles wg, wg + 2, ... against
+  // fixed rows row0 .. row0 + 63
+  tc::setmaxnreg_inc<Cf::REGS>();
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int x0 = row0;
+  const int xr = x0 + (warp & 3) * 16 + g;  // this thread's rows xr and xr + 8
+  const float scale2 = a.scale * LOG2E;
+  const uint32_t fa_addr = tc::smem_u32(fixa), fb_addr = tc::smem_u32(fixb);
+  const uint32_t ring_addr = tc::smem_u32(rings + wg * ST * PIECE);
+  uint64_t* full = fulls + wg * ST;
+  uint64_t* empty = empties + wg * ST;
+
+  // the dQ pass: lse log2e and delta of rows xr and xr + 8
   float lse0 = 0.f, lse1 = 0.f, del0 = 0.f, del1 = 0.f;
-  if (!KEYS) {
-    const T* op = static_cast<const T*>(a.out) + b * a.sob + (long long)h * D;
-    const T* dp = dop + (long long)h * D;
-#pragma unroll 1
-    for (int rr = 0; rr < 16; ++rr) {
-      const int i = row0 + r0 + rr;
-      float s = 0.f;
-      if (i < a.Sq)
-        for (int c = lane; c < D; c += 32)
-          s += M::to_f(op[i * a.sot + c]) * M::to_f(dp[i * a.sdt + c]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (rr == g) del0 = s;
-      if (rr == g + 8) del1 = s;
-      if (lane == 0 && i < a.Sq)
-        a.delta[((long long)b * a.Sq + i) * a.H + h] = s;
-    }
-    const int i0 = row0 + r0 + g, i1 = i0 + 8;
-    if (i0 < a.Sq) lse0 = a.lse[((long long)b * a.Sq + i0) * a.H + h] * LOG2E;
-    if (i1 < a.Sq) lse1 = a.lse[((long long)b * a.Sq + i1) * a.H + h] * LOG2E;
+  if constexpr (!KEYS) {
+    const float* ld = s.ld + ((long long)b * a.H + h) * s.TQ * TILE * 2;
+    if (xr < a.Sq) lse0 = ld[2 * xr], del0 = ld[2 * xr + 1];
+    if (xr + 8 < a.Sq) lse1 = ld[2 * xr + 16], del1 = ld[2 * xr + 17];
   }
 
-  float acc_c[ND][4];             // dK | dQ
-  float acc_d[KEYS ? ND : 1][4];  // dV
+  float acc_c[NA];             // dK | dQ
+  float acc_d[KEYS ? NA : 1];  // dV
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int i = 0; i < NA; ++i) acc_c[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_c[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < (KEYS ? ND : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_d[n][e] = 0.f;
+  for (int i = 0; i < (KEYS ? NA : 1); ++i) acc_d[i] = 0.f;
+  tc::mbar_wait_bounded(fixed_full, 0);
 
-  const int x0 = row0 + r0;  // this warp's first key | query row
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) load_walk(it + 1, (it + 1) & 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-    const int st = it & 1;
-    const T* Ct = Cw + st * W * LD;
-    const T* Dt = Dw + st * W * LD;
+  // the warpgroup's walk pieces in its ring's order (a tile's OPS NC
+  // pieces after its last tile's): p the next to take, freed the first
+  // not yet handed back.  Lane 0 of each warp hands a piece back once the
+  // warp's products are done, in straight-line code (a predicated
+  // arrive): products may be in flight across the waits and hand-backs,
+  // never across a branch (ptxas would serialize every wgmma).
+  int p = 0, freed = 0;
+  auto acquire = [&](int q) { tc::mbar_wait_bounded(full + q % ST, (q / ST) & 1); };
+  auto release = [&](int upto) {
+    for (; freed < upto; ++freed) tc::mbar_arrive_if(empty + freed % ST, lane == 0);
+  };
+  // one walk operand's NC transposed pieces into acc, each a commit group
+  auto walk_grads = [&](float (&acc)[NA], const uint32_t (&fb)[W / 8][4],
+                        const uint32_t (&fs)[W / 8][4]) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acquire(p);
+      const uint32_t walk = ring_addr + (p % ST) * PIECE;
+      tc::wgmma_fence();
+      if (c == 0) tf32_grads<D, W, 0>(acc, fb, fs, walk);
+      if (c == 1) tf32_grads<D, W, 1>(acc, fb, fs, walk);
+      if (c == 2) tf32_grads<D, W, 2>(acc, fb, fs, walk);
+      if (c == 3) tf32_grads<D, W, 3>(acc, fb, fs, walk);
+      tc::wgmma_commit();
+      tc::wgmma_wait<LAG>();
+      ++p;
+      release(p - LAG);
+    }
+    tc::wgmma_wait<0>();
+    tc::fence_regs(acc);
+    release(p);
+  };
+
+  for (int it = wg, k = 0; it < total; it += 2, ++k) {
     // the walk tile's first query row (KEYS) or key (dQ pass)
     const int w0 = KEYS ? (tstart + it % ntile) * W : it * W;
     bool live, masked;
     if (KEYS) {  // keys x0.. against queries w0..
       live = x0 < a.Sk &&
              (!a.causal || x0 <= a.q_offset + min(w0 + W, a.Sq) - 1);
-      masked = x0 + 15 >= a.Sk || w0 + W > a.Sq ||
-               (a.causal && x0 + 15 > a.q_offset + w0);
+      masked = x0 + R - 1 >= a.Sk || w0 + W > a.Sq ||
+               (a.causal && x0 + R - 1 > a.q_offset + w0);
     } else {  // queries x0.. against keys w0..
       live = x0 < a.Sq &&
-             (!a.causal || w0 <= a.q_offset + min(x0 + 16, a.Sq) - 1);
-      masked = x0 + 15 >= a.Sq || w0 + W > a.Sk ||
+             (!a.causal || w0 <= a.q_offset + min(x0 + R, a.Sq) - 1);
+      masked = x0 + R - 1 >= a.Sq || w0 + W > a.Sk ||
                (a.causal && w0 + W - 1 > a.q_offset + x0);
     }
-    if (live) {
-      float x1[NW][4], x2[NW][4];  // S | S^T, then P; dP | dP^T, then dS
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x1[j][e] = x2[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / KS; ++kk) {
-        typename M::A fa;
-        typename M::B fb[2];
-        M::load_a(fa, Ar + r0 * LD + kk * KS, LD, lane);
-#pragma unroll
-        for (int n2 = 0; n2 < W / 16; ++n2) {
-          M::load_bn(fb, Ct + n2 * 16 * LD + kk * KS, LD, lane);
-          M::mma(x1[2 * n2], fa, fb[0]);
-          M::mma(x1[2 * n2 + 1], fa, fb[1]);
-        }
-        M::load_a(fa, Br + r0 * LD + kk * KS, LD, lane);
-#pragma unroll
-        for (int n2 = 0; n2 < W / 16; ++n2) {
-          M::load_bn(fb, Dt + n2 * 16 * LD + kk * KS, LD, lane);
-          M::mma(x2[2 * n2], fa, fb[0]);
-          M::mma(x2[2 * n2 + 1], fa, fb[1]);
-        }
+    const float* lt = lds + wg * 2 * W;
+    if (!live) {  // a tile past the edge: its pieces handed back unread
+      for (int j = 0; j < OPS * NC; ++j) {
+        acquire(p);
+        ++p;
+        release(p);
       }
-      // x1[j][e]: row g (+8 for e >= 2) of the warp, walk row 8j + 2t +
-      // (e & 1) of the tile
-#pragma unroll
-      for (int j = 0; j < NW; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int rl = g + (e >> 1) * 8, cl = j * 8 + 2 * t + (e & 1);
-          float l2, dl;
-          if constexpr (KEYS) {
-            l2 = Ls[st * W + cl] * LOG2E;
-            dl = Ds[st * W + cl];
-          } else {
-            l2 = (e >> 1) ? lse1 : lse0;
-            dl = (e >> 1) ? del1 : del0;
-          }
-          float s = x1[j][e] * scale2;
-          if (masked) {
-            const int key = KEYS ? x0 + rl : w0 + cl;
-            const int i = KEYS ? w0 + cl : x0 + rl;
-            if (key >= a.Sk || i >= a.Sq || (a.causal && key > a.q_offset + i))
-              s = NEG_INF;
-          }
-          const float p = exp2f(s - l2);
-          x1[j][e] = p;
-          x2[j][e] = p * (x2[j][e] - dl) * a.scale;
-        }
-      // acc_C += dS C; acc_D += P D (pass 2)
-#pragma unroll
-      for (int kk = 0; kk < W / KS; ++kk) {
-        typename M::A pa, da;
-        typename M::B fb[2];
-        M::to_a(da, x2, kk);
-        if constexpr (KEYS) M::to_a(pa, x1, kk);
-#pragma unroll
-        for (int n2 = 0; n2 < D / 16; ++n2) {
-          M::load_bk(fb, Ct + kk * KS * LD + n2 * 16, LD, lane);
-          M::mma(acc_c[2 * n2], da, fb[0]);
-          M::mma(acc_c[2 * n2 + 1], da, fb[1]);
-          if constexpr (KEYS) {
-            M::load_bk(fb, Dt + kk * KS * LD + n2 * 16, LD, lane);
-            M::mma(acc_d[2 * n2], pa, fb[0]);
-            M::mma(acc_d[2 * n2 + 1], pa, fb[1]);
-          }
-        }
+      if constexpr (KEYS) {
+        tc::mbar_wait_bounded(ld_full + wg, k & 1);
+        tc::mbar_arrive_if(ld_empty + wg, lane == 0);
       }
+      continue;
     }
-    __syncthreads();  // the next iteration's copy reuses this stage
+
+    // x1 = A C^T, x2 = B D^T (S^T and dP^T | S and dP)
+    float x1[NS], x2[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) x1[i] = x2[i] = 0.f;
+#pragma unroll
+    for (int op = 0; op < 2; ++op)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acquire(p);
+        const uint32_t walk = ring_addr + (p % ST) * PIECE;
+        tc::wgmma_fence();
+        if (op == 0)
+          tf32_scores<D, W>(x1, fa_addr + c * FIXED, walk, c);
+        else
+          tf32_scores<D, W>(x2, fb_addr + c * FIXED, walk, c);
+        tc::wgmma_commit();
+        tc::wgmma_wait<LAG>();
+        ++p;
+        release(p - LAG);
+      }
+    tc::wgmma_wait<0>();
+    tc::fence_regs(x1);
+    tc::fence_regs(x2);
+    release(p);
+
+    // P = exp2(x1 scale log2e - lse log2e) under the mask, dS = P (x2 -
+    // delta) (the scale is applied to dK and dQ as they are written):
+    // x[4j + e] is fixed row g (+8 for e >= 2) of the warp, walk row 8j +
+    // 2t + (e & 1) of the tile.  Instantiated with and without the mask.
+    if constexpr (KEYS) tc::mbar_wait_bounded(ld_full + wg, k & 1);
+    auto elementwise = [&](auto mask) {
+#pragma unroll
+      for (int i = 0; i < NS; i += 2) {
+        const int hi = (i >> 1) & 1;
+        const int cl = (i >> 2) * 8 + 2 * t;  // walk rows cl, cl + 1
+        float l2[2], dl[2];
+        if constexpr (KEYS) {
+          const float4 v = *reinterpret_cast<const float4*>(lt + 2 * cl);
+          l2[0] = v.x, dl[0] = v.y, l2[1] = v.z, dl[1] = v.w;
+        } else {
+          l2[0] = l2[1] = hi ? lse1 : lse0;
+          dl[0] = dl[1] = hi ? del1 : del0;
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float e = fmaf(x1[i + u], scale2, -l2[u]);
+          if constexpr (decltype(mask)::value) {
+            const int xf = xr + hi * 8, xw = w0 + cl + u;
+            const int key = KEYS ? xf : xw, qi = KEYS ? xw : xf;
+            if (key >= a.Sk || qi >= a.Sq || (a.causal && key > a.q_offset + qi))
+              e = NEG_INF;
+          }
+          const float pv = exp2f(e);
+          x1[i + u] = pv;
+          x2[i + u] = pv * (x2[i + u] - dl[u]);
+        }
+      }
+    };
+    if (masked)
+      elementwise(std::true_type{});
+    else
+      elementwise(std::false_type{});
+    if constexpr (KEYS) {
+      __syncwarp();
+      tc::mbar_arrive_if(ld_empty + wg, lane == 0);
+    }
+
+    // dV += P^T dO (KEYS), then dK += dS^T Q | dQ += dS K: RS products,
+    // each piece one head-dim chunk of the gradient.  The A operand of one
+    // stays in registers until its products are done, so dS is split only
+    // after dV's products have completed.
+    if constexpr (KEYS) {
+      uint32_t pb[W / 8][4], ps[W / 8][4];
+      tf32_to_a<W>(x1, pb, ps);
+      walk_grads(acc_d, pb, ps);
+      tc::fence_regs(x2);
+    }
+    uint32_t db[W / 8][4], ds[W / 8][4];
+    tf32_to_a<W>(x2, db, ds);
+    walk_grads(acc_c, db, ds);
   }
-  tc::cp_async_wait<0>();
+
+  // warpgroup 1's partial gradients into warpgroup 0's, through the ring
+  // (its pieces all taken and every product done: the two warpgroups
+  // meet first)
+  float* xs = reinterpret_cast<float*>(rings) + (tid & 127);
+  tc::fence_proxy_async();
+  tc::named_barrier(1, 256);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) xs[i * 128] = acc_c[i];
+    if constexpr (KEYS)
+#pragma unroll
+      for (int i = 0; i < NA; ++i) xs[(NA + i) * 128] = acc_d[i];
+  }
+  tc::named_barrier(1, 256);
+  if (wg == 1) return;
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc_c[i] += xs[i * 128];
+  if constexpr (KEYS)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc_d[i] += xs[(NA + i) * 128];
 
   // write each row once (a walk that was empty writes zeros)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int x = x0 + g + half * 8;
+    const int x = xr + half * 8;
     if (x >= nrows) continue;
-    T* oc;
-    T* od = nullptr;
+    float* oc;
+    float* od = nullptr;
     if (KEYS) {
       const long long row = ((long long)b * a.Sk + x) * a.Hkv + hk;
-      oc = static_cast<T*>(a.dk) + row * D;
-      od = static_cast<T*>(a.dv) + row * D;
+      oc = static_cast<float*>(a.dk) + row * D;
+      od = static_cast<float*>(a.dv) + row * D;
     } else {
       const long long row = ((long long)b * a.Sq + x) * a.H + h;
-      oc = static_cast<T*>(a.dq) + row * D;
+      oc = static_cast<float*>(a.dq) + row * D;
     }
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      M::store2(oc + n * 8 + 2 * t, acc_c[n][2 * half], acc_c[n][2 * half + 1]);
+    for (int i = 0; i < D / 8; ++i) {
+      *reinterpret_cast<float2*>(oc + i * 8 + 2 * t) =
+          make_float2(acc_c[4 * i + 2 * half] * a.scale,
+                      acc_c[4 * i + 2 * half + 1] * a.scale);
       if constexpr (KEYS)
-        M::store2(od + n * 8 + 2 * t, acc_d[n][2 * half], acc_d[n][2 * half + 1]);
+        *reinterpret_cast<float2*>(od + i * 8 + 2 * t) =
+            make_float2(acc_d[4 * i + 2 * half], acc_d[4 * i + 2 * half + 1]);
     }
   }
 }
 
-template <typename T, int D, bool KEYS>
-int launch_pass(const Args& a, int batch, cudaStream_t stream) {
-  using Cf = Cfg<T, D>;
-  auto* kernel = fa_bwd<T, D, KEYS>;
-  if (Cf::SMEM > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(kernel),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::SMEM);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(((KEYS ? a.Sk : a.Sq) + Cf::R - 1) / Cf::R, KEYS ? a.Hkv : a.H,
-            batch);
-  kernel<<<grid, Cf::THREADS, Cf::SMEM, stream>>>(a);
+template <int D, bool KEYS>
+int launch_tf32_pass(const Args& a, const Scratch& s, int batch,
+                     cudaStream_t stream) {
+  using Cf = TfCfg<D, KEYS>;
+  auto* kernel = fa_bwd_tf32<D, KEYS>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Cf::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(batch * (KEYS ? a.Hkv : a.H), KEYS ? s.TK : s.TQ);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, Cf::THREADS, Cf::SMEM, stream>>>(a, s);
   return (int)cudaGetLastError();
 }
 
-// the dQ pass first: it writes delta, which the dK/dV pass reads
-template <typename T, int D>
-int launch(const Args& a, int batch, cudaStream_t stream) {
-  const int e = launch_pass<T, D, false>(a, batch, stream);
+// the pre-pass, then the dQ pass, then the dK/dV pass
+template <int D>
+int launch_tf32(const Args& a, int batch, cudaStream_t stream) {
+  Scratch s;
+  tf_scratch(batch, a.Sq, a.Sk, a.H, a.Hkv, D, a.delta, &s);
+  const long long jobs =
+      2LL * batch * a.H * s.TQ + 2LL * batch * a.Hkv * s.TK;
+  if (jobs > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fa_bwd_prep<D><<<(unsigned)jobs, 256, 0, stream>>>(a, s, batch);
+  int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  return launch_pass<T, D, true>(a, batch, stream);
+  e = launch_tf32_pass<D, false>(a, s, batch, stream);
+  if (e != 0) return e;
+  return launch_tf32_pass<D, true>(a, s, batch, stream);
 }
 
-template <typename T>
-int launch_d(int D, const Args& a, int batch, cudaStream_t s) {
+// A check of the tf32 wgmma the float32 route builds on: one warpgroup
+// multiplies A (64 x 8, row-major) by B (8 x 32, given as 32 rows of 8 k)
+// once as an SS product from 128-byte swizzled K-major tiles and once as an
+// RS product with A in registers in the tf32 fragment layout (tc.cuh),
+// each operand word passed as it is: d_ss and d_rs (64 x 32, row-major).
+__global__ void __launch_bounds__(128) tf32_probe(const float* A,
+                                                  const float* B,
+                                                  float* d_ss, float* d_rs) {
+  __shared__ __align__(1024) float sa[64 * 32];
+  __shared__ __align__(1024) float sb[32 * 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = tid; i < 64 * 32; i += 128) {
+    const int r = i / 32, f = i % 32;
+    sa[r * 32 + (((f >> 2) ^ (r & 7)) << 2) + (f & 3)] = f < 8 ? A[r * 8 + f] : 0.f;
+  }
+  for (int i = tid; i < 32 * 32; i += 128) {
+    const int r = i / 32, f = i % 32;
+    sb[r * 32 + (((f >> 2) ^ (r & 7)) << 2) + (f & 3)] = f < 8 ? B[r * 8 + f] : 0.f;
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+  float d[16], e[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) d[i] = e[i] = 0.f;
+  const int r0 = warp * 16 + g;
+  const uint32_t a[4] = {__float_as_uint(A[r0 * 8 + t]), __float_as_uint(A[(r0 + 8) * 8 + t]),
+                         __float_as_uint(A[r0 * 8 + t + 4]),
+                         __float_as_uint(A[(r0 + 8) * 8 + t + 4])};
+  const uint64_t db = tc::desc(tc::smem_u32(sb), 16, 1024, 128);
+  tc::wgmma_fence();
+  tc::wgmma_tf32_ss<32>(d, tc::desc(tc::smem_u32(sa), 16, 1024, 128), db, 0);
+  tc::wgmma_tf32_rs<32, 0>(e, a, db);
+  tc::wgmma_commit();
+  tc::wgmma_wait<0>();
+  tc::fence_regs(d);
+  tc::fence_regs(e);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int row = r0 + ((i >> 1) & 1) * 8, col = (i >> 2) * 8 + 2 * t + (i & 1);
+    d_ss[row * 32 + col] = d[i];
+    d_rs[row * 32 + col] = e[i];
+  }
+}
+
+int launch_tf32_d(int D, const Args& a, int batch, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(a, batch, s);
-    case 32: return launch<T, 32>(a, batch, s);
-    case 64: return launch<T, 64>(a, batch, s);
-    case 80: return launch<T, 80>(a, batch, s);
-    case 128: return launch<T, 128>(a, batch, s);
+    case 16: return launch_tf32<16>(a, batch, s);
+    case 32: return launch_tf32<32>(a, batch, s);
+    case 64: return launch_tf32<64>(a, batch, s);
+    case 80: return launch_tf32<80>(a, batch, s);
+    case 128: return launch_tf32<128>(a, batch, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -537,8 +874,8 @@ struct WgCfg {
   // registers a thread: 168 at launch (65,536 / 384), then the producer
   // warpgroup's 128 threads give up 144 each and the consumers' 256 take
   // 72 each
-  static constexpr int REGS = 240;
-  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int REGS = 232;
+  static constexpr int PRODUCER_REGS = 40;
   // tiles, lse and delta of each stage, barriers, room to align to 1024
   static constexpr size_t SMEM = 2 * (size_t)FIXED +
                                  (size_t)STAGES * 2 * WALK +
@@ -892,18 +1229,21 @@ int launch_wg_d(int D, const Args& a, int batch, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-// fixed rows, walk rows and the rows of a unit that skips a tile (a
-// warp | a warpgroup) of each route
+// fixed rows, walk rows of the dK/dV pass, the rows of the unit that
+// skips a tile (a consumer warpgroup) and walk rows of the dQ pass, of
+// each route
 template <int D>
 void geometry(int dtype, int* out) {
   if (dtype == 0) {
-    out[0] = Cfg<float, D>::R;
-    out[1] = Cfg<float, D>::W;
-    out[2] = 16;
+    out[0] = TfCfg<D, true>::R;
+    out[1] = TfCfg<D, true>::W;
+    out[2] = 64;
+    out[3] = TfCfg<D, false>::W;
   } else {
     out[0] = WgCfg<D>::R;
     out[1] = WgCfg<D>::W;
     out[2] = 64;
+    out[3] = WgCfg<D>::W;
   }
 }
 
@@ -912,10 +1252,13 @@ void geometry(int dtype, int* out) {
 // dtype: 0 float32 (3xTF32), 1 bfloat16, for q, k, v, out, dout, dq, dk
 // and dv.  Strides are in elements; each of q, k, v, out and dout has a
 // head stride of D and unit feature stride, and every base pointer and
-// batch or sequence stride of q, k, v and dout is 16-byte aligned; lse
-// and delta (B,Sq,H) float32, dq (B,Sq,H,D) and dk, dv (B,Sk,Hkv,D) are
-// contiguous.  Launches two kernels on the stream; returns the
-// cudaError_t of the launches.
+// batch or sequence stride of q, k, v, out and dout is 16-byte aligned;
+// lse (B,Sq,H) float32, dq (B,Sq,H,D) and dk, dv (B,Sk,Hkv,D) are
+// contiguous.  delta is the route's float32 scratch, 256-byte aligned, of
+// repro_flash_attention_backward_scratch floats: bf16, delta (B,Sq,H),
+// which the dQ pass writes; float32, the pre-pass's images (delta among
+// them).  Launches two kernels on the stream (bf16) or three (float32:
+// the pre-pass first); returns the cudaError_t of the launches.
 extern "C" int repro_flash_attention_backward(
     int dtype, const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -939,15 +1282,39 @@ extern "C" int repro_flash_attention_backward(
          H,  Hkv, q_offset, causal ? 1 : 0, scale, sqb, sqt, skb, skt,
          svb, svt, sob, sot, sdb, sdt};
   cudaStream_t s = (cudaStream_t)stream;
-  return dtype == 0 ? launch_d<float>(D, a, batch, s)
+  return dtype == 0 ? launch_tf32_d(D, a, batch, s)
                     : launch_wg_d(D, a, batch, s);
+}
+
+// tf32_probe on the stream (A, B and the outputs on the card)
+extern "C" int repro_flash_attention_backward_tf32_probe(const float* A,
+                                                         const float* B,
+                                                         float* d_ss,
+                                                         float* d_rs,
+                                                         void* stream) {
+  tf32_probe<<<1, 128, 0, (cudaStream_t)stream>>>(A, B, d_ss, d_rs);
+  return (int)cudaGetLastError();
+}
+
+// The floats of scratch route dtype needs for these shapes (the wrapper
+// allocates them and passes them as delta), in *floats.
+extern "C" int repro_flash_attention_backward_scratch(int dtype, int batch,
+                                                      int Sq, int Sk, int H,
+                                                      int Hkv, int D,
+                                                      long long* floats) {
+  if ((dtype != 0 && dtype != 1) || batch < 1 || Sq < 1 || Sk < 1 || H < 1 ||
+      Hkv < 1 || (D != 16 && D != 32 && D != 64 && D != 80 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  *floats = dtype == 0 ? tf_scratch(batch, Sq, Sk, H, Hkv, D, nullptr, nullptr)
+                       : (long long)batch * Sq * H;
+  return 0;
 }
 
 // The launch geometry of route dtype at head dim D, which
 // flash_attention.backward_walks and backward_tiles mirror: out[0] the
-// fixed tile's rows, out[1] the walk tile's, out[2] the rows of the unit
-// that skips a walk tile (a warp of the mma.sync route, a warpgroup of
-// the wgmma route).
+// fixed tile's rows, out[1] the dK/dV pass's walk tile's, out[2] the rows
+// of the unit that skips a walk tile (a consumer warpgroup, in both
+// routes), out[3] the dQ pass's walk tile's.
 extern "C" int repro_flash_attention_backward_geometry(int dtype, int D,
                                                        int* out) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;

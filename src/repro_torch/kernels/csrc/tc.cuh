@@ -16,6 +16,10 @@
 //   shared-memory matrix descriptor of the no-swizzle (interleaved)
 //   layout, the fence / commit / wait of a warpgroup, the product with
 //   both operands in shared memory (SS) and with A in registers (RS);
+// - wgmma.mma_async for tf32 operands (k8), SS and RS, with fp32
+//   accumulation; both shared-memory operands K-major (tf32 has no
+//   MN-major form); a bulk copy (the TMA unit, no tensor map) of a
+//   contiguous block into shared memory;
 // - setmaxnreg, which hands registers from a producer warpgroup to the
 //   consumer warpgroups;
 // - on the host, the 4-D tensor map of a bf16 (B, S, heads, D) operand
@@ -28,8 +32,12 @@
 //                 C: c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
 //   wgmma m64nN   D: warp w of the warpgroup holds rows 16w..16w+15;
 //                 d[4i + {0,1,2,3}] = C of the i-th 8-column slice
-//                 RS A (k16): a0 (g, 2t..2t+1)  a1 (g+8, 2t..2t+1)
+//                 RS A (bf16, k16): a0 (g, 2t..2t+1)  a1 (g+8, 2t..2t+1)
 //                             a2 (g, 2t+8..+9) a3 (g+8, 2t+8..+9)
+//                 RS A (tf32, k8): a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)
+//                             a3 (g+8, t+4), rows of warp w's 16 as D's,
+//                             one float32 word a register read as TF32
+//                             from its top 19 bits
 //
 // The no-swizzle layout stores a matrix as core matrices of 8 rows x
 // 16 bytes, each 128 contiguous bytes (one row per 16 bytes).  In a
@@ -94,6 +102,21 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
   big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
 }
+// x = big + small exactly, for an operand stored in shared memory: big
+// rounded to the nearest TF32 value as split rounds it (to TF32 truncated
+// where that rounding would carry into the exponent of infinity), its low
+// 13 bits clear; small = x - big in float32, exact, which a TF32 product
+// reads truncated to its top 19 bits (about 21 bits of x in all); a zero
+// small takes x's sign, so that big + small is x bit for bit, -0 too
+__device__ __forceinline__ void split_exact(float x, float& big,
+                                            float& small) {
+  const uint32_t u = __float_as_uint(x);
+  uint32_t r = (u + 0x1000u) & 0xffffe000u;
+  if ((r & 0x7f800000u) == 0x7f800000u) r = u & 0xffffe000u;
+  big = __uint_as_float(r);
+  small = x - big;
+  if (small == 0.f) small = copysignf(0.f, x);
+}
 // a bf16 value widened to float32 is exact in TF32
 __device__ __forceinline__ uint32_t exact(float x) { return __float_as_uint(x); }
 
@@ -149,6 +172,16 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                    smem_u32(bar))
                : "memory");
 }
+// arrive where pred holds, by a predicated instruction (no branch: a
+// warpgroup with products in flight may run it, where a branch on the
+// lane would make ptxas serialize the products)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"((int)pred)
+      : "memory");
+}
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
@@ -191,6 +224,16 @@ __device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar,
         : "memory");
     if (done) return;
   }
+}
+// bytes (a multiple of 16) from a contiguous block at src to dst, both
+// 16-byte aligned, by the TMA unit, completing on bar's transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 // one box of a 4-D tensor map into shared memory, completing on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
@@ -346,6 +389,86 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 128) wgmma_rs_m64n128k16(d, a, db);
 }
 
+// ---------------------------------------------------------- tf32 wgmma
+// Each k8 step reads 32 bytes of a K-major row, as a k16 step of bf16
+// does: in a 128-byte swizzled tile, step kk starts 32 kk bytes into the
+// rows of its atom column, SBO 1024 (8 rows of 128 bytes).  The D
+// fragment is the bf16 products' (d[4i + e], above); A in registers takes
+// the tf32 layout above, so an accumulator slice passes to the A operand
+// of the next product with its k slots t and t + 4 taken as columns 2t
+// and 2t + 1 (a0 = d[4i], a1 = d[4i + 2], a2 = d[4i + 1], a3 = d[4i + 3]),
+// and the B operand must hold its k rows in that order in each group of
+// 8: 0, 2, 4, 6, 1, 3, 5, 7.
+// d (+)= A B over k8 in TF32: A (64 x 8) and B (8 x 32) both K-major in
+// shared memory, described by da and db; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss_m64n32k8(float (&d)[16], uint64_t da,
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d (+)= A B over k8 in TF32: A (64 x 8) and B (8 x 64) both K-major in
+// shared memory, described by da and db; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss_m64n64k8(float (&d)[32], uint64_t da,
+                                                     uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+// d[OFF..] += A B over k8 in TF32: A (64 x 8) in registers (the tf32 A
+// fragment above), B (8 x 16) K-major in shared memory, described by db;
+// the 8 accumulators from d[OFF] (a 16-column slice of a wider D)
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_tf32_rs_m64n16k8(float (&d)[R],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  static_assert(OFF + 8 <= R, "accumulator slice out of range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// d[OFF..] += A B over k8 in TF32: A (64 x 8) in registers (the tf32 A
+// fragment above), B (8 x 32) K-major in shared memory, described by db;
+// the 16 accumulators from d[OFF] (a 32-column slice of a wider D)
+template <int OFF, int R>
+__device__ __forceinline__ void wgmma_tf32_rs_m64n32k8(float (&d)[R],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  static_assert(OFF + 16 <= R, "accumulator slice out of range");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// the SS product of width N (32 or 64), and the RS product of width N (16
+// or 32) into d[OFF..], picked at compile time
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64, "tf32 SS wgmma at N 32 or 64");
+  if constexpr (N == 32) wgmma_tf32_ss_m64n32k8(d, da, db, scale_d);
+  if constexpr (N == 64) wgmma_tf32_ss_m64n64k8(d, da, db, scale_d);
+}
+template <int N, int OFF, int R>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[R],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  static_assert(N == 16 || N == 32, "tf32 RS wgmma at N 16 or 32");
+  if constexpr (N == 16) wgmma_tf32_rs_m64n16k8<OFF>(d, a, db);
+  if constexpr (N == 32) wgmma_tf32_rs_m64n32k8<OFF>(d, a, db);
+}
+
 // ------------------------------------------------------------- setmaxnreg
 // Registers handed between warpgroups (sm_90a): every warp of a
 // warpgroup that exists runs it (a warpgroup may be a lone warp).  dec
@@ -359,6 +482,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// a barrier among the n threads (whole warps) that name barrier id (1-15;
+// __syncthreads is barrier 0)
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ------------------------------------------------------- tensor maps (host)

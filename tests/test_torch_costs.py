@@ -412,3 +412,32 @@ def test_one_copy_of_the_rates_serves_the_bounds():
     assert chip_smoke.attn_work is work.attn_work
     assert work.PEAK_FLOPS == 989e12 and work.HBM_BYTES_S == 3.35e12
     assert np.isclose(work.PRODUCT_FLOP_S["torch.float32"], 495e12 / 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_flash_backward_holds_its_scratch_live(dtype):
+    """The meta backward holds the scratch its wrapper allocates live
+    beside dq, dk and dv while it records the launch: the float32
+    route's pre-pass images (``backward_scratch_floats``, about 3.5
+    times the operands' bytes), the bfloat16 route's delta.  The peak is
+    their sum; the scratch is gone after; the work recorded is
+    ``work.attn_bwd_work``, which the images do not change."""
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Sk, H, Hkv, D = 2, 40, 70, 4, 2, 80
+    q, out, do = (torch.empty((B, Sq, H, D), dtype=dtype, device="meta")
+                  for _ in range(3))
+    k, v = (torch.empty((B, Sk, Hkv, D), dtype=dtype, device="meta")
+            for _ in range(2))
+    lse = torch.empty((B, Sq, H), device="meta")
+    with costs.CostCounter() as c:
+        grads = fa.flash_attention_backward_meta(q, k, v, out, lse, do)
+    scratch = 4 * fa.backward_scratch_floats(B, Sq, Sk, H, Hkv, D, dtype)
+    held = sum(g.numel() * g.element_size() for g in grads)
+    assert c.peak_bytes == held + scratch
+    assert c.live_bytes == held
+    if dtype == torch.float32:
+        assert scratch > 3.5 * 4 * (2 * q.numel() + 2 * k.numel())
+    nbytes, products, _ = work.attn_bwd_work(B, Sq, Sk, H, Hkv, D, 0, True,
+                                             dtype.itemsize)
+    assert c.kernel_breakdown == {"flash_attention_backward": {
+        "launches": 1, "flops": products, "bytes": nbytes}}

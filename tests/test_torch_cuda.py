@@ -1112,6 +1112,18 @@ def test_scan_functions_hold_autograd_through_the_plain_form(cuda, kind,
     (2, 77, 333, 4, 2, 64, 100, True, torch.bfloat16),
     (1, 130, 1000, 8, 2, 128, 437, True, torch.bfloat16),
     (1, 300, 300, 8, 2, 128, 0, True, torch.bfloat16),
+    # the float32 route's edges (64-row tiles and pieces, head dims padded
+    # to 32-column chunks): Sq and Sk that no piece divides at D 16, 32, 80
+    # and 128; causal offsets whose first q tile starts inside a key
+    # block; four q heads a kv head at D 128; one query row; cross-
+    # attention, not causal
+    (2, 77, 333, 4, 2, 16, 100, True, torch.float32),
+    (1, 333, 517, 6, 3, 32, 184, True, torch.float32),
+    (1, 130, 1000, 8, 2, 128, 437, True, torch.float32),
+    (1, 300, 300, 8, 2, 128, 0, True, torch.float32),
+    (2, 100, 100, 2, 2, 80, 37, True, torch.float32),
+    (2, 1, 300, 4, 1, 80, 0, True, torch.float32),
+    (2, 32, 300, 6, 6, 128, 0, False, torch.float32),
 ])
 def test_flash_function_backward_on_the_card(cuda, B, Sq, Sk, H, Hkv, D,
                                              q_offset, causal, dtype):
@@ -1199,13 +1211,17 @@ def test_flash_backward_kernel_takes_strided_do_and_mixed_dtypes(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
-def test_flash_backward_bf16_reads_strided_operands(cuda, D):
-    """The bfloat16 route's tensor maps step q, k, v and dO by their own
-    sequence strides: slices of packed projections (q, k and v of one
-    (B, S, H + 2 Hkv, D) tensor, dO of a wider one) go in without a copy
-    and give the gradients of their contiguous copies bit for bit, within
-    the card's bfloat16 gradient tolerance of ``flash_backward``."""
+@pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (80, torch.float32)])
+def test_flash_backward_bf16_reads_strided_operands(cuda, D, dtype):
+    """Both routes step q, k, v and dO by their own sequence strides (the
+    bfloat16 route's tensor maps, the float32 route's pre-pass): slices
+    of packed projections (q, k and v of one (B, S, H + 2 Hkv, D) tensor,
+    dO of a wider one) go in without a copy and give the gradients of
+    their contiguous copies bit for bit, within the card's gradient
+    tolerance of ``flash_backward`` (bfloat16 2e-2, float32 2e-4)."""
     from repro_torch.kernels import _build, flash_vjp
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_cuda)
@@ -1214,7 +1230,7 @@ def test_flash_backward_bf16_reads_strided_operands(cuda, D):
 
     def n(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(cuda).to(torch.bfloat16)
+            np.float32)).to(cuda).to(dtype)
     qkv = n((B, S, H + 2 * Hkv, D))
     q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
     do = n((B, S, H + 3, D))[:, :, :H]
@@ -1229,21 +1245,30 @@ def test_flash_backward_bf16_reads_strided_operands(cuda, D):
                                      q_offset=37)
     for g, w, p in zip(got, want, plain):
         assert torch.equal(g, w)
-        torch.testing.assert_close(g.float(), p.float(), atol=2e-2,
-                                   rtol=2e-2)
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, p, atol=2e-4, rtol=0)
+        else:
+            torch.testing.assert_close(g.float(), p.float(), atol=2e-2,
+                                       rtol=2e-2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,Hkv", [(64, 36), (128, 8), (80, 4)])
-def test_flash_backward_bf16_launches_are_bit_equal(cuda, D, Hkv):
-    """Two launches of the bfloat16 backward on the same tensors give the
-    same dq, dk and dv bit for bit: both passes sum in a fixed order and
-    use no atomics (a resumed training step equals the straight run)."""
+@pytest.mark.parametrize("D,Hkv,dtype", [(64, 36, torch.bfloat16),
+                                         (128, 8, torch.bfloat16),
+                                         (80, 4, torch.bfloat16),
+                                         (64, 36, torch.float32),
+                                         (128, 8, torch.float32),
+                                         (80, 4, torch.float32)])
+def test_flash_backward_bf16_launches_are_bit_equal(cuda, D, Hkv, dtype):
+    """Two launches of the backward on the same tensors give the same dq,
+    dk and dv bit for bit, in both routes: both passes sum in a fixed
+    order and use no atomics (a resumed training step equals the straight
+    run); the float32 route's pre-pass writes the same images."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward_cuda, flash_attention_cuda)
     H = 36 if D == 64 else 16
-    q, k, v = _attn(29, 1, 1100, 1100, H, Hkv, D, cuda, torch.bfloat16)
-    do = _attn(30, 1, 1100, 1100, H, H, D, cuda, torch.bfloat16)[0]
+    q, k, v = _attn(29, 1, 1100, 1100, H, Hkv, D, cuda, dtype)
+    do = _attn(30, 1, 1100, 1100, H, H, D, cuda, dtype)[0]
     out, lse = flash_attention_cuda(q, k, v)
     first = flash_attention_backward_cuda(q, k, v, out, lse, do)
     second = flash_attention_backward_cuda(q, k, v, out, lse, do)
@@ -1255,16 +1280,67 @@ def test_flash_backward_bf16_launches_are_bit_equal(cuda, D, Hkv):
 def test_flash_backward_library_reports_the_mirrors_geometry(cuda):
     """The built backward library's fixed rows, walk rows and skipping
     unit of each route and head dim are the ones ``backward_walks`` and
-    ``backward_tiles`` mirror (``BWD_ROWS``, ``bwd_walk_rows``,
-    ``bwd_unit_rows``)."""
+    ``backward_tiles`` mirror (``bwd_fixed_rows``, ``bwd_walk_rows``,
+    ``bwd_unit_rows``), and the scratch it takes is the one the wrapper
+    allocates (``backward_scratch_floats``: the float32 route's images,
+    the bfloat16 route's delta)."""
+    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     lib = _build.load("flash_attention_backward")
     for dtype in (torch.float32, torch.bfloat16):
         for D in fa.HEAD_DIMS:
             assert fa.backward_geometry(lib, D, dtype) == (
-                fa.BWD_ROWS, fa.bwd_walk_rows(D, dtype),
-                fa.bwd_unit_rows(dtype)), (dtype, D)
+                fa.bwd_fixed_rows(dtype), fa.bwd_walk_rows(D, dtype),
+                fa.bwd_unit_rows(dtype),
+                fa.bwd_walk_rows(D, dtype, keys=False)), (dtype, D)
+            for B, Sq, Sk, H, Hkv in ((2, 4096, 4096, 16, 8),
+                                      (1, 1, 300, 4, 2), (3, 77, 900, 6, 3)):
+                got = ctypes.c_longlong()
+                assert lib.repro_flash_attention_backward_scratch(
+                    fa._DTYPES[dtype], B, Sq, Sk, H, Hkv, D,
+                    ctypes.byref(got)) == 0
+                assert got.value == fa.backward_scratch_floats(
+                    B, Sq, Sk, H, Hkv, D, dtype), (dtype, D, Sq, Sk)
+
+
+@pytest.mark.cuda
+def test_tf32_wgmma_reads_the_top_19_bits(cuda):
+    """The tf32 ``wgmma`` the float32 backward is built on
+    (``tf32_probe``: one SS product from 128-byte swizzled K-major tiles,
+    one RS product with A in the tf32 register layout): each float32 word
+    is read as TF32 from its top 19 bits, the low 13 ignored (truncation,
+    which is why the pre-pass stores big with them clear), and both
+    products equal float64 products of the truncated operands up to
+    float32 accumulation (which shows the fragment layouts and the
+    descriptors right)."""
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention_backward")
+    rng = np.random.default_rng(30)
+    a = rng.standard_normal((64, 8)).astype(np.float32)
+    b = rng.standard_normal((32, 8)).astype(np.float32)
+    a[0] = 0
+    a[0, 0] = 1 + 2.0 ** -11 + 2.0 ** -12   # rounds up, truncates down
+    b[0] = 0
+    b[0, 0] = 1.0
+    outs = []
+    for x in (a, b):
+        outs.append(torch.from_numpy(x).to(cuda))
+    d_ss = torch.empty((64, 32), device=cuda)
+    d_rs = torch.empty((64, 32), device=cuda)
+    assert lib.repro_flash_attention_backward_tf32_probe(
+        outs[0].data_ptr(), outs[1].data_ptr(), d_ss.data_ptr(),
+        d_rs.data_ptr(), torch.cuda.current_stream(cuda).cuda_stream) == 0
+    torch.cuda.synchronize()
+
+    def trunc(x):
+        return (torch.from_numpy(x).view(torch.int32) & -0x2000).view(
+            torch.float32).double()
+    want = trunc(a) @ trunc(b).T
+    for d in (d_ss, d_rs):
+        d = d.cpu().double()
+        assert float(d[0, 0]) == 1.0
+        torch.testing.assert_close(d, want, atol=1e-5, rtol=1e-6)
 
 
 @pytest.mark.cuda
