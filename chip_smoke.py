@@ -612,6 +612,29 @@ def time_ms(fn, flush, reps=30):
     return statistics.median(times)
 
 
+def launch_split(fn, reps=3):
+    """Device ms a call of ``fn()`` spends in each kernel it launches,
+    by the kernel's name: ``torch.profiler`` over ``reps`` warm calls
+    (no L2 flush, so each launch reads what the one before left in L2)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", 0)
+        name = re.search(r"(\w+_kernel)", e.key)
+        if total > 0 and name:
+            split[name.group(1)] = split.get(name.group(1), 0.0) + \
+                total / reps / 1e3
+    return split
+
+
 class HeldCalls:
     """Within ``with HeldCalls() as held:``, the engine's calls of K1's
     and K2's wrappers (through ``repro_torch.kernels.ops``, its only way
@@ -1317,18 +1340,20 @@ def phase_kernels():
                           "mamba2_ssd_bwd.cu (mma.sync 3xTF32)"
                           if kind == "mamba2_ssd" else
                           "K5 forward + the backward kernel "
-                          "rwkv6_scan_bwd.cu (fp32 FMA)"),
+                          "rwkv6_scan_bwd.cu (mma.sync 3xTF32, a walk over "
+                          "64-step boundaries)"),
                 "earlier_ms": earlier,
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    def wkv_bwd_case(B, T, H, K, dtype):
+    def wkv_bwd_case(B, T, H, K, dtype, earlier):
         """K5's backward kernel alone, y's cotangent only (as a training
         step), against autograd through the plain chunked forward on the
         same tensors under the scans' gradient gates, each gradient in its
         input's dtype, two launches equal bit for bit (no atomics); timed
-        beside its plain version, ``ref.rwkv6_chunked_backward``."""
+        beside its plain version, ``ref.rwkv6_chunked_backward``.
+        ``earlier`` names earlier routes' times at this shape."""
         from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
         r, k, v, w, u, _ = wkv_inputs(rng, B, T, H, K, dtype)
         dy = torch.from_numpy(rng.standard_normal((B, T, H, K)).astype(
@@ -1367,18 +1392,24 @@ def phase_kernels():
         nbytes, products, other = wkv_bwd_work(B, T, H, K, K,
                                                r.element_size())
         bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        split = launch_split(kernel)
+        print(f"  {what}: by launch (warm) " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
         return {"kernel": "rwkv6_scan_backward", "shape": [B, T, H, K],
                 "dtype": str(dtype), "max_abs_err": err,
                 "max_abs_err_vs_plain": plain_err,
                 "ms": time_ms(kernel, flush),
+                "launch_ms": split,
                 "plain_ms": time_ms(plain, flush, reps=3),
                 "library_ms": None,
                 "library_call": "none: no single PyTorch call computes "
                                 "the WKV6 gradient",
-                "route": "fp32 FMA: two walks (the states forward, the "
-                         "adjoints backward) saving every 16-step "
-                         "boundary, a CTA a 16-step block, du summed in "
-                         "order",
+                "route": "mma.sync 3xTF32: each 64-step block's own "
+                         "state and adjoint shares (chained from 16-step "
+                         "sub-shares), a walk over the 64-step boundaries, "
+                         "a CTA a block walking its four 16-step "
+                         "sub-blocks, du summed in order",
+                "earlier_ms": earlier,
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
@@ -1581,11 +1612,16 @@ def phase_kernels():
                                {"PR 20, call 1": 136.6,
                                 "PR 20, call 2": 140.7}))
     # K5's backward kernel alone at rwkv6-1.6b's microbatch, in bfloat16
-    # (its training dtype) and float32
-    entries["rwkv6_scan_backward"] = wkv_bwd_case(2, 4096, 32, 64,
-                                                  torch.bfloat16)
+    # (its training dtype) and float32, then K5's forward alone at the
+    # same shape in bfloat16, which phase 16c launches 192 times
+    entries["rwkv6_scan_backward"] = wkv_bwd_case(
+        2, 4096, 32, 64, torch.bfloat16,
+        {"fp32 FMA walks over every step": 2.857168})
     rows.append(entries["rwkv6_scan_backward"])
-    rows.append(wkv_bwd_case(2, 4096, 32, 64, torch.float32))
+    rows.append(wkv_bwd_case(
+        2, 4096, 32, 64, torch.float32,
+        {"fp32 FMA walks over every step": 2.5612}))
+    rows.append(wkv_case(2, 4096, 32, 64, torch.bfloat16))
     rows.append(attn_grad_case(1, 4096, 32, 32, 80, torch.float32,
                                {"mma.sync backward kernel": 8.668752,
                                 "torch.einsum backward": 20.554751}))
@@ -3405,6 +3441,37 @@ def changed_kernels(old_csrc) -> list[str]:
     return out
 
 
+def wkv_backward_16step(lib, r, k, v, w, u, dy):
+    """``(dr, dk, dv, dw, du)`` from a build of K5's backward that has no
+    geometry entry point (the design that walked every step), for
+    ``--ab``: its entry point takes the arguments the wrapper passes, but
+    its scratch holds the states and adjoints at every 16-step boundary,
+    (B, H, T/16 + 1, K, V) floats each, and du's shares (B, T/16, H, K).
+    y's cotangent only, no initial state; r, k, v, dy contiguous."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rwkv6_scan import _DTYPES
+    B, T, H, K = r.shape
+    V = v.shape[3]
+    f32, dev, nb = torch.float32, r.device, -(-T // 16)
+    states = torch.empty((B, H, nb + 1, K, V), dtype=f32, device=dev)
+    adj = torch.empty_like(states)
+    du_part = torch.empty((B, nb, H, K), dtype=f32, device=dev)
+    dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
+    dw = torch.empty((B, T, H, K), dtype=f32, device=dev)
+    du = torch.empty((H, K), dtype=f32, device=dev)
+    w, u = w.float().contiguous(), u.float().contiguous()
+    _build.check(lib.repro_rwkv6_scan_backward(
+        _DTYPES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
+        w.data_ptr(), u.data_ptr(), None, dy.data_ptr(), None,
+        states.data_ptr(), adj.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(), du.data_ptr(),
+        None, B, T, H, K, V, *_build.outer(r), *_build.outer(k),
+        *_build.outer(v), *_build.outer(w), *_build.outer(dy),
+        torch.cuda.current_stream().cuda_stream), "rwkv6_scan_backward")
+    return dr, dk, dv, dw, du
+
+
 def phase_ab(old_csrc, names=None):
     """Old against new kernels in one process on one card: the kernels
     ``names`` (by default every kernel whose sources differ, see
@@ -3538,17 +3605,25 @@ def phase_ab(old_csrc, names=None):
 
     def wkv_backward_rows():
         # rwkv6-1.6b's training microbatch, y's cotangent only, in
-        # bfloat16 (its training dtype) and float32
+        # bfloat16 (its training dtype) and float32; a build without the
+        # geometry entry point walked every step and its scratch holds
+        # every 16-step boundary (wkv_backward_16step)
         from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
         for dtype in (torch.bfloat16, torch.float32):
             r, k, v, w, u, _ = wkv_inputs(rng, 2, 4096, 32, 64, dtype)
             dy = torch.from_numpy(rng.standard_normal(
                 (2, 4096, 32, 64)).astype(np.float32)).cuda().to(dtype)
+
+            def kernel():
+                lib = _build.load("rwkv6_scan_backward")
+                if not hasattr(lib, "repro_rwkv6_scan_backward_geometry"):
+                    return wkv_backward_16step(lib, r, k, v, w, u, dy)
+                return rwkv6_scan_backward_cuda(r, k, v, w, u, None, dy,
+                                                None)[:5]
+
             yield {"kernel": "rwkv6_scan_backward", "shape": [2, 4096, 32, 64],
                    "dtype": str(dtype),
-                   **turns("rwkv6_scan_backward",
-                           lambda: rwkv6_scan_backward_cuda(
-                               r, k, v, w, u, None, dy, None)[:5],
+                   **turns("rwkv6_scan_backward", kernel,
                            lambda: ref.rwkv6_chunked_backward(
                                r, k, v, w, u, None, dy, None)[:5])}
 

@@ -31,12 +31,19 @@ backward takes the forward's mix of dtypes (a bfloat16 model's r, k, v
 and u beside float32 w), and each gradient comes back in its input's
 dtype.
 
-The backward kernel walks the states forward and the adjoints backward
-by the plain recurrence, saving both at every 16-step block boundary
-(:func:`backward_walks` mirrors that geometry), then gives each
-(block, head, batch) a CTA of its own that computes the block's
-gradients from them (:func:`backward_blocks`), and sums ``du``'s block
-shares in a fixed order: no atomics, so two runs give equal bits.
+The backward kernel (:func:`rwkv6_scan_backward_cuda`) is chunk-parallel
+over blocks of ``BWD_BLOCK`` = 64 steps, each walked as four sub-blocks
+of ``BWD_SUB`` = 16, in four launches: each (block, head, batch) CTA
+writes its block's own shares of the state and of the adjoint (chained
+from its sub-blocks' shares by their decays) in place into the boundary
+buffers; a walk over the block boundaries, a thread per state entry and
+direction (:func:`backward_walks`), gives the state at every boundary
+from the initial state and the adjoint at every boundary from the final
+state's cotangent; each (block, head, batch) CTA then walks its four
+sub-blocks with those (:func:`backward_blocks`), carrying the adjoint
+backward and the state forward, and writes the block's gradients; and
+``du``'s block shares are summed in a fixed order: no atomics, so two
+runs give equal bits.  Every product runs on the tensor cores in 3xTF32.
 """
 from __future__ import annotations
 
@@ -52,8 +59,11 @@ backward_launches = _build.LaunchCounter("rwkv6_scan_backward")
 MAX_CHUNK = 64      # the chunk lengths accepted (the kernel tiles by 16)
 MAX_K = 64          # key dim the register tiles hold
 MAX_V = 64          # value dim the register tiles hold
-BWD_BLOCK = 16      # steps a block of the backward kernel covers
-BWD_COLUMNS = 16    # state columns a walk CTA of the backward kernel holds
+# the backward kernel's BL, SUB and WALK_THREADS, which
+# repro_rwkv6_scan_backward_geometry reports
+BWD_BLOCK = 64      # steps a block of the backward kernel covers
+BWD_SUB = 16        # steps a sub-block of a block covers
+BWD_WALK_THREADS = 256  # state entries a CTA of the backward's walk holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _build.declare("rwkv6_scan", "rwkv6_scan.cu", {
@@ -61,7 +71,8 @@ _build.declare("rwkv6_scan", "rwkv6_scan.cu", {
     + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p]})
 _build.declare("rwkv6_scan_backward", "rwkv6_scan_bwd.cu", {
     "repro_rwkv6_scan_backward": [ctypes.c_int] + [ctypes.c_void_p] * 17
-    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p]})
+    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + [ctypes.c_void_p],
+    "repro_rwkv6_scan_backward_geometry": [ctypes.POINTER(ctypes.c_int)]})
 
 
 def _check_operands(what, r, k, v, w, u, state, **more):
@@ -170,42 +181,60 @@ def rwkv6_scan_meta(r, k, v, w, u, state=None, *, chunk: int = 64
                         device="meta"))
 
 
-def backward_walks(T, V):
-    """The backward kernel's walks, as ``csrc/rwkv6_scan_bwd.cu`` runs
-    them for one (batch, head): the number of 16-step blocks; for each
-    walk CTA (direction, column group), its columns and the blocks it
-    steps through in order, each as (block, its steps in the order the
-    CTA takes them); and the boundaries it saves, in order (the states
-    forward from boundary 0, s0; the adjoints backward from boundary
-    ``nb``, ds)."""
+def backward_blocks(T):
+    """The backward kernel's block CTAs for one (batch, head), as
+    ``csrc/rwkv6_scan_bwd.cu`` runs them: for each block of
+    ``BWD_BLOCK`` steps, the steps it writes gradients for (the tail
+    stopping at T); its sub-blocks of ``BWD_SUB`` steps in order (none
+    wholly past T), which the gradient pass walks backward carrying the
+    adjoint, then forward carrying the state; the boundary whose state
+    it reads (its start) and the boundary whose adjoint it reads (its
+    end).  The local pass runs the same CTAs and writes the block's share
+    of the state at its end boundary and of the adjoint at its start
+    ("shares")."""
     nb = -(-T // BWD_BLOCK)
+    blocks = []
+    for j in range(nb):
+        steps = range(j * BWD_BLOCK, min((j + 1) * BWD_BLOCK, T))
+        subs = [range(t, min(t + BWD_SUB, steps.stop))
+                for t in range(steps.start, steps.stop, BWD_SUB)]
+        blocks.append({"block": j, "steps": steps, "subs": subs,
+                       "state": j, "adjoint": j + 1,
+                       "shares": {"state": j + 1, "adjoint": j}})
+    return blocks
+
+
+def backward_walks(B, H, K, V, T):
+    """The backward kernel's walk over the block boundaries: for each CTA
+    of ``BWD_WALK_THREADS`` threads and each direction, the (batch, head,
+    k, v) state entries its threads hold (a thread past the last entry
+    holds none), and the boundaries every thread steps through in order:
+    the states forward from boundary 0 (the initial state) to ``nb``, the
+    adjoints backward from ``nb`` (the final state's cotangent) to 0 (the
+    initial state's gradient)."""
+    nb = -(-T // BWD_BLOCK)
+    total = B * H * K * V
     walks = []
-    for direction in ("states", "adjoints"):
-        for g in range(-(-V // BWD_COLUMNS)):
-            cols = range(g * BWD_COLUMNS, min((g + 1) * BWD_COLUMNS, V))
-            order = range(nb) if direction == "states" else \
-                range(nb - 1, -1, -1)
-            steps = []
-            for m in order:
-                block = range(m * BWD_BLOCK, min((m + 1) * BWD_BLOCK, T))
-                steps.append((m, list(block) if direction == "states"
-                              else list(reversed(block))))
-            saved = ([0] + [m + 1 for m, _ in steps] if direction == "states"
-                     else [nb] + [m for m, _ in steps])
-            walks.append({"direction": direction, "columns": cols,
-                          "blocks": steps, "saved": saved})
+    for direction, order in (("states", list(range(nb + 1))),
+                             ("adjoints", list(range(nb, -1, -1)))):
+        for cta in range(-(-total // BWD_WALK_THREADS)):
+            entries = []
+            for e in range(cta * BWD_WALK_THREADS,
+                           min((cta + 1) * BWD_WALK_THREADS, total)):
+                bh, kv = divmod(e, K * V)
+                entries.append((*divmod(bh, H), *divmod(kv, V)))
+            walks.append({"direction": direction, "entries": entries,
+                          "boundaries": order})
     return nb, walks
 
 
-def backward_blocks(T):
-    """The backward kernel's block CTAs for one (batch, head): for each
-    block, the steps it writes gradients for, the boundary whose state
-    it reads (its start) and the boundary whose adjoint and state it
-    reads (its end)."""
-    nb = -(-T // BWD_BLOCK)
-    return [{"block": j, "steps": range(j * BWD_BLOCK,
-                                        min((j + 1) * BWD_BLOCK, T)),
-             "state": j, "end": j + 1} for j in range(nb)]
+def kernel_geometry(lib) -> tuple[int, int, int]:
+    """The backward library's own block length, sub-block length and
+    walk width, which the mirrors and the scratch sizes must equal."""
+    out = (ctypes.c_int * 3)()
+    _build.check(lib.repro_rwkv6_scan_backward_geometry(out),
+                 "rwkv6_scan_backward geometry")
+    return tuple(out)
 
 
 def rwkv6_scan_backward_cuda(
@@ -220,13 +249,13 @@ def rwkv6_scan_backward_cuda(
     *,
     chunk: int = 64,
 ) -> tuple:
-    """Launch the WKV6 backward on the current CUDA stream (the walks,
-    the blocks, the du sum).  Returns ``(dr, dk, dv, dw, du, ds0)``, each
+    """Launch the WKV6 backward on the current CUDA stream (the blocks'
+    shares, the walk over their boundaries, the gradients, the du sum).  Returns ``(dr, dk, dv, dw, du, ds0)``, each
     in its input's dtype (``ds0`` None without an initial state); a
     missing cotangent counts as zeros.  ``w``, ``u``, the states and the
     cotangent ``ds`` are taken in float32, ``dy`` in r's dtype.  ``chunk``
     is checked and not otherwise used: the kernel tiles by its own
-    16-step blocks."""
+    64-step blocks of 16-step sub-blocks."""
     if not r.is_cuda:
         raise ValueError("rwkv6_scan_backward_cuda takes CUDA tensors, got "
                          f"r on {r.device}")
@@ -266,6 +295,11 @@ def rwkv6_scan_backward_cuda(
     adj = torch.empty_like(states)
     du_part = torch.empty((batch, nb, H, K), dtype=f32, device=dev)
     lib = _build.load("rwkv6_scan_backward")
+    geometry = kernel_geometry(lib)
+    if geometry != (BWD_BLOCK, BWD_SUB, BWD_WALK_THREADS):
+        raise RuntimeError(f"rwkv6_scan_bwd.cu's block, sub-block and walk "
+                           f"width {geometry} are not the wrapper's "
+                           f"{(BWD_BLOCK, BWD_SUB, BWD_WALK_THREADS)}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_rwkv6_scan_backward(

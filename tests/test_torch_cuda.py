@@ -1706,6 +1706,39 @@ def test_wkv_backward_wrapper_refuses_what_its_kernel_cannot_take(cuda):
     assert backward_launches.count == before
 
 
+@pytest.mark.cuda
+def test_wkv_backward_library_reports_the_mirrors_geometry(cuda):
+    """The built library's block length, sub-block length and walk width
+    are the ones the wrapper sizes its scratch by and ``backward_blocks``
+    / ``backward_walks`` mirror."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_scan as wkv
+    assert wkv.kernel_geometry(_build.load("rwkv6_scan_backward")) == (
+        wkv.BWD_BLOCK, wkv.BWD_SUB, wkv.BWD_WALK_THREADS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,K,V,dtype", [
+    (2, 70, 3, 7, 5, torch.float32),
+    (1, 83, 2, 13, 61, torch.bfloat16),
+    (2, 19, 2, 62, 30, torch.float32),
+])
+def test_wkv_backward_kernel_takes_rows_of_any_width(cuda, B, T, H, K, V,
+                                                     dtype):
+    """K and V no multiple of 4 (rows staged value by value, no 16- or
+    8-byte loads and stores) against the plain version on the same
+    tensors, with s0 and both cotangents; the tolerances of
+    ``test_wkv_backward_kernel_matches_plain``."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_backward_cuda
+    t = _wkv_bwd_inputs(T + K + V, B, T, H, K, V, cuda, dtype)
+    args = (t["r"], t["k"], t["v"], t["w"], t["u"], t["s0"], t["dy"],
+            t["ds"])
+    got = rwkv6_scan_backward_cuda(*args)
+    torch.cuda.synchronize()
+    _wkv_bwd_close(got, ref.rwkv6_chunked_backward(*args),
+                   f"{(B, T, H, K, V)} {dtype}")
+
+
 # ------------------------------------------------------- K4's backward
 # the backward kernel against its plain version on the same tensors:
 # float32 gradients 1e-5 of the gradient's largest magnitude plus 1e-4

@@ -4,12 +4,14 @@ the CPU: its plain version ``ref.rwkv6_chunked_backward`` against
 reference differentiates off the TPU) and against the port's earlier
 backward, ``ref.recomputed_vjp`` of the plain chunked forward; the
 Function's CPU route; and a mirror of the kernel's launch geometry (its
-walks and blocks cover every step and state column exactly once).
+64-step blocks and their 16-step sub-blocks cover every step once, its
+walk every state entry and boundary once, every boundary written is
+read), held to the constants the kernel's source defines.
 
 Same numpy inputs and cotangents in both packages: with an initial state
 and without; with a cotangent for y, for the final state, or both; T in
-{1, 3, 17, 45, 130} (across the 16-step blocks of the kernel and the
-64-step chunks of the plain version); decays of the model's spread, near
+{1, 3, 17, 45, 130} (across the kernel's 16-step sub-blocks and 64-step
+blocks and the plain version's 64-step chunks); decays of the model's spread, near
 0, near 1 (some exactly 1) and cut by the clamp at 1e-30; float32 and
 bfloat16 operands; subsets of the inputs needing a gradient.
 
@@ -29,6 +31,9 @@ gradient is taken from the reference with ``u`` given as float32, as in
 ``tests/test_torch_scan_grads.py`` (its scan sums the cotangent of a
 captured bfloat16 constant in bfloat16).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -240,45 +245,71 @@ def test_function_without_any_cotangent_gives_zero_gradients():
 
 
 # ------------------------------------------------------ launch geometry
-@pytest.mark.parametrize("T", [1, 3, 15, 16, 17, 45, 130, 4096])
-@pytest.mark.parametrize("V", [8, 16, 24, 40, 64])
-def test_kernel_walks_cover_every_step_and_column_once(T, V):
-    """``backward_walks`` mirrors the kernel's walk CTAs for one (batch,
-    head): the column groups of each direction partition V, each walk
-    steps through every step exactly once (forward in order, backward in
-    reverse), block by block with the tail stopping at T, and saves every
-    boundary 0..nb once (the states from 0 up, the adjoints from nb
-    down)."""
-    nb, walks = wkv.backward_walks(T, V)
-    assert nb == -(-T // 16)
-    for direction in ("states", "adjoints"):
-        mine = [w for w in walks if w["direction"] == direction]
-        cols = [c for w in mine for c in w["columns"]]
-        assert sorted(cols) == list(range(V))
-        for w in mine:
-            steps = [t for _, block in w["blocks"] for t in block]
-            expect = list(range(T))
-            assert steps == (expect if direction == "states"
-                             else expect[::-1])
-            assert all(len(block) <= 16 and all(t // 16 == m for t in block)
-                       for m, block in w["blocks"])
-            assert sorted(w["saved"]) == list(range(nb + 1))
-            assert w["saved"][0] == (0 if direction == "states" else nb)
-
-
-@pytest.mark.parametrize("T", [1, 3, 16, 17, 45, 130, 4096])
-def test_kernel_blocks_cover_every_step_once(T):
+@pytest.mark.parametrize("T", [1, 2, 3, 15, 16, 17, 31, 32, 45, 48, 63, 64,
+                               65, 79, 100, 127, 128, 129, 130, 200, 260,
+                               1000, 1536, 4095, 4096])
+def test_kernel_blocks_and_sub_blocks_cover_every_step_once(T):
     """``backward_blocks`` mirrors the block CTAs for one (batch, head):
-    their steps partition [0, T), each reads the state at its start
-    boundary and the adjoint and state at its end, and every boundary the
-    walks save is read by some block (boundary 0's adjoint is ds0)."""
+    their steps partition [0, T) in 64-step blocks (the tail stopping at
+    T); each block's 16-step sub-blocks partition its steps in order,
+    every one but the last whole and none past T; each block reads the
+    state at its start boundary and the adjoint at its end, and its local
+    pass writes its state share at the end boundary and its adjoint share
+    at the start, so each boundary 1..nb gets one state share and
+    0..nb-1 one adjoint share, and the gradient pass reads every
+    boundary but the state at nb (S_T) and the adjoint at 0 (ds0)."""
     blocks = wkv.backward_blocks(T)
-    steps = [t for b in blocks for t in b["steps"]]
-    assert steps == list(range(T))
-    nb, _ = wkv.backward_walks(T, 64)
+    nb = -(-T // 64)
     assert len(blocks) == nb
+    assert [t for b in blocks for t in b["steps"]] == list(range(T))
     for b in blocks:
-        assert b["state"] == b["block"] and b["end"] == b["block"] + 1
-        assert all(b["state"] * 16 <= t < b["end"] * 16 for t in b["steps"])
-    assert {b["state"] for b in blocks} | {b["end"] for b in blocks} == \
-        set(range(nb + 1))
+        j, steps, subs = b["block"], b["steps"], b["subs"]
+        assert all(j * 64 <= t < (j + 1) * 64 for t in steps)
+        assert [t for sub in subs for t in sub] == list(steps)
+        assert 1 <= len(subs) <= 4
+        assert all(len(sub) == 16 and sub.start % 16 == 0
+                   for sub in subs[:-1])
+        assert 1 <= len(subs[-1]) <= 16 and subs[-1].start % 16 == 0
+        assert b["state"] == j and b["adjoint"] == j + 1
+        assert b["shares"] == {"state": j + 1, "adjoint": j}
+    assert sorted(b["shares"]["state"] for b in blocks) == \
+        list(range(1, nb + 1))
+    assert sorted(b["shares"]["adjoint"] for b in blocks) == list(range(nb))
+    assert {b["state"] for b in blocks} == set(range(nb))
+    assert {b["adjoint"] for b in blocks} == set(range(1, nb + 1))
+
+
+@pytest.mark.parametrize("T", [1, 17, 64, 65, 130, 4096])
+@pytest.mark.parametrize("B,H,K,V", [(1, 2, 64, 64), (2, 3, 16, 40),
+                                     (1, 5, 40, 24), (3, 1, 7, 5)])
+def test_kernel_walks_cover_every_state_entry_once(B, H, K, V, T):
+    """``backward_walks`` mirrors the walk: in each direction the threads
+    of its CTAs hold every (batch, head, k, v) state entry exactly once,
+    in the kernel's (B, H, K, V) order, at most 256 a CTA, and each steps
+    through every boundary once: the states from 0 up, the adjoints from
+    nb down."""
+    nb, walks = wkv.backward_walks(B, H, K, V, T)
+    assert nb == -(-T // 64)
+    order = [(b, h, k, v) for b in range(B) for h in range(H)
+             for k in range(K) for v in range(V)]
+    for direction, bounds in (("states", list(range(nb + 1))),
+                              ("adjoints", list(range(nb, -1, -1)))):
+        mine = [w for w in walks if w["direction"] == direction]
+        assert [e for w in mine for e in w["entries"]] == order
+        assert all(len(w["entries"]) <= 256 for w in mine)
+        assert all(w["boundaries"] == bounds for w in mine)
+
+
+@pytest.mark.parametrize("constant,mirror", [
+    ("BL", "BWD_BLOCK"), ("SUB", "BWD_SUB"),
+    ("WALK_THREADS", "BWD_WALK_THREADS")])
+def test_mirrors_take_the_kernels_constants(constant, mirror):
+    """The block, sub-block and walk widths the mirrors (and the
+    wrapper's scratch) use are the ones ``csrc/rwkv6_scan_bwd.cu``
+    defines and reports through ``repro_rwkv6_scan_backward_geometry``
+    (which the wrapper checks on the card)."""
+    source = (Path(wkv.__file__).parent / "csrc" /
+              "rwkv6_scan_bwd.cu").read_text()
+    found = re.findall(rf"constexpr int {constant} = (\d+);", source)
+    assert found == [str(getattr(wkv, mirror))]
+    assert re.search(rf"out\[\d\] = {constant};", source)
