@@ -1414,13 +1414,14 @@ def phase_kernels():
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
 
-    def ssd_bwd_case(B, T, H, P, G, N, dtype):
+    def ssd_bwd_case(B, T, H, P, G, N, dtype, dA_share=1.0):
         """K4's backward kernel alone, y's cotangent only (as a training
         step), against autograd through the plain chunked forward on
         float32 copies of the same tensors under the scans' gradient
         gates, each gradient in its input's dtype (the reference's
-        rounded once), two launches equal bit for bit (no atomics); timed
-        beside its plain version, ``ref.mamba2_ssd_chunked_backward``."""
+        rounded once), dA within ``dA_share`` of its gate, two launches
+        equal bit for bit (no atomics); timed beside its plain version,
+        ``ref.mamba2_ssd_chunked_backward``."""
         from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
         x, dt, A, Bm, Cm, D, _ = ssd_inputs(rng, B, T, H, P, G, N, dtype)
         dy = torch.from_numpy(rng.standard_normal((B, T, H, P)).astype(
@@ -1447,16 +1448,25 @@ def phase_kernels():
             dy.float()), (x, dt, A, Bm, Cm, D))]
         del leaves
         what = f"K4 backward kernel alone {(B, T, H, P)} {str(dtype)[6:]}"
-        err = 0.0
+        err, shares = 0.0, {}
         for name, g, wt, t in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got,
                                   want, (x, dt, A, Bm, Cm, D)):
             top = float(wt.float().abs().max())
             rtol = SCAN_GRAD_BF16_RTOL if g.dtype == torch.bfloat16 else 0.0
+            gate = SCAN_GRAD_TOL * max(top, 1e-30)
             err = max(err, held(
                 f"{what}: {name} against autograd through the plain forward",
-                (g,), (wt,), SCAN_GRAD_TOL * max(top, 1e-30), rtol))
+                (g,), (wt,), gate, rtol))
+            # the share of its gate the gradient takes (dA's the least
+            # margin of the card's checks)
+            shares[name] = float(((g.float() - wt.float()).abs() -
+                                  rtol * wt.float().abs()).max()) / gate
             check(g.dtype == t.dtype, f"{what}: {name} in its input's "
                   f"{t.dtype} ({g.dtype})")
+        print(f"  {what}: share of each gate " + ", ".join(
+            f"{k} {v:.4f}" for k, v in shares.items()), flush=True)
+        check(shares["dA"] <= dA_share, f"{what}: dA takes "
+              f"{shares['dA']:.4f} of its gate, at most {dA_share}")
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{what}: two launches give equal bits")
         del want, again
@@ -1467,18 +1477,26 @@ def phase_kernels():
         nbytes, products, other = ssd_bwd_work(B, T, H, P, G, N,
                                                x.element_size())
         bound_ms, bound_by = bound(nbytes, products, other, dtype)
+        split = launch_split(kernel)
+        print(f"  {what}: by launch (warm) " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
         return {"kernel": "mamba2_ssd_backward", "shape": [B, T, H, P],
                 "G": G, "N": N, "dtype": str(dtype), "max_abs_err": err,
                 "max_abs_err_vs_plain": plain_err,
+                "gate_share": shares,
                 "ms": time_ms(kernel, flush),
+                "launch_ms": split,
                 "plain_ms": time_ms(plain, flush, reps=3),
                 "library_ms": None,
                 "library_call": "none: no single PyTorch call computes "
                                 "the SSD gradient",
                 "route": ("mma.sync 3xTF32" if dtype == torch.float32 else
                           "mma.sync TF32, bf16 operands exact") +
-                         ": local shares, a walk over the 64-step block "
-                         "boundaries, a CTA a block, group sums in order",
+                         ": persistent local and gradient passes over "
+                         "(batch, 64-step block, 8-head slice) items, fed "
+                         "by a producer warp's TMA copies, B, C and C B^T "
+                         "once an item; a walk over the block boundaries; "
+                         "slice and group sums in order",
                 "bytes": nbytes, "flops": products + other,
                 "products": products, "bound_ms": bound_ms,
                 "bound_by": bound_by}
@@ -1598,9 +1616,11 @@ def phase_kernels():
                                {"the recomputing backward, run 2": 47.499216,
                                 "the recomputing backward, run 1": 50.252144}))
     # K4's backward kernel alone at zamba2-2.7b's microbatch, in float32
-    # (its training dtype) and bfloat16
+    # (its training dtype) and bfloat16; float32's dA, the least margin of
+    # the card's checks, within 0.85 of its gate
     entries["mamba2_ssd_backward"] = ssd_bwd_case(1, 4096, 80, 64, 1, 64,
-                                                  torch.float32)
+                                                  torch.float32,
+                                                  dA_share=0.85)
     rows.append(entries["mamba2_ssd_backward"])
     rows.append(ssd_bwd_case(1, 4096, 80, 64, 1, 64, torch.bfloat16))
     rows.append(scan_grad_case("rwkv6_scan", (2, 4096, 32, 64),
@@ -3472,6 +3492,55 @@ def wkv_backward_16step(lib, r, k, v, w, u, dy):
     return dr, dk, dv, dw, du
 
 
+def ssd_backward_slice(lib) -> int:
+    """The head slice a build of K4's backward reports through its
+    geometry entry point, or 0 for a build whose gradient pass is a CTA
+    a (block, head) (its geometry reports only the block length and the
+    walk width)."""
+    import ctypes
+    out = (ctypes.c_int * 3)(0, 0, 0)
+    lib.repro_mamba2_ssd_backward_geometry(out)
+    return out[2]
+
+
+def ssd_backward_per_head(lib, x, dt, A, Bm, Cm, D, dy):
+    """``(dx, ddt, dA, dB, dC, dD)`` from a build of K4's backward whose
+    gradient pass is a CTA a (block, head) (``ssd_backward_slice`` 0),
+    for ``--ab``: its entry point takes the arguments the wrapper passes,
+    but its scratch holds each head's share of dB and dC, (B, T, H, N)
+    floats each.  y's cotangent only, no initial state; x, B, C and dy
+    contiguous."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2_ssd import _DTYPES
+    Bn, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    f32, dev, nb = torch.float32, x.device, -(-T // 64)
+    states = torch.empty((Bn, H, nb + 1, P, N), dtype=f32, device=dev)
+    adj = torch.empty_like(states)
+    decay = torch.empty((Bn, H, nb), dtype=f32, device=dev)
+    dB_part = torch.empty((Bn, T, H, N), dtype=f32, device=dev)
+    dC_part = torch.empty_like(dB_part)
+    dA_part = torch.empty((Bn, H, nb), dtype=f32, device=dev)
+    dD_part = torch.empty_like(dA_part)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bn, T, H), dtype=f32, device=dev)
+    dA = torch.empty((H,), dtype=f32, device=dev)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dD = torch.empty((H,), dtype=f32, device=dev)
+    _build.check(lib.repro_mamba2_ssd_backward(
+        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), None, dy.data_ptr(),
+        None, states.data_ptr(), adj.data_ptr(), decay.data_ptr(),
+        dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(),
+        dC_part.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dA_part.data_ptr(), dD_part.data_ptr(), dA.data_ptr(),
+        dD.data_ptr(), None, Bn, T, H, P, G, N, *_build.outer(x),
+        *_build.outer(Bm), *_build.outer(Cm), *_build.outer(dy),
+        torch.cuda.current_stream().cuda_stream), "mamba2_ssd_backward")
+    return dx, ddt, dA, dB, dC, dD
+
+
 def phase_ab(old_csrc, names=None):
     """Old against new kernels in one process on one card: the kernels
     ``names`` (by default every kernel whose sources differ, see
@@ -3629,20 +3698,36 @@ def phase_ab(old_csrc, names=None):
 
     def ssd_backward_rows():
         # zamba2-2.7b's training microbatch, y's cotangent only, in float32
-        # (its training dtype) and bfloat16
+        # (its training dtype) and bfloat16, and phase 16a's 1,536 steps
+        # in float32 (240 items over the SMs); a build whose gradient pass
+        # is a CTA a (block, head) keeps each head's dB and dC shares
+        # (ssd_backward_per_head).  Each build's time by launch beside.
         from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
-        for dtype in (torch.float32, torch.bfloat16):
-            x, dt, A, Bm, Cm, D, _ = ssd_inputs(rng, 1, 4096, 80, 64, 1, 64,
+        for T, dtype in ((4096, torch.float32), (4096, torch.bfloat16),
+                         (1536, torch.float32)):
+            x, dt, A, Bm, Cm, D, _ = ssd_inputs(rng, 1, T, 80, 64, 1, 64,
                                                 dtype)
             dy = torch.from_numpy(rng.standard_normal(
-                (1, 4096, 80, 64)).astype(np.float32)).cuda().to(dtype)
-            yield {"kernel": "mamba2_ssd_backward", "shape": [1, 4096, 80, 64],
-                   "dtype": str(dtype),
-                   **turns("mamba2_ssd_backward",
-                           lambda: mamba2_ssd_backward_cuda(
-                               x, dt, A, Bm, Cm, D, None, dy, None)[:6],
+                (1, T, 80, 64)).astype(np.float32)).cuda().to(dtype)
+
+            def kernel():
+                lib = _build.load("mamba2_ssd_backward")
+                if not ssd_backward_slice(lib):
+                    return ssd_backward_per_head(lib, x, dt, A, Bm, Cm, D, dy)
+                return mamba2_ssd_backward_cuda(x, dt, A, Bm, Cm, D, None,
+                                                dy, None)[:6]
+
+            row = {"kernel": "mamba2_ssd_backward",
+                   "shape": [1, T, 80, 64], "dtype": str(dtype),
+                   **turns("mamba2_ssd_backward", kernel,
                            lambda: ref.mamba2_ssd_chunked_backward(
                                x, dt, A, Bm, Cm, D, None, dy, None)[:6])}
+            row["launch_ms"] = {}
+            for which in ("old", "new"):
+                with _build.swapped("mamba2_ssd_backward",
+                                    libs["mamba2_ssd_backward"][which]):
+                    row["launch_ms"][which] = launch_split(kernel)
+            yield row
 
     def blur_rows():
         for shape, ksize, sigma in (((32, 224, 224, 3), 9, 2.0),

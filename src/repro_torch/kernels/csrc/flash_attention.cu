@@ -508,12 +508,15 @@ int launch(int dtype, const Args& a, int batch, cudaStream_t stream) {
   } else {
     Maps maps;
     constexpr int SW = Bf16Cfg<D>::SW;
-    if (!tc::make_map(&maps.q, a.q, D, a.Sq, a.H, batch, a.sqt, a.sqb,
-                      Bf16Cfg<D>::BQ, SW) ||
-        !tc::make_map(&maps.k, a.k, D, a.Sk, a.Hkv, batch, a.skt, a.skb,
-                      Bf16Cfg<D>::BK, SW) ||
-        !tc::make_map(&maps.v, a.v, D, a.Sk, a.Hkv, batch, a.svt, a.svb,
-                      Bf16Cfg<D>::BK, SW))
+    // (D, rows, heads, batch), boxes of SW / 2 columns by box rows
+    auto map = [&](CUtensorMap* m, const void* p, int rows, int heads,
+                   long long st, long long sb, int box) {
+      return tc::make_map(m, true, p, {D, rows, heads, batch},
+                          {st * 2, 2LL * D, sb * 2}, {SW / 2, box, 1, 1}, SW);
+    };
+    if (!map(&maps.q, a.q, a.Sq, a.H, a.sqt, a.sqb, Bf16Cfg<D>::BQ) ||
+        !map(&maps.k, a.k, a.Sk, a.Hkv, a.skt, a.skb, Bf16Cfg<D>::BK) ||
+        !map(&maps.v, a.v, a.Sk, a.Hkv, a.svt, a.svb, Bf16Cfg<D>::BK))
       return (int)cudaErrorInvalidValue;
     dim3 grid((a.Sq + Bf16Cfg<D>::BQ - 1) / Bf16Cfg<D>::BQ, a.H, batch);
     kernel16<<<grid, Bf16Cfg<D>::THREADS, smem, stream>>>(maps, a);

@@ -1194,15 +1194,21 @@ int launch_wg_pass(const Args& a, int batch, cudaStream_t stream) {
   // boxes of the fixed tile's R rows and of the walk's W rows
   constexpr int R = Cf::R, W = Cf::W, SW = Cf::SW;
   Maps m;
+  // (D, rows, heads, batch), boxes of SW / 2 columns by box rows
+  auto map = [&](CUtensorMap* t, const void* p, int rows, int heads,
+                 long long st, long long sb, int box) {
+    return tc::make_map(t, true, p, {D, rows, heads, batch},
+                        {st * 2, 2LL * D, sb * 2}, {SW / 2, box, 1, 1}, SW);
+  };
   const bool ok =
-      KEYS ? tc::make_map(&m.a, a.k, D, a.Sk, a.Hkv, batch, a.skt, a.skb, R, SW) &&
-                 tc::make_map(&m.b, a.v, D, a.Sk, a.Hkv, batch, a.svt, a.svb, R, SW) &&
-                 tc::make_map(&m.c, a.q, D, a.Sq, a.H, batch, a.sqt, a.sqb, W, SW) &&
-                 tc::make_map(&m.d, a.dout, D, a.Sq, a.H, batch, a.sdt, a.sdb, W, SW)
-           : tc::make_map(&m.a, a.q, D, a.Sq, a.H, batch, a.sqt, a.sqb, R, SW) &&
-                 tc::make_map(&m.b, a.dout, D, a.Sq, a.H, batch, a.sdt, a.sdb, R, SW) &&
-                 tc::make_map(&m.c, a.k, D, a.Sk, a.Hkv, batch, a.skt, a.skb, W, SW) &&
-                 tc::make_map(&m.d, a.v, D, a.Sk, a.Hkv, batch, a.svt, a.svb, W, SW);
+      KEYS ? map(&m.a, a.k, a.Sk, a.Hkv, a.skt, a.skb, R) &&
+                 map(&m.b, a.v, a.Sk, a.Hkv, a.svt, a.svb, R) &&
+                 map(&m.c, a.q, a.Sq, a.H, a.sqt, a.sqb, W) &&
+                 map(&m.d, a.dout, a.Sq, a.H, a.sdt, a.sdb, W)
+           : map(&m.a, a.q, a.Sq, a.H, a.sqt, a.sqb, R) &&
+                 map(&m.b, a.dout, a.Sq, a.H, a.sdt, a.sdb, R) &&
+                 map(&m.c, a.k, a.Sk, a.Hkv, a.skt, a.skb, W) &&
+                 map(&m.d, a.v, a.Sk, a.Hkv, a.svt, a.svb, W);
   if (!ok) return (int)cudaErrorInvalidValue;
   dim3 grid(batch * (KEYS ? a.Hkv : a.H), ((KEYS ? a.Sk : a.Sq) + R - 1) / R);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;

@@ -490,28 +490,35 @@ __device__ __forceinline__ void named_barrier(int id, int n) {
 }
 
 // ------------------------------------------------------- tensor maps (host)
-// bf16 (D, rows, heads, batch) with element strides sr, D, sb; boxes of
-// sw / 2 columns by box_rows rows, written with the sw-byte swizzle;
-// rows past the end, and columns past D in a box that crosses it, read
+// A 4-D tensor map of float32 or bf16 values: dims d[0] (unit stride) ..
+// d[3], byte strides st[0..2] of dims 1..3, boxes of box[0..3] values
+// written with the sw-byte swizzle (0 none, else 128, 64 or 32); values
+// past the tensor, and columns past d[0] in a box that crosses it, read
 // as zeros.  A dimension of size 1 is never stepped: its stride is taken
-// as packed.
-inline bool make_map(CUtensorMap* map, const void* base, int D, int rows,
-                     int heads, int batch, long long sr, long long sb,
-                     int box_rows, int sw) {
-  if (rows == 1) sr = (long long)heads * D;
-  if (batch == 1) sb = sr * rows;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)D * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)sw / 2, (cuuint32_t)box_rows, 1, 1};
+// as the tensor's span, so that it is aligned and aliases no other.
+inline bool make_map(CUtensorMap* map, bool bf16, const void* base,
+                     const long long (&d)[4], const long long (&st)[3],
+                     const int (&box)[4], int sw) {
+  long long span = d[0] * (bf16 ? 2 : 4);
+  for (int i = 0; i < 3; ++i)
+    if (d[i + 1] > 1 && st[i] * d[i + 1] > span) span = st[i] * d[i + 1];
+  const cuuint64_t dims[4] = {(cuuint64_t)d[0], (cuuint64_t)d[1],
+                              (cuuint64_t)d[2], (cuuint64_t)d[3]};
+  cuuint64_t strides[3];
+  for (int i = 0; i < 3; ++i)
+    strides[i] = (cuuint64_t)(d[i + 1] == 1 ? span : st[i]);
+  const cuuint32_t boxes[4] = {(cuuint32_t)box[0], (cuuint32_t)box[1],
+                               (cuuint32_t)box[2], (cuuint32_t)box[3]};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-             : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_32B,
+             map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             4, const_cast<void*>(base), dims, strides, boxes, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             sw == 0    ? CU_TENSOR_MAP_SWIZZLE_NONE
+             : sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+             : sw == 64  ? CU_TENSOR_MAP_SWIZZLE_64B
+                         : CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -25,17 +25,21 @@ gradient chunk by chunk in float32) on a CPU tensor: the gradient the
 JAX package takes of ``mamba2_ssd_chunked_jnp`` by autodiff off the
 TPU.  Each gradient comes back in its input's dtype.
 
-The backward kernel tiles by its own 64-step blocks.  A CTA a (block,
-head, batch) computes the block's own shares of the state and of its
-adjoint; a walk over the block boundaries, a thread a state entry,
-turns them into the state entering and the adjoint leaving every block
-(:func:`backward_walks` mirrors it); a CTA a (block, head, batch) then
-computes the block's gradients from them (:func:`backward_blocks`), and
-each group's heads' shares of dB and dC, and dA's and dD's block
-shares, are summed in a fixed order: no atomics, so two runs give equal
-bits.  The mirrors' block length and walk width are the kernel's own:
-the wrapper sizes its scratch by them and refuses a library whose
-constants differ.
+The backward kernel tiles by its own 64-step blocks and cuts its work
+into items: one batch, one block and a slice of up to ``BWD_SLICE``
+consecutive heads of one group (:func:`backward_slices`).  A persistent
+local pass, one CTA an SM walking its items in a fixed order
+(:func:`backward_items`), computes each block's own shares of the state
+and of its adjoint; a walk over the block boundaries, a thread a state
+entry, turns them into the state entering and the adjoint leaving every
+block (:func:`backward_walks` mirrors it); a persistent gradient pass
+over the same items computes each block's gradients from them
+(:func:`backward_blocks`), summing dB and dC over a slice's heads in
+order, and each group's slices' partials (:func:`backward_group_sums`
+mirrors the order), and dA's and dD's block shares, are summed in a
+fixed order: no atomics, so two runs give equal bits.  The mirrors'
+block length, walk width and slice are the kernel's own: the wrapper
+sizes its scratch by them and refuses a library whose constants differ.
 """
 from __future__ import annotations
 
@@ -51,10 +55,11 @@ backward_launches = _build.LaunchCounter("mamba2_ssd_backward")
 MAX_CHUNK = 128     # chunk rows staged per CTA
 MAX_P = 64          # head dim the register tiles hold
 MAX_N = 64          # state size the register tiles hold
-# the backward kernel's BL and WALK_THREADS, which
+# the backward kernel's BL, WALK_THREADS and SLICE, which
 # repro_mamba2_ssd_backward_geometry reports
 BWD_BLOCK = 64      # steps a block of the backward kernel covers
 BWD_WALK_THREADS = 256  # state entries a CTA of the backward's walk holds
+BWD_SLICE = 8       # heads of one group an item of the backward takes at most
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _build.declare("mamba2_ssd", "mamba2_ssd.cu", {
@@ -175,13 +180,13 @@ def mamba2_ssd_meta(x, dt, A, Bm, Cm, D=None, state=None, *,
 
 
 def backward_blocks(T):
-    """The backward kernel's block CTAs for one (batch, head), as
-    ``csrc/mamba2_ssd_bwd.cu`` runs them: for each 64-step block, the
-    steps it writes gradients for (the tail stopping at T), the boundary
-    whose state it reads (its start, h_in) and the boundary whose adjoint
-    it reads (its end, G_out).  The local pass runs the same CTAs and
-    writes the block's share of the state at its end boundary and of the
-    adjoint at its start."""
+    """The backward kernel's blocks for one (batch, head), as an item of
+    ``csrc/mamba2_ssd_bwd.cu``'s gradient pass takes them: for each
+    64-step block, the steps it writes gradients for (the tail stopping
+    at T), the boundary whose state it reads (its start, h_in) and the
+    boundary whose adjoint it reads (its end, G_out).  The local pass
+    takes the same items and writes the block's share of the state at
+    its end boundary and of the adjoint at its start."""
     nb = -(-T // BWD_BLOCK)
     return [{"block": j, "steps": range(j * BWD_BLOCK,
                                         min((j + 1) * BWD_BLOCK, T)),
@@ -212,10 +217,57 @@ def backward_walks(B, H, P, N, T):
     return nb, walks
 
 
-def kernel_geometry(lib) -> tuple[int, int]:
-    """The backward library's own block length and walk width, which the
-    mirrors and the scratch sizes must equal."""
-    out = (ctypes.c_int * 2)()
+def backward_slices(H, G):
+    """The backward kernel's head slices, in order: ``(group, first head,
+    end head)``.  A group's ``H // G`` heads go in ``ceil((H // G) /
+    BWD_SLICE)`` slices of consecutive heads, slice k from head ``k rep
+    // n`` of the group (rep heads, n slices): none crosses a group, none
+    holds more than ``BWD_SLICE``."""
+    rep = H // G
+    nsl = -(-rep // BWD_SLICE)
+    return [(g, g * rep + k * rep // nsl, g * rep + (k + 1) * rep // nsl)
+            for g in range(G) for k in range(nsl)]
+
+
+def backward_items(B, T, H, G, grid):
+    """The persistent CTAs of the backward kernel's local and gradient
+    passes, as ``csrc/mamba2_ssd_bwd.cu`` runs them: for each CTA of the
+    ``min(grid, items)`` launched, its items in the order it takes them,
+    each the batch, the 64-step block, the slice (its index over the
+    groups' slices, :func:`backward_slices`), its group and its heads in
+    the order the CTA walks them.  Item i (batch outermost, then block,
+    then slice) goes to CTA ``i % grid``."""
+    nb = -(-T // BWD_BLOCK)
+    slices = backward_slices(H, G)
+    items = [{"batch": b, "block": j, "slice": k, "group": slices[k][0],
+              "heads": list(range(slices[k][1], slices[k][2]))}
+             for b in range(B) for j in range(nb)
+             for k in range(len(slices))]
+    return [items[c::grid] for c in range(min(grid, len(items)))]
+
+
+def backward_group_sums(shares, G):
+    """dB or dC (B, T, G, N) in float32 from each head's share (B, T, H,
+    N), in the backward kernel's order: a slice's heads summed in order
+    (in each warp's registers), then a group's slices' partials in order
+    (the group-sum pass)."""
+    B_, T, H, N = shares.shape
+    shares = shares.float()
+    out = torch.zeros((B_, T, G, N), dtype=torch.float32,
+                      device=shares.device)
+    for g, lo, hi in backward_slices(H, G):
+        part = torch.zeros((B_, T, N), dtype=torch.float32,
+                           device=shares.device)
+        for h in range(lo, hi):
+            part = part + shares[:, :, h]
+        out[:, :, g] += part
+    return out
+
+
+def kernel_geometry(lib) -> tuple[int, int, int]:
+    """The backward library's own block length, walk width and slice,
+    which the mirrors and the scratch sizes must equal."""
+    out = (ctypes.c_int * 3)()
     _build.check(lib.repro_mamba2_ssd_backward_geometry(out),
                  "mamba2_ssd_backward geometry")
     return tuple(out)
@@ -277,19 +329,21 @@ def mamba2_ssd_backward_cuda(
     h0 = None if state is None else state.to(f32).contiguous()
     dh = None if dh is None else dh.to(f32).contiguous()
     nb = -(-T // BWD_BLOCK)
+    nsl = -(-(H // G) // BWD_SLICE)
     states = torch.empty((batch, H, nb + 1, P, N), dtype=f32, device=dev)
     adj = torch.empty_like(states)
     decay = torch.empty((batch, H, nb), dtype=f32, device=dev)
-    dB_part = torch.empty((batch, T, H, N), dtype=f32, device=dev)
+    # each slice's share of dB and dC
+    dB_part = torch.empty((batch, T, G * nsl, N), dtype=f32, device=dev)
     dC_part = torch.empty_like(dB_part)
     dA_part = torch.empty((batch, H, nb), dtype=f32, device=dev)
     dD_part = torch.empty_like(dA_part)
     lib = _build.load("mamba2_ssd_backward")
     geometry = kernel_geometry(lib)
-    if geometry != (BWD_BLOCK, BWD_WALK_THREADS):
-        raise RuntimeError(f"mamba2_ssd_bwd.cu's block and walk width "
-                           f"{geometry} are not the wrapper's "
-                           f"{(BWD_BLOCK, BWD_WALK_THREADS)}")
+    if geometry != (BWD_BLOCK, BWD_WALK_THREADS, BWD_SLICE):
+        raise RuntimeError(f"mamba2_ssd_bwd.cu's block, walk width and "
+                           f"slice {geometry} are not the wrapper's "
+                           f"{(BWD_BLOCK, BWD_WALK_THREADS, BWD_SLICE)}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -318,7 +372,7 @@ def mamba2_ssd_backward_meta(x, dt, A, Bm, Cm, D, state, dy, dh) -> tuple:
     """The backward kernel's route for ``meta`` tensors: the gradients
     of :func:`mamba2_ssd_backward_cuda`'s shapes and dtypes, no values,
     its float32 scratch (the states and adjoints at every block boundary,
-    the per-head shares of dB and dC) live beside them, and one launch of
+    the slices' shares of dB and dC) live beside them, and one launch of
     the backward's work (:func:`work.ssd_bwd_work`) in the active cost
     counter.  An operand on another device raises."""
     for name, t in (("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D),
@@ -332,10 +386,11 @@ def mamba2_ssd_backward_meta(x, dt, A, Bm, Cm, D, state, dy, dh) -> tuple:
                   for t in (x, dt, A, Bm, Cm, D, state))
     if T and batch:
         nb = -(-T // BWD_BLOCK)
+        nsl = -(-(H // G) // BWD_SLICE)
         scratch = (torch.empty((2, batch, H, nb + 1, P, N),
                                dtype=torch.float32, device="meta"),
-                   torch.empty((2, batch, T, H, N), dtype=torch.float32,
-                               device="meta"))
+                   torch.empty((2, batch, T, G * nsl, N),
+                               dtype=torch.float32, device="meta"))
         nbytes, products, _ = work.ssd_bwd_work(
             batch, T, H, P, G, N, x.element_size(), state is not None,
             dh is not None)

@@ -1815,6 +1815,17 @@ def _ssd_bwd_close(got, want, what):
     # decays near 0 and strong
     (2, 150, 3, 64, 1, 64, torch.float32, "near0", True, True, True, True),
     (2, 150, 3, 64, 1, 64, torch.float32, "strong", True, True, True, True),
+    # groups of heads no multiple of the 8-head slice: 3 heads a group,
+    # a head a group (P 40, N 24), 12 heads a group (two slices of 6,
+    # summed by the group-sum pass) and 24 (three of 8)
+    (1, 130, 6, 64, 2, 64, torch.float32, "model", True, True, True, True),
+    (1, 130, 6, 64, 2, 64, torch.bfloat16, "model", True, False, True,
+     False),
+    (2, 77, 5, 40, 5, 24, torch.float32, "model", True, True, True, True),
+    (2, 77, 5, 40, 5, 24, torch.bfloat16, "model", False, True, True, True),
+    (1, 200, 24, 64, 2, 64, torch.float32, "model", True, True, True, True),
+    (2, 100, 24, 64, 1, 64, torch.bfloat16, "model", False, True, True,
+     False),
 ])
 def test_ssd_backward_kernel_matches_plain(cuda, B, T, H, P, G, N, dtype,
                                            decay, state, D, dy, dh):
@@ -1938,7 +1949,56 @@ def test_ssd_backward_library_reports_the_mirrors_geometry(cuda):
     from repro_torch.kernels import _build
     from repro_torch.kernels import mamba2_ssd as m
     assert m.kernel_geometry(_build.load("mamba2_ssd_backward")) == (
-        m.BWD_BLOCK, m.BWD_WALK_THREADS)
+        m.BWD_BLOCK, m.BWD_WALK_THREADS, m.BWD_SLICE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_gives_equal_bits_over_persistent_ctas(cuda,
+                                                                    dtype):
+    """More items than persistent CTAs (the card's SM count, as the
+    launch takes it): 2 x 21 blocks x 4 slices of 8 heads = 168 items,
+    some CTA taking two.  Two launches give equal bits (a CTA's items
+    run in a fixed order, no atomics), within the plain version's
+    tolerances."""
+    from repro_torch.kernels import mamba2_ssd as m
+    B, T, H, P, G, N = 2, 1300, 32, 64, 1, 64
+    grid = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ctas = m.backward_items(B, T, H, G, grid)
+    assert len(ctas) == grid and max(len(c) for c in ctas) > 1
+    t = _ssd_bwd_inputs(31, B, T, H, P, G, N, cuda, dtype)
+    args = [t[k] for k in ("x", "dt", "A", "Bm", "Cm", "D", "h0", "dy",
+                           "dh")]
+    got = m.mamba2_ssd_backward_cuda(*args)
+    again = m.mamba2_ssd_backward_cuda(*args)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _ssd_bwd_close(got, ref.mamba2_ssd_chunked_backward(*args, chunk=64),
+                   f"{(B, T, H, P, G, N)} {dtype} over {grid} CTAs")
+
+
+@pytest.mark.cuda
+def test_ssd_backward_kernel_at_the_training_shape_reports_da_share(cuda):
+    """zamba2-2.7b's training microbatch (1 x 4,096, 80 heads of 64, one
+    group of state 64, float32), y's cotangent only: each gradient
+    against autograd through the plain chunked forward at the Function's
+    chunk 128 on float32 copies of the same tensors, within 1e-5 of its
+    largest magnitude (``chip_smoke.py``'s scan-gradient gate); the
+    share of the gate each gradient takes is printed, dA's the least
+    margin of the card's checks."""
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_backward_cuda
+    t = _ssd_bwd_inputs(41, 1, 4096, 80, 64, 1, 64, cuda, torch.float32)
+    inputs = [t[k] for k in ("x", "dt", "A", "Bm", "Cm", "D")]
+    got = mamba2_ssd_backward_cuda(*inputs, None, t["dy"], None)
+    leaves = [v.detach().clone().requires_grad_() for v in inputs]
+    want = torch.autograd.grad(
+        ref.mamba2_ssd_chunked(*leaves, chunk=128)[0], leaves, t["dy"])
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), got, want):
+        gate = SSD_BWD_TOL * float(w.abs().max())
+        share = float((g - w).abs().max()) / gate
+        print(f"{name}: {share:.4f} of its gate {gate:.4g}")
+        assert share <= 1.0, name
 
 
 @pytest.mark.cuda

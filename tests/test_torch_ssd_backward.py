@@ -5,9 +5,12 @@ reference differentiates off the TPU) and against autograd through the
 port's plain chunked forward, ``ref.recomputed_vjp``; the Function's CPU
 route; the plain version at the kernel's own 64-step blocks against
 autograd at the Function's 128-step chunks; and a mirror of the
-kernel's launch geometry (its blocks and walks cover every step and
-state entry exactly once, at the block length and walk width that
-``csrc/mamba2_ssd_bwd.cu`` defines).
+kernel's launch geometry (its items cover every (batch, block, head)
+exactly once in slices that never cross a group, each persistent CTA
+taking its items in the kernel's order; its blocks and walks cover
+every step and state entry exactly once, at the block length, walk
+width and slice that ``csrc/mamba2_ssd_bwd.cu`` defines); and a float32
+emulation of its slice-partial sums of dB and dC against the reference.
 
 Same numpy inputs and cotangents in both packages: with an initial state
 and without, with D and without; with a cotangent for y, for the final
@@ -305,11 +308,14 @@ def test_function_backward_is_the_plain_backward_on_the_cpu():
 # ------------------------------------------------------ launch geometry
 @pytest.mark.parametrize("T", [1, 3, 17, 63, 64, 65, 130, 260, 4096])
 def test_kernel_blocks_cover_every_step_once(T):
-    """``backward_blocks`` mirrors the block CTAs for one (batch, head):
-    their steps partition [0, T) in 64-step blocks (the tail stopping at
-    T), each reads the state at its start boundary and the adjoint at its
-    end, and together they read every boundary the walks write."""
+    """``backward_blocks`` mirrors the blocks an item takes for one
+    (batch, head): their steps partition [0, T) in 64-step blocks (the
+    tail stopping at T), each reads the state at its start boundary and
+    the adjoint at its end, and together they read every boundary the
+    walks write; the items of ``backward_items`` take these blocks."""
     blocks = ssd.backward_blocks(T)
+    assert sorted({it["block"] for c in ssd.backward_items(1, T, 8, 1, 5)
+                   for it in c}) == [b["block"] for b in blocks]
     assert [t for b in blocks for t in b["steps"]] == list(range(T))
     nb = -(-T // 64)
     assert len(blocks) == nb
@@ -340,13 +346,71 @@ def test_kernel_walks_cover_every_state_entry_once(B, H, P, N, T):
         assert all(w["boundaries"] == bounds for w in mine)
 
 
+@pytest.mark.parametrize("B,T,H,G,grid", [
+    (1, 4096, 80, 1, 132), (1, 130, 6, 2, 132), (2, 77, 5, 5, 3),
+    (2, 300, 24, 2, 7), (1, 1, 12, 1, 132), (3, 17, 16, 4, 2),
+    (2, 1300, 32, 1, 132)])
+def test_kernel_items_cover_every_head_once(B, T, H, G, grid):
+    """``backward_items`` mirrors the persistent CTAs of the local and
+    gradient passes: their items hold every (batch, block, head) exactly
+    once; a slice's heads are consecutive, of one group and at most
+    ``BWD_SLICE``; a group's slices differ in size by at most one; and
+    CTA c takes items c, c + grid, .. of the order batch, block, slice
+    (the kernel's ``item_at``), walking each slice's heads in order."""
+    ctas = ssd.backward_items(B, T, H, G, grid)
+    nb, rep = -(-T // 64), H // G
+    nsl = -(-rep // ssd.BWD_SLICE)
+    total = B * nb * G * nsl
+    assert len(ctas) == min(grid, total)
+    seen = [(it["batch"], it["block"], h) for c in ctas for it in c
+            for h in it["heads"]]
+    assert sorted(seen) == [(b, j, h) for b in range(B) for j in range(nb)
+                            for h in range(H)]
+    for c, items in enumerate(ctas):
+        for n, it in enumerate(items):
+            i = c + n * grid
+            assert (it["batch"], it["block"], it["slice"]) == (
+                i // (nb * G * nsl), i // (G * nsl) % nb, i % (G * nsl))
+            heads = it["heads"]
+            assert heads == list(range(heads[0], heads[0] + len(heads)))
+            assert 1 <= len(heads) <= ssd.BWD_SLICE
+            assert {h // rep for h in heads} == {it["group"]}
+    sizes = [hi - lo for _, lo, hi in ssd.backward_slices(H, G)]
+    assert max(sizes) - min(sizes) <= 1 and len(sizes) == G * nsl
+
+
+@pytest.mark.parametrize("H,G", [(6, 2), (24, 1), (5, 5), (16, 1), (12, 2)])
+def test_slice_partial_sums_hold_the_reference(H, G):
+    """The kernel's order of dB's and dC's sums over a group's heads (a
+    slice's heads in order, then the slices' partials in order:
+    ``backward_group_sums``) on each head's float32 share (the plain
+    backward with B and C repeated to every head) against the grouped
+    gradients of ``ref.mamba2_ssd_chunked_backward`` at the kernel's
+    block and of ``jax.vjp`` of ``mamba2_ssd_chunked_jnp``, float32."""
+    c = _case(H + G, 2, 70, H, 8, G, 6)
+    rep = H // G
+    per_head = dict(c, Bm=np.repeat(c["Bm"], rep, axis=2),
+                    Cm=np.repeat(c["Cm"], rep, axis=2))
+    _, shares = _plain(per_head, torch.float32, True, True, True, True,
+                       ssd.BWD_BLOCK)
+    _, grouped = _plain(c, torch.float32, True, True, True, True,
+                        ssd.BWD_BLOCK)
+    want = _reference(c, torch.float32, True, True, True, True, 64)
+    for k, name in ((3, "dB"), (4, "dC")):
+        got = ssd.backward_group_sums(shares[k], G)
+        assert got.shape == grouped[k].shape
+        _check(got, grouped[k], f"{name} against the plain backward", False)
+        _check(got, want[k], f"{name} against jax.vjp", False)
+
+
 @pytest.mark.parametrize("constant,mirror", [
-    ("BL", "BWD_BLOCK"), ("WALK_THREADS", "BWD_WALK_THREADS")])
+    ("BL", "BWD_BLOCK"), ("WALK_THREADS", "BWD_WALK_THREADS"),
+    ("SLICE", "BWD_SLICE")])
 def test_mirrors_take_the_kernels_constants(constant, mirror):
-    """The block length and walk width the mirrors (and the wrapper's
-    scratch) use are the ones ``csrc/mamba2_ssd_bwd.cu`` defines and
-    reports through ``repro_mamba2_ssd_backward_geometry`` (which the
-    wrapper checks on the card)."""
+    """The block length, walk width and slice the mirrors (and the
+    wrapper's scratch) use are the ones ``csrc/mamba2_ssd_bwd.cu``
+    defines and reports through ``repro_mamba2_ssd_backward_geometry``
+    (which the wrapper checks on the card)."""
     source = (Path(ssd.__file__).parent / "csrc" /
               "mamba2_ssd_bwd.cu").read_text()
     found = re.findall(rf"constexpr int {constant} = (\d+);", source)
