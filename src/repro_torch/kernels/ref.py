@@ -239,26 +239,29 @@ def rwkv6_scan_ref(
 
 def rwkv6_chunked(
     r, k, v, w, u, state=None, chunk: int = 64,
+    compute_dtype=torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked closed form with log-space cumulative decays, the JAX
     package's ``rwkv6_chunked_jnp`` step for step: the tail is padded
     with w = 1 (and r = k = v = 0), which leaves the state as it was;
     ``log(max(w, 1e-30))`` keeps a zero decay finite.  The plain version
-    of the WKV6 kernel."""
+    of the WKV6 kernel.  It computes in float32; ``compute_dtype``
+    float64 makes it a yardstick finer than the kernel (autograd through
+    it holds the backward kernel's gradients on the card)."""
     B, T, H, K = r.shape
     V = v.shape[-1]
-    f32 = torch.float32
+    cdt = compute_dtype
     pad = (-T) % chunk
     if pad:
         r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
     Tp = T + pad
     n = Tp // chunk
-    s = (torch.zeros((B, H, K, V), dtype=f32, device=r.device)
-         if state is None else state.to(f32))
-    uf = u.to(f32)
+    s = (torch.zeros((B, H, K, V), dtype=cdt, device=r.device)
+         if state is None else state.to(cdt))
+    uf = u.to(cdt)
     # (n, B, H, c, K|V)
-    rb, kb, vb, wb = (a.to(f32).reshape(B, n, chunk, H, -1)
+    rb, kb, vb, wb = (a.to(cdt).reshape(B, n, chunk, H, -1)
                       .permute(1, 0, 3, 2, 4) for a in (r, k, v, w))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), -1)[None, None, :, :, None]
@@ -284,7 +287,7 @@ def rwkv6_chunked(
             "bhck,bhcv->bhkv", kc * torch.exp(lw_last - lw), vc)
         ys.append(y)
     out = (torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, Tp, H, V)[:, :T]
-           if ys else torch.zeros((B, 0, H, V), dtype=f32, device=r.device))
+           if ys else torch.zeros((B, 0, H, V), dtype=cdt, device=r.device))
     return out.to(r.dtype), s
 
 

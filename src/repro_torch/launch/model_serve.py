@@ -45,12 +45,14 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
-        model_par=1, temperature=0.0, device="cuda", params=None) -> dict:
+        model_par=1, temperature=0.0, device="cuda", params=None,
+        layers=None) -> dict:
     """Prefill ``requests`` seeded prompts of ``prompt_len`` tokens (behind
     ``num_patches`` patch embeddings of 0.01 for a ``vit_stub`` model; with
     ``encoder_seq_len`` frames of 0.01 for an encoder-decoder) and decode
     ``gen`` tokens each.  ``params`` (full leaves on ``device``) replaces
-    the port's seeded init; each rank keeps its shards of them.  Times
+    the port's seeded init; each rank keeps its shards of them.
+    ``layers`` cuts the model to that many layers at its widths.  Times
     are host wall clock around work that ends in a device synchronise;
     the first call of a process includes its one-time set-up (kernel
     library load, cuBLAS handles).  ``logits`` are the prefill's
@@ -59,6 +61,8 @@ def run(arch: str, *, reduced=True, requests=16, prompt_len=32, gen=16,
     with process_group_from_env(device):
         dev = resolve_device(device)
         cfg = get_arch(arch, reduced=reduced)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
         mesh = make_host_mesh(model=model_par)
         sh = ShardingCtx(mesh=mesh if mesh.size > 1 else None)
         model = get_model(cfg)

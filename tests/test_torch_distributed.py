@@ -223,13 +223,16 @@ def test_phase_18_param_bytes_are_the_reference_rules(reduced):
         if run["kind"] == "train":
             continue
         cfg = jax_arch(run["arch"], reduced=reduced)
+        if run.get("layers"):       # a run cut in depth
+            cfg = cfg.replace(num_layers=run["layers"])
         rules = dict(jsh.default_rules())
         if run.get("overrides") or run.get("ep"):
             rules.update(cfg.sharding_overrides or {})
         if run.get("ep"):
             rules.update(cfg.prefill_sharding_overrides)
         api = jax_model(cfg)
-        shapes = (_param_shapes(run["arch"]) if not reduced else
+        shapes = (_param_shapes(run["arch"])
+                  if not reduced and not run.get("layers") else
                   jax.eval_shape(lambda: api.init(jax.random.PRNGKey(0))))
         specs = jax.tree.leaves(
             jsh.tree_to_specs(shapes, api.param_axes(), duck, rules),

@@ -16,12 +16,17 @@ one-rank runs.
   the slice of the full tensor that its spec names.
 - Data-parallel training of reduced qwen3-0.6b, 8 rows as 2
   microbatches of 4 (so each of 4 ranks takes one row of each): (a) the
-  port's train step on 4 ranks from the reference's initial state
-  against the reference's jitted step sharded over 4 devices as its
-  launcher builds it, float32 compute and reduction: losses 1e-5 and
-  gradient norms 1e-4 relative (float32 sums in other orders, as the
-  one-device parity tests); (b) ``launch.train.run`` on 4 ranks against
-  its one-rank run of the same global batches: the same tolerances.
+  port's two train steps on 4 ranks from the reference's initial state
+  against the reference's jitted step on one device and on an ``Auto``
+  (4, 1) mesh as its launcher builds it (state placed by
+  ``tree_to_shardings``, shardings in and out; the reference fails only
+  on ``jax.make_mesh``'s default ``Explicit`` axes), float32 compute and
+  reduction: losses 1e-5 and gradient norms 1e-4 relative (float32 sums
+  in other orders, as the one-device parity tests), and each rank's
+  state before and after the first step against the mesh program's
+  device at its coordinates; (b) ``launch.train.run`` on 4 ranks against
+  its one-rank run of the same global batches: the same tolerances (the
+  reference's launcher builds an ``Explicit`` mesh).
 - ``launch.model_serve.run`` on 2 ranks: the greedy tokens equal the
   one-rank run's.
 """
@@ -197,43 +202,89 @@ TCFG = dict(learning_rate=3e-3, total_steps=2, warmup_steps=5,
             microbatches=2, remat=True)
 
 
-def _reference_steps(state_path):
-    """Two float32 steps of the reference's jitted train step on one
-    device from its seeded state, which is written to ``state_path``
-    (leaves by "/"-joined path) first: (losses, grad norms)."""
-    import jax
-    import jax.numpy as jnp
-    from repro.configs import get_arch
-    from repro.distributed.sharding import REPLICATED
-    from repro.launch.train import make_batch_fn
-    from repro.models import get_model
-    from repro.training import TrainConfig, make_train_step
-    from repro.training.train_step import init_train_state
-    cfg = get_arch("qwen3-0.6b", reduced=True)
-    model = get_model(cfg)
-    state = init_train_state(model, jax.random.PRNGKey(0))
-    np.savez(state_path, **{
-        "/".join(str(k.key) for k in path): np.asarray(v)
-        for path, v in jax.tree_util.tree_flatten_with_path(state)[0]})
-    step = jax.jit(make_train_step(model, TrainConfig(**TCFG), REPLICATED))
-    make = make_batch_fn(cfg, TRAIN_KW["batch"], TRAIN_KW["seq"])
-    losses, norms = [], []
-    for i in range(TRAIN_KW["steps"]):
-        state, m = step(state, {k: jnp.asarray(v) for k, v in make(i).items()})
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    return losses, norms
+DP_ARCH, DP_MESH = "qwen3-0.6b", (4, 1)
 
 
-def test_data_parallel_step_on_4_ranks_matches_the_reference(tmp_path):
-    """The reference's own multi-device step fails in the JAX package on
-    this JAX (``jax.make_mesh`` gives Explicit axes, which its
-    ``with_sharding_constraint`` refuses), so the port's 4-rank step is
-    held against the reference's one-device step on the same global
-    batch, which is what the reference's sharded step computes."""
-    state_path = tmp_path / "state.npz"
-    ref_losses, ref_norms = _reference_steps(state_path)
-    _ranks(tmp_path, 4, f"""
+def _reference_steps(out_dir):
+    """In one JAX process with 4 forced host devices, from the reference's
+    seeded state (written to ``state.npz``, leaves by "/"-joined path):
+    two float32 steps of its jitted train step on one device, and the same
+    two steps on an ``Auto`` (4, 1) mesh as its launcher builds them (the
+    state placed by ``tree_to_shardings``, the step jitted with those
+    shardings in and out).  ``ref.json`` holds both runs' losses and
+    gradient norms; the mesh program's outputs file, as
+    ``tests/test_torch_tensor_parallel.py``'s mesh programs write them,
+    each device's blocks of the state it starts from ("p0") and of the
+    state after the first step ("p1", "m1", "v1"), and that step's loss,
+    gradient norm and learning rate."""
+    from test_torch_tensor_parallel import MESH_PROGRAMS
+    _reference(4, MESH_PROGRAMS + textwrap.dedent(f"""
+        import json, jax, jax.numpy as jnp, numpy as np
+        from repro.configs import get_arch
+        from repro.distributed.sharding import (REPLICATED, ShardingCtx,
+                                                default_rules,
+                                                tree_to_shardings)
+        from repro.launch.train import make_batch_fn
+        from repro.models import get_model
+        from repro.training import TrainConfig, make_train_step
+        from repro.training.train_step import init_train_state
+        OUT = {str(out_dir)!r}
+        cfg = get_arch({DP_ARCH!r}, reduced=True)
+        model = get_model(cfg)
+        state = init_train_state(model, jax.random.PRNGKey(0))
+        np.savez(OUT + "/state.npz", **{{
+            "/".join(str(k.key) for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(state)[0]}})
+        make = make_batch_fn(cfg, {TRAIN_KW["batch"]}, {TRAIN_KW["seq"]})
+        tcfg = TrainConfig(**{TCFG!r})
+        runs = {{}}
+        step = jax.jit(make_train_step(model, tcfg, REPLICATED))
+        st, runs["one"] = state, ([], [])
+        for i in range({TRAIN_KW["steps"]}):
+            st, m = step(st, {{k: jnp.asarray(v) for k, v in make(i).items()}})
+            runs["one"][0].append(float(m["loss"]))
+            runs["one"][1].append(float(m["grad_norm"]))
+
+        mesh = auto_mesh({DP_MESH!r})
+        rules = dict(default_rules(), **(cfg.sharding_overrides or {{}}))
+        st_sh = tree_to_shardings(state, train_state_axes(model), mesh, rules)
+        res, runs["mesh"] = {{}}, ([], [])
+        with mesh:
+            st = jax.device_put(state, st_sh)
+            res.update(shards(st["params"], "p0", mesh))
+            step = jax.jit(make_train_step(model, tcfg,
+                                           ShardingCtx(mesh=mesh, rules=rules)),
+                           in_shardings=(st_sh, None),
+                           out_shardings=(st_sh, None))
+            for i in range({TRAIN_KW["steps"]}):
+                st, m = step(st, {{k: jnp.asarray(v)
+                                   for k, v in make(i).items()}})
+                runs["mesh"][0].append(float(m["loss"]))
+                runs["mesh"][1].append(float(m["grad_norm"]))
+                if i == 0:
+                    res.update(loss=float(m["loss"]), lr=float(m["lr"]),
+                               gnorm=float(m["grad_norm"]))
+                    for leaf, key in (("params", "p1"), ("m", "m1"),
+                                      ("v", "v1")):
+                        res.update(shards(st[leaf], key, mesh))
+        np.savez(OUT + "/" + {DP_ARCH!r} + "@" + mesh_tag({DP_MESH!r})
+                 + ".npz", **res)
+        json.dump(runs, open(OUT + "/ref.json", "w"))
+    """))
+    return json.load(open(out_dir / "ref.json"))
+
+
+@pytest.fixture(scope="module")
+def dp_runs(tmp_path_factory):
+    """The reference's runs (``_reference_steps``), then the port's train
+    step on 4 ranks from the reference's initial state (each rank writes
+    its losses and gradient norms, the launcher's, and, as the mesh
+    checks read them, its blocks of the state it starts from and of the
+    state after the first step, ``p0``, ``p1``, ``m1``, ``v1``, with
+    that step's loss and gradient norm), then the launcher on one rank."""
+    tmp = tmp_path_factory.mktemp("dp")
+    ref = _reference_steps(tmp)
+    _ranks(tmp, 4, f"""
         from repro_torch.configs import get_arch
         from repro_torch.distributed.sharding import ShardingCtx, default_rules
         from repro_torch.interop import train_state_from_jax
@@ -241,22 +292,33 @@ def test_data_parallel_step_on_4_ranks_matches_the_reference(tmp_path):
         from repro_torch.launch.mesh import make_host_mesh
         from repro_torch.models import get_model
         from repro_torch.training import TrainConfig, make_train_step
-        cfg = get_arch("qwen3-0.6b", reduced=True)
+        cfg = get_arch({DP_ARCH!r}, reduced=True)
         model = get_model(cfg)
         mesh = make_host_mesh()
-        assert mesh.shape == (4, 1)
+        assert mesh.shape == {DP_MESH!r}
         rules = dict(default_rules())
         rules.update(cfg.sharding_overrides or {{}})
         step = make_train_step(model, TrainConfig(**{TCFG!r}),
                                ShardingCtx(mesh=mesh, rules=rules))
         state = {{}}
-        for key, v in np.load({str(state_path)!r}).items():
+        for key, v in np.load(os.path.join(out, "state.npz")).items():
             node = state
             *head, last = key.split("/")
             for h in head:
                 node = node.setdefault(h, {{}})
             node[last] = v
+
+        def flat(tree, prefix):   # copies: the step updates in place
+            out = {{}}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out.update(flat(v, prefix + "/" + k))
+                else:
+                    out[prefix + "/" + k] = v.detach().numpy().copy()
+            return out
+
         state = train_state_from_jax(state, cfg, device="cpu")
+        blocks = flat(state["params"], "p0")
         make = train.make_batch_fn(cfg, 8, 16)
         losses, norms = [], []
         for i in range(2):
@@ -264,22 +326,58 @@ def test_data_parallel_step_on_4_ranks_matches_the_reference(tmp_path):
                                      for k, v in make(i).items()}})
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
-        run = train.run("qwen3-0.6b", reduced=True, device="cpu",
+            if i == 0:
+                for leaf, key in (("params", "p1"), ("m", "m1"), ("v", "v1")):
+                    blocks.update(flat(state[leaf], key))
+        np.savez(os.path.join(out, f"dp_{{rank}}.npz"), loss=losses[0],
+                 gnorm=norms[0], **blocks)
+        run = train.run({DP_ARCH!r}, reduced=True, device="cpu",
                         log_every=100, **{TRAIN_KW!r})
         with open(os.path.join(out, f"dp_{{rank}}.json"), "w") as f:
             json.dump([losses, norms, run["losses"], run["grad_norms"]], f)
     """, timeout=300)
-    got = [json.load(open(tmp_path / f"dp_{r}.json")) for r in range(4)]
+    got = [json.load(open(tmp / f"dp_{r}.json")) for r in range(4)]
+    from repro_torch.launch import train
+    one = train.run(DP_ARCH, reduced=True, device="cpu", log_every=100,
+                    **TRAIN_KW)
+    return tmp, ref, got, one
+
+
+def test_data_parallel_step_on_4_ranks_matches_the_reference(dp_runs):
+    """The port's 4-rank step against the reference's one-device step on
+    the same global batch, which is what the reference's sharded step
+    computes; the launcher on 4 ranks against its one-rank run."""
+    _, ref, got, one = dp_runs
     assert all(g == got[0] for g in got), got   # every rank steps alike
     losses, norms, run_losses, run_norms = got[0]
-    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
-    np.testing.assert_allclose(norms, ref_norms, rtol=NORM_RTOL)
+    np.testing.assert_allclose(losses, ref["one"][0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(norms, ref["one"][1], rtol=NORM_RTOL)
     # the launcher on 4 ranks against its one-rank run of the same batches
-    from repro_torch.launch import train
-    one = train.run("qwen3-0.6b", reduced=True, device="cpu", log_every=100,
-                    **TRAIN_KW)
     np.testing.assert_allclose(run_losses, one["losses"], rtol=LOSS_RTOL)
     np.testing.assert_allclose(run_norms, one["grad_norms"], rtol=NORM_RTOL)
+
+
+@pytest.mark.parametrize("what", ["metrics", "first_step_state",
+                                  "initial_shards"])
+def test_data_parallel_step_on_4_ranks_matches_the_mesh_program(dp_runs,
+                                                                what):
+    """The port's 4-rank steps against the reference's jitted step on an
+    ``Auto`` (4, 1) mesh: both steps' losses and gradient norms; the
+    state after the first step and the state it starts from, each rank's
+    blocks against the device's at its mesh coordinates, with the checks
+    of ``tests/test_torch_tensor_parallel.py``."""
+    from test_torch_tensor_parallel import (check_mesh_shards,
+                                            check_mesh_train_step)
+    tmp, ref, got, _ = dp_runs
+    if what == "metrics":
+        for g in got:
+            np.testing.assert_allclose(g[0], ref["mesh"][0], rtol=LOSS_RTOL)
+            np.testing.assert_allclose(g[1], ref["mesh"][1], rtol=NORM_RTOL)
+    elif what == "first_step_state":
+        check_mesh_train_step(tmp, tmp, DP_ARCH, DP_MESH, stem="dp")
+    else:
+        check_mesh_shards(tmp, tmp, DP_ARCH, DP_MESH, stem="dp",
+                          prefixes=("p0",))
 
 
 # -------------------------------------------------------------- serving

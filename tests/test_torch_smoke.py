@@ -2,8 +2,9 @@
 check: which kernels ``--ab`` compares by default, the attention mask
 behind K3's library time at a cache offset, and a rehearsal of phases 9
 and 10 (the scale-out path and the baselines) on the CPU at a few
-entities each, where the kernels' launch counts stay 0, and phase 18's
-two rank processes (gloo on the CPU) at reduced sizes.
+entities each, where the kernels' launch counts stay 0, phase 18's
+two rank processes (gloo on the CPU) at reduced sizes, and phase 23's
+float8 cache on reduced qwen1.5-32b.
 
 Tolerance: the masked ``scaled_dot_product_attention`` against the plain
 flash forward, 1e-5 absolute (the same float32 softmax over the same
@@ -293,6 +294,26 @@ def test_phase_22_rehearsed_on_the_cpu():
         assert row["wall_s"] > 0 and row["analytic_flops"] > 0
         assert row["counted_s"]["collective"] == 0     # one rank
         assert row["analytic_s"]["collective"] > 0     # TP all-reduces
+
+
+def test_phase_23_rehearsed_on_the_cpu():
+    """Phase 23 on reduced qwen1.5-32b: 2 x 16 prompt tokens into 21
+    slots with a bfloat16 and a float8 cache, one decode step each, 3
+    greedy steps on the float8 one (K3 launches stay 0 here: the CPU
+    takes the plain routes)."""
+    from repro_torch.kernels import flash_attention as fa
+    out = cs.phase_f8_cache({"flash_attention": fa.launches}, smi="cpu",
+                            device="cpu", reduced=True,
+                            run=dict(prompt=16, greedy=3))
+    assert out["slots"] == 21 and out["layers"] == 2
+    assert out["f8"]["cache_bytes"] * 2 == out["bf16"]["cache_bytes"]
+    assert out["f8"]["cache_dtype"] == "torch.float8_e4m3fn"
+    assert out["f8"]["k3_operands"] == out["bf16"]["k3_operands"] == \
+        "torch.float32"
+    assert out["f8_vs_bf16"]["max_abs_diff"] < cs.F8_MAX_DIFF
+    assert out["f8_card_vs_host"]["max_abs_diff"] == 0.0   # both the CPU
+    assert len(out["greedy"]["tokens"]) == 2
+    assert len(out["greedy"]["tokens"][0]) == 3
 
 
 @pytest.mark.parametrize("wrong", [False, True])

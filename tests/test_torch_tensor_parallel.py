@@ -1,9 +1,14 @@
-"""Tensor and expert parallelism across CPU ``gloo`` ranks, held against
-the JAX package's one-device programs (the reference's own
-tensor-parallel forward fails on JAX 0.9 at its vocab-sharded embedding
-gather, so what one device computes is the yardstick), and its expert
-parallelism against its ``apply_moe_ep_shardmap`` on forced host
-devices.
+"""Tensor and expert parallelism across CPU ``gloo`` ranks, each rank
+held against two programs of the JAX package: its one-device program
+and its program on the same mesh, ``jax.make_mesh(shape, axes,
+axis_types=(AxisType.Auto,) * n)`` over forced host devices, with the
+state placed by ``tree_to_shardings`` under the rank body's rules
+(``MESH_PROGRAMS``).  The reference's programs fail on JAX 0.9 only on
+``jax.make_mesh``'s default ``Explicit`` axes (its tensor-parallel
+forward at its vocab-sharded embedding gather); its launchers build
+such meshes, so the launcher checks keep their one-rank yardstick.  Its
+expert parallelism is held against its ``apply_moe_ep_shardmap`` on
+forced host devices.
 
 One JAX subprocess (4 forced host devices) computes every reference
 output of the module; the ranks start once per mesh and run every
@@ -25,6 +30,14 @@ whisper-small and internvl2-1b on a (1, 2) mesh, ``model_par=2``:
   ranks after the AdamW step (a missing sum would let them drift);
 - every rank's parameters the exact slices their specs name, and its
   prefill cache within 1e-4 of the slices of the reference's cache.
+
+Against the mesh program, with the same tolerances: the logits, the
+greedy tokens, the loss and gradient norm; each rank's parameters equal
+to the block of the device at its mesh coordinates, its new parameters
+within ``lr · (1e-3 + |Δm| / ((1 - b1) · eps))`` and its moments within
+1e-4 of the leaf's largest of that device's blocks, its prefill cache
+within 1e-4 of that device's block (the mesh program pins the cache to
+its specs, as the reference's prefill cell does).
 
 Expert parallelism: the port's ``apply_moe`` under ``{"experts":
 "model", "expert_ff": "data"}`` on a (2, 2) mesh of 4 ranks against the
@@ -119,14 +132,114 @@ def _common():
     return f"B, S, STEPS = {B}, {S}, {STEPS}\n" + _COMMON
 
 
-def reference_outputs(out_dir, families, ep=False):
+def mesh_tag(shape, kind="body"):
+    """The name of a mesh program's outputs: ``1x2``, ``1x2-over``."""
+    return "x".join(map(str, shape)) + ("" if kind == "body" else "-" + kind)
+
+
+# --- the JAX package's programs on an Auto mesh (JAX 0.9 refuses its
+# constraints on jax.make_mesh's default Explicit axes only).  ``kind``
+# picks the rules of the port's rank body: "body" serves under the
+# default rules and trains under the config's ``sharding_overrides``
+# (``_RANK_BODY``); "over" serves under the ``sharding_overrides`` (the
+# greedy tokens at the even slot count, as "tok_over", and the prefill
+# cache); "zero3" trains under the ``train_sharding_overrides`` as well
+# (``tests/test_torch_zero3.py``).  Each leaf's block on each device is
+# saved as "<coordinates>:<key>", the device's mesh coordinates joined
+# by dots ("0.1:p0/embed").
+MESH_PROGRAMS = '''
+from jax.sharding import AxisType, NamedSharding
+from repro.distributed.sharding import safe_spec, tree_to_shardings
+from repro.training.train_step import train_state_axes
+
+def mesh_tag(shape, kind="body"):
+    return "x".join(map(str, shape)) + ("" if kind == "body" else "-" + kind)
+
+def auto_mesh(shape):
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data", "model")
+    return jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes),
+                         devices=jax.devices()[:int(np.prod(shape))])
+
+def shards(tree, prefix, mesh):
+    out = {}
+    def walk(p, node):
+        if isinstance(node, dict):
+            for k, v in sorted(node.items()):
+                walk(p + "/" + k, v)
+            return
+        full = np.asarray(node, np.float32)
+        for s in node.addressable_shards:
+            at = np.argwhere(mesh.devices == s.device)[0]
+            out[".".join(map(str, at)) + ":" + p] = full[s.index]
+    walk(prefix, tree)
+    return out
+
+def rows_on(batch, mesh, rules):
+    return {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, safe_spec(
+        v.shape, ("batch",) + (None,) * (v.ndim - 1), rules, mesh)))
+        for k, v in batch.items()}
+
+def mesh_program(cfg, api, params, b, tb, state, shape, kind, tcfg):
+    mesh = auto_mesh(shape)
+    over = dict(cfg.sharding_overrides or {})
+    res = {}
+    with mesh:
+        if kind in ("body", "over"):
+            rules = dict(default_rules(), **(over if kind == "over" else {}))
+            sh = ShardingCtx(mesh=mesh, rules=rules)
+            p = jax.device_put(params, tree_to_shardings(
+                params, api.param_axes(), mesh, rules))
+            jb = rows_on(b, mesh, rules)
+            even, odd = slots(cfg)
+            if kind == "body":
+                logits, _ = jax.jit(lambda p, x: api.forward(p, x, sh))(p, jb)
+                res["logits"] = np.asarray(logits)
+                res.update(shards(p, "p0", mesh))
+            runs = (("even", even), ("odd", odd)) if kind == "body" else \\
+                (("over", even),)
+            for tag, m in runs:
+                res["tok_" + tag] = np.asarray(greedy_generate(
+                    api, p, jb, steps=STEPS, sh=sh, max_cache=m))
+            # the cache leaves placed as their specs name, as the JAX
+            # package's prefill cell pins them (launch/dryrun.build_cell)
+            fn = lambda p, x: api.prefill(p, x, sh, even)
+            c_sh = tree_to_shardings(jax.eval_shape(fn, p, jb)[1],
+                                     api.cache_axes(), mesh, rules)
+            _, cache = jax.jit(fn, out_shardings=(None, c_sh))(p, jb)
+            res.update(shards(cache, "cache", mesh))
+        if kind in ("body", "zero3"):
+            rules = dict(default_rules(), **over)
+            if kind == "zero3":
+                rules.update(cfg.train_sharding_overrides or {})
+            sh = ShardingCtx(mesh=mesh, rules=rules)
+            st_sh = tree_to_shardings(state, train_state_axes(api), mesh, rules)
+            st = jax.device_put(state, st_sh)
+            if kind == "zero3":
+                res.update(shards(st["params"], "p0", mesh))
+            step = jax.jit(make_train_step(api, tcfg, sh),
+                           in_shardings=(st_sh, None),
+                           out_shardings=(st_sh, None))
+            new, met = step(st, rows_on(tb, mesh, rules))
+            res.update(loss=float(met["loss"]), gnorm=float(met["grad_norm"]),
+                       lr=float(met["lr"]))
+            for leaf, key in (("params", "p1"), ("m", "m1"), ("v", "v1")):
+                res.update(shards(new[leaf], key, mesh))
+    return res
+'''
+
+
+def reference_outputs(out_dir, families, ep=False, meshes=(), devices=4,
+                      timeout=300):
     """The reference's outputs of every family in one JAX process, one
     ``<family>.npz`` each: the initial params, the forward logits, the
     greedy tokens, the prefill cache at the even slot count, the train
     batch, the initial train state, and the step's loss, gradient norm
-    and moments.  With ``ep``, also ``ep.npz`` (the EP route on a
-    (2, 2) mesh) and ``ep.json`` (``_use_shardmap_ep``'s choices)."""
-    code = _common() + f"""
+    and moments.  ``meshes`` lists ``(family, mesh shape, kind)``: the
+    same programs on an ``Auto`` mesh of that shape (``MESH_PROGRAMS``),
+    one ``<family>@<mesh_tag>.npz`` each.  With ``ep``, also ``ep.npz``
+    (the EP route on a (2, 2) mesh) and ``ep.json``
+    (``_use_shardmap_ep``'s choices)."""
+    code = _common() + MESH_PROGRAMS + f"""
 import json, jax, jax.numpy as jnp
 from repro.configs import get_arch
 from repro.dataio import lm_token_stream
@@ -161,6 +274,11 @@ for name in {list(families)!r}:
              **flat(state["params"], "s/params"), **flat(state["m"], "s/m"),
              **flat(state["v"], "s/v"), **flat(new["m"], "m1"),
              **flat(new["v"], "v1"), **{{"s/step": np.asarray(state["step"])}})
+    for shape, kind in [(tuple(s), k) for f, s, k in {list(meshes)!r}
+                        if f == name]:
+        np.savez(OUT + "/" + name + "@" + mesh_tag(shape, kind) + ".npz",
+                 **mesh_program(cfg, api, params, b, tb, state, shape, kind,
+                                TrainConfig(**{TCFG!r})))
 if {ep!r}:
     from repro.models.moe import apply_moe, init_moe, _use_shardmap_ep
     from repro.models.common import KeyGen
@@ -195,7 +313,7 @@ if {ep!r}:
 """
     code = code.replace("EP_RULES", repr(EP_RULES)).replace(
         "EP_MESHES", repr(EP_MESHES))
-    _reference(4, code, timeout=300)
+    _reference(devices, code, timeout=timeout)
 
 
 EP_RULES = {"default": {}, "ep": {"experts": "model", "expert_ff": "data"},
@@ -397,11 +515,119 @@ def check_shards(ref_dir, out_dir, name, n, mesh_shape):
     assert split, "no parameter is split"
 
 
+# ------------------------------------ checks against the mesh programs
+def mesh_outputs(ref_dir, name, shape, kind="body"):
+    return np.load(os.path.join(ref_dir, f"{name}@{mesh_tag(shape, kind)}.npz"))
+
+
+def rank_at(rank, shape):
+    """The rank's mesh coordinates, as the mesh program's keys write them
+    (the port's meshes are row-major over the ranks)."""
+    return ".".join(str(int(i)) for i in np.unravel_index(rank, shape))
+
+
+def device_blocks(mesh_out, rank, shape, prefix):
+    """{key: block} of the device at the rank's coordinates, over the
+    keys under ``prefix`` ("p0", "cache", ...)."""
+    at = rank_at(rank, shape) + ":"
+    return {k[len(at):]: mesh_out[k] for k in mesh_out.files
+            if k.startswith(at + prefix + "/")}
+
+
+def check_mesh_forward(ref_dir, out_dir, name, shape):
+    want = mesh_outputs(ref_dir, name, shape)["logits"]
+    for r in range(int(np.prod(shape))):
+        got = np.load(os.path.join(out_dir, f"{name}_{r}.npz"))["logits"]
+        np.testing.assert_allclose(got, want, atol=LOGIT_TOL, rtol=0,
+                                   err_msg=f"{name} rank {r}")
+
+
+def check_mesh_greedy(ref_dir, out_dir, name, shape, tag, kind="body",
+                      stem=None):
+    want = mesh_outputs(ref_dir, name, shape, kind)["tok_" + tag]
+    for r in range(int(np.prod(shape))):
+        got = np.load(os.path.join(out_dir, f"{stem or name}_{r}.npz"))
+        np.testing.assert_array_equal(got["tok_" + tag], want,
+                                      err_msg=f"{name} rank {r} ({tag})")
+
+
+def check_mesh_train_step(ref_dir, out_dir, name, shape, kind="body",
+                          stem=None, keys=None):
+    """Loss and gradient norm (``LOSS_RTOL``, ``NORM_RTOL``), and each
+    rank's moments and new parameters against the blocks of the device at
+    its coordinates: the moments within ``MOMENT_TOL`` of the leaf's
+    largest, the parameters within ``lr · (1e-3 + |Δm| / ((1 - b1) ·
+    eps))`` (AdamW's first step moves an element by ``lr · g / (|g| +
+    eps)``, whose slope is 1/eps; ``tests/test_torch_training.py``).
+    ``keys`` maps the mesh program's "p1", "m1", "v1" to the rank's."""
+    from repro_torch.training import TrainConfig
+    tcfg = TrainConfig(**TCFG)
+    mesh = mesh_outputs(ref_dir, name, shape, kind)
+    keys = keys or {k: k for k in ("p1", "m1", "v1")}
+    top = {}
+    for k in mesh.files:
+        if ":" in k:
+            leaf = k.split(":", 1)[1]
+            top[leaf] = max(top.get(leaf, 0.0), float(np.abs(mesh[k]).max()))
+    for r in range(int(np.prod(shape))):
+        got = np.load(os.path.join(out_dir, f"{stem or name}_{r}.npz"))
+        np.testing.assert_allclose(float(got["loss"]), float(mesh["loss"]),
+                                   rtol=LOSS_RTOL, err_msg=f"rank {r}")
+        np.testing.assert_allclose(float(got["gnorm"]), float(mesh["gnorm"]),
+                                   rtol=NORM_RTOL, err_msg=f"rank {r}")
+        blocks = {kind_: device_blocks(mesh, r, shape, kind_)
+                  for kind_ in ("p1", "m1", "v1")}
+        assert blocks["p1"] and set(blocks["p1"]) == {
+            "p1" + k[2:] for k in blocks["m1"]}
+        for kind_ in ("m1", "v1"):
+            for key, want in blocks[kind_].items():
+                mine = got[keys[kind_] + key[2:]]
+                assert mine.shape == want.shape, (key, r, mine.shape,
+                                                  want.shape)
+                np.testing.assert_allclose(
+                    mine, want, atol=MOMENT_TOL * max(top[key], 1e-30),
+                    rtol=0, err_msg=f"{key} rank {r}")
+        for key, want in blocks["p1"].items():
+            path = key[2:]
+            dm = np.abs(got[keys["m1"] + path] - blocks["m1"]["m1" + path])
+            allowed = float(mesh["lr"]) * (
+                1e-3 + dm / ((1 - tcfg.b1) * tcfg.eps)) + 1e-7
+            mine = got[keys["p1"] + path]
+            assert mine.shape == want.shape, (key, r)
+            assert np.all(np.abs(mine - want) <= allowed), (key, r)
+
+
+def check_mesh_shards(ref_dir, out_dir, name, shape, kind="body", stem=None,
+                      prefixes=("p0", "cache")):
+    """Each rank's parameters equal the block of the device at its
+    coordinates, and its prefill cache lies within ``CACHE_TOL`` of it:
+    the same shape, so the rank holds what the device holds."""
+    mesh = mesh_outputs(ref_dir, name, shape, kind)
+    for prefix in prefixes:
+        seen = 0
+        for r in range(int(np.prod(shape))):
+            got = np.load(os.path.join(out_dir, f"{stem or name}_{r}.npz"))
+            for key, want in device_blocks(mesh, r, shape, prefix).items():
+                seen += 1
+                assert got[key].shape == want.shape, (
+                    f"{key} rank {r}: {got[key].shape} against the device's "
+                    f"{want.shape}")
+                if prefix == "p0":
+                    np.testing.assert_array_equal(got[key], want,
+                                                  err_msg=f"{key} rank {r}")
+                else:
+                    np.testing.assert_allclose(got[key], want, atol=CACHE_TOL,
+                                               rtol=0,
+                                               err_msg=f"{key} rank {r}")
+        assert seen, prefix
+
+
 # ------------------------------------------------------------ fixtures
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("tp_ref")
-    reference_outputs(d, FAMILIES, ep=True)
+    reference_outputs(d, FAMILIES, ep=True,
+                      meshes=[(f, (1, 2), "body") for f in FAMILIES])
     return d
 
 
@@ -470,6 +696,29 @@ def test_tp_train_step_matches_the_reference(ref_dir, two_ranks, name):
 @pytest.mark.parametrize("name", FAMILIES)
 def test_tp_local_shards_are_their_spec_slices(ref_dir, two_ranks, name):
     check_shards(ref_dir, two_ranks, name, 2, (1, 2))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_tp_forward_logits_match_the_mesh_program(ref_dir, two_ranks, name):
+    check_mesh_forward(ref_dir, two_ranks, name, (1, 2))
+
+
+@pytest.mark.parametrize("tag", ["even", "odd"])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_tp_greedy_tokens_match_the_mesh_program(ref_dir, two_ranks, name,
+                                                 tag):
+    check_mesh_greedy(ref_dir, two_ranks, name, (1, 2), tag)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_tp_train_step_matches_the_mesh_program(ref_dir, two_ranks, name):
+    check_mesh_train_step(ref_dir, two_ranks, name, (1, 2))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_tp_local_shards_are_the_mesh_programs_shards(ref_dir, two_ranks,
+                                                      name):
+    check_mesh_shards(ref_dir, two_ranks, name, (1, 2))
 
 
 def test_sample_token_over_vocab_shards_takes_the_first_maximum(two_ranks):

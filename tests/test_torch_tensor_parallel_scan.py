@@ -1,6 +1,9 @@
 """Tensor parallelism of the scan families across CPU ``gloo`` ranks,
 and the (2, 2) mesh, held against the JAX package's one-device programs
-with the checks of ``tests/test_torch_tensor_parallel.py``.
+and its programs on the same mesh (``Auto`` axes: the reference fails
+only on ``Explicit`` ones), shard by shard, with the checks of
+``tests/test_torch_tensor_parallel.py``.  The launchers keep their
+one-rank yardstick: the reference's build ``Explicit`` meshes.
 
 - Reduced zamba2-2.7b (Mamba2: the fused ``in_proj`` split off its heads
   and regrouped, K4's plain version on each rank's heads; the shared
@@ -28,8 +31,11 @@ import pytest
 
 from test_torch_tensor_parallel import (_spec_slice, _specs,
                                         check_forward, check_greedy,
-                                        check_shards, check_train_step,
-                                        reference_outputs, run_families)
+                                        check_mesh_forward, check_mesh_greedy,
+                                        check_mesh_shards,
+                                        check_mesh_train_step, check_shards,
+                                        check_train_step, reference_outputs,
+                                        run_families)
 
 SCAN = ["zamba2-2.7b", "rwkv6-1.6b"]
 MESH4 = ["qwen3-0.6b", "zamba2-2.7b"]
@@ -43,8 +49,12 @@ MODEL4 = ["qwen3-0.6b", "qwen3-0.6b+h6k2"]
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("tp_scan_ref")
+    meshes = ([(f, (1, 2), "body") for f in SCAN]
+              + [("zamba2-2.7b", (1, 2), "over")]
+              + [(f, (2, 2), "body") for f in MESH4]
+              + [(f, (1, 4), "body") for f in MODEL4])
     reference_outputs(d, ["zamba2-2.7b", "rwkv6-1.6b", "qwen3-0.6b",
-                          "qwen3-0.6b+h6k2"])
+                          "qwen3-0.6b+h6k2"], meshes=meshes)
     return d
 
 
@@ -148,6 +158,31 @@ def test_tp_scan_local_shards_are_their_spec_slices(ref_dir, two_ranks,
     check_shards(ref_dir, two_ranks, name, 2, (1, 2))
 
 
+@pytest.mark.parametrize("name", SCAN)
+def test_tp_scan_forward_logits_match_the_mesh_program(ref_dir, two_ranks,
+                                                       name):
+    check_mesh_forward(ref_dir, two_ranks, name, (1, 2))
+
+
+@pytest.mark.parametrize("tag", ["even", "odd"])
+@pytest.mark.parametrize("name", SCAN)
+def test_tp_scan_greedy_tokens_match_the_mesh_program(ref_dir, two_ranks,
+                                                      name, tag):
+    check_mesh_greedy(ref_dir, two_ranks, name, (1, 2), tag)
+
+
+@pytest.mark.parametrize("name", SCAN)
+def test_tp_scan_train_step_matches_the_mesh_program(ref_dir, two_ranks,
+                                                     name):
+    check_mesh_train_step(ref_dir, two_ranks, name, (1, 2))
+
+
+@pytest.mark.parametrize("name", SCAN)
+def test_tp_scan_local_shards_are_the_mesh_programs_shards(ref_dir,
+                                                           two_ranks, name):
+    check_mesh_shards(ref_dir, two_ranks, name, (1, 2))
+
+
 def test_zamba2_cache_split_by_heads_under_its_overrides(ref_dir, two_ranks):
     ref = np.load(ref_dir / "zamba2-2.7b.npz")
     specs = _specs("zamba2-2.7b", "cache", (1, 2), "train")
@@ -160,6 +195,21 @@ def test_zamba2_cache_split_by_heads_under_its_overrides(ref_dir, two_ranks):
                                {"data": 1, "model": 2})
             np.testing.assert_allclose(got[path], want, atol=1e-4, rtol=0,
                                        err_msg=path)
+
+
+@pytest.mark.parametrize("what", ["tokens", "cache"])
+def test_zamba2_cache_split_by_heads_matches_the_mesh_program(ref_dir,
+                                                              two_ranks,
+                                                              what):
+    """Under its ``sharding_overrides`` (``cache_heads`` on ``model``):
+    the greedy tokens and each rank's prefill cache against the mesh
+    program run under the same rules."""
+    if what == "tokens":
+        check_mesh_greedy(ref_dir, two_ranks, "zamba2-2.7b", (1, 2), "over",
+                          kind="over", stem="over")
+    else:
+        check_mesh_shards(ref_dir, two_ranks, "zamba2-2.7b", (1, 2),
+                          kind="over", stem="over", prefixes=("cache",))
 
 
 def test_tp_checkpoint_holds_full_leaves_and_remesh_to_2x1(ref_dir,
@@ -234,6 +284,31 @@ def test_mesh_2x2_local_shards_are_their_spec_slices(ref_dir, four_ranks,
     check_shards(ref_dir, four_ranks, name, 4, (2, 2))
 
 
+@pytest.mark.parametrize("name", MESH4)
+def test_mesh_2x2_forward_logits_match_the_mesh_program(ref_dir, four_ranks,
+                                                        name):
+    check_mesh_forward(ref_dir, four_ranks, name, (2, 2))
+
+
+@pytest.mark.parametrize("tag", ["even", "odd"])
+@pytest.mark.parametrize("name", MESH4)
+def test_mesh_2x2_greedy_tokens_match_the_mesh_program(ref_dir, four_ranks,
+                                                       name, tag):
+    check_mesh_greedy(ref_dir, four_ranks, name, (2, 2), tag)
+
+
+@pytest.mark.parametrize("name", MESH4)
+def test_mesh_2x2_train_step_matches_the_mesh_program(ref_dir, four_ranks,
+                                                      name):
+    check_mesh_train_step(ref_dir, four_ranks, name, (2, 2))
+
+
+@pytest.mark.parametrize("name", MESH4)
+def test_mesh_2x2_local_shards_are_the_mesh_programs_shards(ref_dir,
+                                                            four_ranks, name):
+    check_mesh_shards(ref_dir, four_ranks, name, (2, 2))
+
+
 @pytest.mark.parametrize("name", MODEL4)
 def test_model_axis_4_forward_logits_match_the_reference(ref_dir,
                                                          model4_ranks, name):
@@ -257,6 +332,33 @@ def test_model_axis_4_train_step_matches_the_reference(ref_dir, model4_ranks,
 def test_model_axis_4_local_shards_are_their_spec_slices(ref_dir,
                                                          model4_ranks, name):
     check_shards(ref_dir, model4_ranks, name, 4, (1, 4))
+
+
+@pytest.mark.parametrize("name", MODEL4)
+def test_model_axis_4_forward_logits_match_the_mesh_program(ref_dir,
+                                                            model4_ranks,
+                                                            name):
+    check_mesh_forward(ref_dir, model4_ranks, name, (1, 4))
+
+
+@pytest.mark.parametrize("tag", ["even", "odd"])
+@pytest.mark.parametrize("name", MODEL4)
+def test_model_axis_4_greedy_tokens_match_the_mesh_program(ref_dir,
+                                                           model4_ranks, name,
+                                                           tag):
+    check_mesh_greedy(ref_dir, model4_ranks, name, (1, 4), tag)
+
+
+@pytest.mark.parametrize("name", MODEL4)
+def test_model_axis_4_train_step_matches_the_mesh_program(ref_dir,
+                                                          model4_ranks, name):
+    check_mesh_train_step(ref_dir, model4_ranks, name, (1, 4))
+
+
+@pytest.mark.parametrize("name", MODEL4)
+def test_model_axis_4_local_shards_are_the_mesh_programs_shards(
+        ref_dir, model4_ranks, name):
+    check_mesh_shards(ref_dir, model4_ranks, name, (1, 4))
 
 
 def test_launchers_at_model_par_2_on_4_ranks_match_one_rank(four_ranks):

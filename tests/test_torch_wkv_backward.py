@@ -208,6 +208,32 @@ def test_plain_backward_matches_the_recomputed_vjp(dtype, T, chunk):
     _check_all(inputs, got, want, dtype)
 
 
+@pytest.mark.parametrize("T,chunk", [(17, 16), (130, 64)])
+def test_plain_forward_in_float64_is_the_recurrence(T, chunk):
+    """``ref.rwkv6_chunked(..., compute_dtype=torch.float64)``, the
+    yardstick of the backward kernel's gradients on the card, is the
+    WKV6 recurrence in float64: within 1e-10 of it step by step (numpy,
+    float64), where the float32 route lies ~1e-6 away."""
+    c = _case(T, 2, T, 2, 8, 8)
+    r, k, v, w = (c[n].astype(np.float64) for n in ("r", "k", "v", "w"))
+    u, s = c["u"].astype(np.float64), c["state"].astype(np.float64)
+    want = np.empty_like(v)
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        want[:, t] = np.einsum("bhk,bhkv->bhv", r[:, t],
+                               s + u[..., None] * kv)
+        s = w[:, t, :, :, None] * s + kv
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u, c["state"]
+                                          .astype(np.float64))]
+    y, s64 = ref.rwkv6_chunked(*args, chunk=chunk,
+                               compute_dtype=torch.float64)
+    assert y.dtype == s64.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-10, rtol=0)
+    np.testing.assert_allclose(s64.numpy(), s, atol=1e-10, rtol=0)
+    y32, _ = ref.rwkv6_chunked(*(a.float() for a in args), chunk=chunk)
+    assert float(np.abs(y32.double().numpy() - want).max()) > 1e-9
+
+
 @pytest.mark.parametrize("needs", [
     (True, False, False, False, False, False),
     (False, False, True, True, False, False),

@@ -4,9 +4,12 @@ split over both mesh axes, and the step gathers the ``embed`` dims over
 ``data`` for the step and reduce-scatters their gradients.  Reduced
 granite-8b on a (2, 2) mesh of 4 CPU ``gloo`` ranks, one step from the
 reference's initial state, is held against the reference's one-device
-step with the checks (and tolerances) of
-``tests/test_torch_tensor_parallel.py``: loss, gradient norm, and each
-rank's shard of both moments; the replicated leaves equal across ranks.
+step and its step on the same mesh (``Auto`` axes: the reference fails
+only on ``Explicit`` ones; 8 forced host devices) with the checks (and
+tolerances) of ``tests/test_torch_tensor_parallel.py``: loss, gradient
+norm, and each rank's shard of both moments against the spec's slice
+and against the block of the device at its mesh coordinates; the
+replicated leaves equal across ranks.
 The same step on a (2, 2, 2) ``pod`` x ``data`` x ``model`` mesh of 8
 ranks (the production multi-pod layout, cut to two ranks an axis)
 runs the two gradient paths a pod axis beside a model axis takes: the
@@ -21,6 +24,9 @@ import pytest
 from test_torch_distributed_ranks import _ranks
 from test_torch_tensor_parallel import (LOSS_RTOL, MOMENT_TOL, NORM_RTOL,
                                         TCFG, _common, _spec_slice,
+                                        check_mesh_forward, check_mesh_greedy,
+                                        check_mesh_shards,
+                                        check_mesh_train_step,
                                         reference_outputs, run_families)
 
 NAME, N, MESH = "granite-8b", 4, (2, 2)
@@ -33,10 +39,12 @@ ref = np.load(os.path.join(REF, {NAME!r} + ".npz"))
 rules = dict(default_rules(), **cfg.train_sharding_overrides)
 zsh = ShardingCtx(mesh=mesh, rules=rules)
 state = train_state_from_jax(unflat(ref, "s"), cfg, "cpu", mesh, rules)
+# the step updates the state in place: the shards it starts from, copied
+res = {{k: v.copy() for k, v in flat(state["params"], "p0").items()}}
 step = make_train_step(api, TrainConfig(**TCFG), zsh)
 tb = {{k: torch.from_numpy(v) for k, v in unflat(ref, "tb").items()}}
 state, met = step(state, tb)
-res = {{"loss": float(met["loss"]), "gnorm": float(met["grad_norm"])}}
+res.update(loss=float(met["loss"]), gnorm=float(met["grad_norm"]))
 for kind in ("params", "m", "v"):
     res.update(flat(state[kind], kind))
 np.savez(os.path.join(out, f"zero3_{{rank}}.npz"), **res)
@@ -89,7 +97,9 @@ def _coords(rank, shape, axes):
 @pytest.fixture(scope="module")
 def ref_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("zero3_ref")
-    reference_outputs(d, [NAME])
+    reference_outputs(d, [NAME], devices=8,
+                      meshes=[(NAME, MESH, "body"), (NAME, MESH, "zero3"),
+                              (NAME, POD_MESH, "zero3")])
     return d
 
 
@@ -98,7 +108,7 @@ def outputs(tmp_path_factory, ref_dir):
     tmp = tmp_path_factory.mktemp("zero3_ranks")
     run_families(tmp, ref_dir, [NAME], N, MESH, extra=_ZERO3)
     ref = np.load(ref_dir / f"{NAME}.npz")
-    return ref, [np.load(tmp / f"zero3_{r}.npz") for r in range(N)]
+    return ref, [np.load(tmp / f"zero3_{r}.npz") for r in range(N)], tmp
 
 
 @pytest.fixture(scope="module")
@@ -110,7 +120,7 @@ def pod_outputs(tmp_path_factory, ref_dir):
             + _POD)
     _ranks(tmp, n, body, timeout=240)
     ref = np.load(ref_dir / f"{NAME}.npz")
-    return ref, [np.load(tmp / f"zero3_{r}.npz") for r in range(n)]
+    return ref, [np.load(tmp / f"zero3_{r}.npz") for r in range(n)], tmp
 
 
 def test_zero3_splits_every_weight_over_data(outputs):
@@ -151,12 +161,12 @@ def _check_step(ref, outs, shape, axes):
 
 
 def test_zero3_step_matches_the_reference(outputs):
-    _check_step(*outputs, MESH, ("data", "model"))
+    _check_step(*outputs[:2], MESH, ("data", "model"))
 
 
 def test_zero3_step_on_a_pod_data_model_mesh_matches_the_reference(
         pod_outputs):
-    specs = _check_step(*pod_outputs, POD_MESH, POD_AXES)
+    specs = _check_step(*pod_outputs[:2], POD_MESH, POD_AXES)
     # the step took both pod paths: leaves split over data and not pod,
     # and leaves split over neither batch axis
     names = {p: {a for e in spec if e
@@ -164,3 +174,45 @@ def test_zero3_step_on_a_pod_data_model_mesh_matches_the_reference(
              for p, spec in specs.items()}
     assert any("data" in n and "pod" not in n for n in names.values())
     assert any(not n & {"pod", "data"} for n in names.values())
+
+
+# the port's ZeRO-3 state carries the step's new parameters and moments
+# as "params", "m" and "v"
+ZERO3_KEYS = {"p1": "params", "m1": "m", "v1": "v"}
+
+
+@pytest.mark.parametrize("shape", [MESH, POD_MESH], ids=["2x2", "2x2x2"])
+def test_zero3_step_matches_the_mesh_program(ref_dir, outputs, pod_outputs,
+                                             shape):
+    """The step under the ``train_sharding_overrides`` against the JAX
+    package's step on an ``Auto`` mesh of the same shape: loss, gradient
+    norm, and each rank's new parameters and moments against the blocks
+    of the device at its coordinates."""
+    out_dir = (outputs if shape == MESH else pod_outputs)[2]
+    check_mesh_train_step(ref_dir, out_dir, NAME, shape, kind="zero3",
+                          stem="zero3", keys=ZERO3_KEYS)
+
+
+@pytest.mark.parametrize("shape", [MESH, POD_MESH], ids=["2x2", "2x2x2"])
+def test_zero3_shards_are_the_mesh_programs_shards(ref_dir, outputs,
+                                                   pod_outputs, shape):
+    out_dir = (outputs if shape == MESH else pod_outputs)[2]
+    check_mesh_shards(ref_dir, out_dir, NAME, shape, kind="zero3",
+                      stem="zero3", prefixes=("p0",))
+
+
+@pytest.mark.parametrize("what", ["forward", "greedy_even", "greedy_odd",
+                                  "train_step", "shards"])
+def test_granite_on_the_2x2_mesh_matches_the_mesh_program(ref_dir, outputs,
+                                                          what):
+    """The rank body's serve and train runs of granite-8b on the (2, 2)
+    mesh (default rules) against the JAX package's on an ``Auto`` mesh."""
+    out_dir = outputs[2]
+    if what == "forward":
+        check_mesh_forward(ref_dir, out_dir, NAME, MESH)
+    elif what.startswith("greedy"):
+        check_mesh_greedy(ref_dir, out_dir, NAME, MESH, what.split("_")[1])
+    elif what == "train_step":
+        check_mesh_train_step(ref_dir, out_dir, NAME, MESH)
+    else:
+        check_mesh_shards(ref_dir, out_dir, NAME, MESH)
