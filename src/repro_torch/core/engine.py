@@ -42,6 +42,7 @@ from repro_torch.core.event_loop import EventLoop
 from repro_torch.core.remote import RemoteServerPool, TransportModel
 from repro_torch.core.result_cache import ResultCache
 from repro_torch.core.session import QueryFuture, QuerySession
+from repro_torch.core.spans import SpanRecorder
 from repro_torch.query.admission import AdmissionController, OverloadError
 from repro_torch.query.dispatch import (BackendRouter, NativeBackend,
                                         OpCostTracker, RemoteBackend,
@@ -380,6 +381,8 @@ class VDMSAsyncEngine:
                             or heartbeat_timeout_s > 0.0
                             or retry_backoff_base_s > 0.0
                             or breaker_enabled or fallback != "none")
+        # where a query's time goes, layer by layer (trace_stats())
+        self.spans = SpanRecorder()
         self.meta = MetadataStore()
         self.store = BlobStore()
         self.erd = ERD()
@@ -447,7 +450,7 @@ class VDMSAsyncEngine:
                             max_wait_s=device_max_wait_ms / 1000.0,
                             tracker=self.cost_tracker,
                             device=device_pool[i % len(device_pool)],
-                            fuse_segments=fuse)
+                            fuse_segments=fuse, spans=self.spans)
                         for i in range(count)]
                     self.device_backend = (
                         workers[0] if count == 1
@@ -493,7 +496,7 @@ class VDMSAsyncEngine:
                 health=self.health)
         self.planner = QueryPlanner(self.meta, self.store,
                                     result_cache=self.result_cache,
-                                    router=self.router)
+                                    router=self.router, spans=self.spans)
         if self.admission_ctl is not None:
             self.admission_ctl.bind(
                 loop=self.loop, pool=self.pool, launch=self._launch_now,
@@ -553,8 +556,16 @@ class VDMSAsyncEngine:
         engine was built with a tenant table."""
         if self._shut:
             raise RuntimeError("engine is shut down")
-        cmds = parse_query(query)
-        plan = self.planner.compile(cmds)
+        # the query's id is taken once it compiles (a malformed query
+        # takes no number), so these two spans carry none
+        with self.spans.span("query.submit"):
+            return self._submit_query(query, on_entity, cache, priority,
+                                      timeout_s, tenant)
+
+    def _submit_query(self, query, on_entity, cache, priority, timeout_s,
+                      tenant) -> QueryFuture:
+        with self.spans.span("query.plan"):
+            plan = self.planner.compile(parse_query(query))
         qid = str(next(self._qid))
         deadline = (time.monotonic() + timeout_s
                     if timeout_s is not None else None)
@@ -605,7 +616,8 @@ class VDMSAsyncEngine:
             if e.done():
                 # born done (no ops, or a full cache hit): straight into
                 # the response — the host boundary's way out
-                e.data = to_host(e.data)
+                with self.spans.span("boundary.out", qid):
+                    e.data = to_host(e.data)
         return ents
 
     def _admission_precheck(self, cplans, *, qid: str, first_phase: bool,
@@ -681,14 +693,19 @@ class VDMSAsyncEngine:
         # Pointers land on Queue_1 as one batch: workers wake only after
         # the whole phase is queued, so submit() stays milliseconds-fast
         # instead of GIL-starving behind already-running native work.
-        for e in ents:
-            # the host boundary's way in: the pipeline runs on the device
-            e.data = to_device(e.data, self.device)
-            self.erd.update(e, "enqueued")
-        if ents:
-            self.loop.enqueue_many(ents)
+        if not ents:
+            return
+        with self.spans.span("boundary.in", ents[0].query_id):
+            for e in ents:
+                # the host boundary's way in: the pipeline runs on the
+                # device
+                e.data = to_device(e.data, self.device)
+                self.erd.update(e, "enqueued")
+        self.loop.enqueue_many(ents)
 
     def _store_result(self, ent: Entity):
+        # no boundary.out here: the entity's data reached the host where
+        # it entered the response (_entity_done, _expand_plan)
         self.store.put(ent.eid, to_host(ent.data))
         if self.result_cache is not None:
             # blob write-back (Add with operations): cached results for
@@ -700,7 +717,8 @@ class VDMSAsyncEngine:
             session = self._sessions.get(ent.query_id)
         try:
             # the host boundary's way out: the response holds host arrays
-            ent.data = to_host(ent.data)
+            with self.spans.span("boundary.out", ent.query_id):
+                ent.data = to_host(ent.data)
             if session is not None:
                 session.entity_done(ent)
         finally:
@@ -785,12 +803,17 @@ class VDMSAsyncEngine:
         ``device`` (groups/entities/ops run, ``fused_segments``,
         ``compiles`` — first runs of a (segment, batch shape), where
         kernel builds and lazy set-up land — + bounded program-cache
-        ``jit_entries``/``jit_evictions``,
-        calibration state, ``h2d_bytes``/``d2h_bytes`` moved,
-        ``padding_waste_frac``, and — with ``num_device_workers > 1``
-        — a ``per_device`` breakdown) when those backends exist.  ``{"mode": "static"}`` alone when the router is off
-        (not to be confused with ``dispatch_policy``, the remote pool's
-        round-robin/least-loaded server picker)."""
+        ``jit_entries``/``jit_evictions``, calibration state,
+        ``h2d_bytes`` (the stacked partitions on the device, padding
+        rows included) and ``d2h_bytes`` (the programs' output bytes),
+        ``padding_waste_frac``, the engine's ``trace``
+        (:meth:`trace_stats`), and — with ``num_device_workers > 1`` —
+        a ``per_device`` breakdown) when those backends exist.  Neither
+        byte count is a host↔device copy: entities already sit on the
+        device (:mod:`repro_torch.core.boundary`), and the copies are
+        the ``boundary.*`` spans.  ``{"mode": "static"}`` alone when
+        the router is off (not to be confused with ``dispatch_policy``,
+        the remote pool's round-robin/least-loaded server picker)."""
         out: dict = {"mode": self.dispatch}
         if self.router is not None:
             out.update(self.router.stats())
@@ -806,6 +829,26 @@ class VDMSAsyncEngine:
             out["pool"] = self.pool.health_stats()
             out["fallbacks"] = self.loop.fallbacks
         return out
+
+    def trace_stats(self) -> dict:
+        """The engine's spans and counters (:mod:`repro_torch.core.spans`),
+        a fresh ``{"spans": {name: [count, seconds]}, "counters":
+        {name: n}}``.  Spans: ``query.submit`` over ``query.plan``
+        (parse and compile), ``query.find`` (the metadata selection),
+        ``query.expand`` (entities and their routes) and ``boundary.in``
+        (the launch's copies to the device); ``boundary.out`` (a result
+        copied to the host, one an entity); with a device backend
+        ``device.wait`` (an entity's seconds in its inbox until its group
+        starts), ``device.group`` over ``device.stage``,
+        ``device.settle`` and ``device.host_segment``; a model UDF's
+        device route adds ``udf.call`` over ``udf.prompts``,
+        ``udf.prefill``, ``udf.decode`` (one a step), ``udf.sync`` and
+        ``udf.stamp``.  Counters: ``udf.rows``, ``udf.prefill_tokens``,
+        ``udf.decode_tokens``, and on a CUDA device backend
+        ``device.mallocs`` (the allocator's ``num_device_alloc``)."""
+        if self.device_backend is not None:
+            return self.device_backend.trace_stats()
+        return self.spans.snapshot()
 
     def admission_stats(self) -> dict:
         """Admission-control counters (``{"policy": "none"}`` alone when

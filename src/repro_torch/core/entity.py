@@ -53,6 +53,9 @@ class Entity:
     # (each op falls back at most once — a native failure is terminal)
     deadline: Optional[float] = None
     fallback_ops: Optional[set] = None
+    # perf_counter time the device backend's inbox took the entity
+    # (its device.wait span runs from here to its group's start)
+    inbox_t: float = 0.0
 
     def current_op(self):
         return self.ops[self.op_index] if self.op_index < len(self.ops) else None

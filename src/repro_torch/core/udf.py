@@ -15,15 +15,20 @@ Model UDFs: ``register_model_udf`` wraps an assigned-architecture LM
 """
 from __future__ import annotations
 
+import collections
 import threading
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import spans
+
 _REGISTRY: dict[str, Callable] = {}
 _BATCHED: dict[str, Callable] = {}
 _DEVICE: dict[str, Callable] = {}
+_SERVED: dict[str, collections.deque] = {}
 _LOCK = threading.Lock()
+SERVED_KEPT = 1024     # calls a model UDF's device route keeps a report of
 
 
 def register_udf(name: str, fn: Callable) -> None:
@@ -100,8 +105,21 @@ def unregister_udf(name: str) -> None:
     and with it what its functions hold (a model UDF's parameters on the
     card).  Unknown names are ignored."""
     with _LOCK:
-        for registry in (_REGISTRY, _BATCHED, _DEVICE):
+        for registry in (_REGISTRY, _BATCHED, _DEVICE, _SERVED):
             registry.pop(name, None)
+
+
+def served_calls(name: str) -> list[dict]:
+    """The last :data:`SERVED_KEPT` calls the device route of model UDF
+    ``name`` served, oldest first: per call ``rows``, ``prompt`` (the
+    (rows, S) prompt tokens the prefill was fed), ``tokens`` (the
+    (rows, steps) greedy tokens, one column a step) and ``passes``
+    (``(rows, new tokens, cached positions, positions whose logits are
+    taken)`` per model pass), the tensors on the model's device.  Logits
+    are not kept."""
+    with _LOCK:
+        calls = list(_SERVED.get(name, ()))
+    return [dict(c, tokens=torch.cat(c["tokens"], 1)) for c in calls]
 
 
 def patch_embeds(img: torch.Tensor, cfg) -> torch.Tensor:
@@ -219,25 +237,52 @@ def register_model_udf(name: str, arch: str = "qwen3-0.6b", *,
     # Device-backend path: the same model as ONE prefill + decode over
     # the whole micro-batch, built on the serving layer's serve_step fns.
     # Greedy decoding again keeps the result token-for-token identical
-    # to the per-entity UDF.
+    # to the per-entity UDF.  Each call is recorded in the spans of the
+    # engine whose device backend runs it (udf.*) and reported by
+    # served_calls(name).
     prefill_fn, serve_step = make_serve_fns(model, sh)
+    served = collections.deque(maxlen=SERVED_KEPT)
 
     def device_batched(imgs, **_):
-        with lock:
-            toks = torch.stack([feats_of(img).to(dev) for img in imgs])
-            batch = {"tokens": toks}
-            if cfg.is_encoder_decoder:
-                batch["frames"] = torch.zeros(
-                    (len(imgs), cfg.encoder_seq_len, cfg.d_model),
-                    dtype=torch.float32, device=dev)
-            prompt_len = toks.shape[1]
-            logits, cache = prefill_fn(params, batch, prompt_len + steps + 1)
-            tok = sample_token(logits, None, 0.0, cfg.vocab_size)
-            for i in range(steps - 1):
-                logits, cache = serve_step(params, tok, cache, prompt_len + i)
-                tok = sample_token(logits, None, 0.0, cfg.vocab_size)
-            last = tok[:, 0].cpu().numpy()
-        return [draw_text(img, label_of(t), 4, 4)
-                for img, t in zip(imgs, np.asarray(last))]
+        rec = spans.current()
+        rows = len(imgs)
+        with rec.span("udf.call"):
+            with lock:
+                with rec.span("udf.prompts"):
+                    toks = torch.stack([feats_of(img).to(dev)
+                                        for img in imgs])
+                batch = {"tokens": toks}
+                if cfg.is_encoder_decoder:
+                    batch["frames"] = torch.zeros(
+                        (rows, cfg.encoder_seq_len, cfg.d_model),
+                        dtype=torch.float32, device=dev)
+                prompt_len = toks.shape[1]
+                passes = [(rows, prompt_len, 0, 1)]
+                with rec.span("udf.prefill"):
+                    logits, cache = prefill_fn(params, batch,
+                                               prompt_len + steps + 1)
+                    tok = sample_token(logits, None, 0.0, cfg.vocab_size)
+                greedy = [tok]
+                for i in range(steps - 1):
+                    with rec.span("udf.decode"):
+                        logits, cache = serve_step(params, tok, cache,
+                                                   prompt_len + i)
+                        tok = sample_token(logits, None, 0.0,
+                                           cfg.vocab_size)
+                    passes.append((rows, 1, prompt_len + i, 1))
+                    greedy.append(tok)
+                with rec.span("udf.sync"):
+                    last = tok[:, 0].cpu().numpy()
+                served.append({"rows": rows, "prompt": toks,
+                               "tokens": greedy, "passes": passes})
+            with rec.span("udf.stamp"):
+                out = [draw_text(img, label_of(t), 4, 4)
+                       for img, t in zip(imgs, np.asarray(last))]
+        rec.count("udf.rows", rows)
+        rec.count("udf.prefill_tokens", rows * prompt_len)
+        rec.count("udf.decode_tokens", rows * (steps - 1))
+        return out
 
     register_device_udf(name, device_batched)
+    with _LOCK:
+        _SERVED[name] = served

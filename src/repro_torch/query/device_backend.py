@@ -101,6 +101,7 @@ import torch
 
 from repro_torch.core.boundary import to_device
 from repro_torch.core.result_cache import op_signature
+from repro_torch.core import spans as spans_mod
 from repro_torch.query.dispatch import OFFLOAD_STOP, OffloadInboxMixin
 
 DEVICE = "device"
@@ -270,7 +271,7 @@ class DeviceBackend(OffloadInboxMixin):
                  cost_model: DeviceCostModel | None = None,
                  calibrate: bool = True, clock=time.monotonic,
                  fuse_segments: bool = False,
-                 jit_cache_cap: int = 128):
+                 jit_cache_cap: int = 128, spans=None):
         from repro_torch.query.dispatch import LoadLedger, OpCostTracker
         if device is None:
             if not torch.cuda.is_available():
@@ -288,6 +289,10 @@ class DeviceBackend(OffloadInboxMixin):
         self._clock = clock
         self.fuse_segments = bool(fuse_segments)
         self.jit_cache_cap = max(1, jit_cache_cap)
+        # the engine's recorder (device.* spans; a device UDF's route
+        # records into it while this backend runs its group)
+        self.spans = spans if spans is not None else \
+            spans_mod.SpanRecorder()
         # single device stream: the worker serializes device calls, so
         # the ledger drains at 1 work-second per wall second
         self.ledger = LoadLedger(lambda: 1.0, clock=clock)
@@ -371,10 +376,36 @@ class DeviceBackend(OffloadInboxMixin):
     def queue_depth(self) -> int:
         return self.inbox.qsize()
 
+    def submit(self, entity) -> None:
+        entity.inbox_t = time.perf_counter()
+        super().submit(entity)
+
     def note_placed(self, op) -> None:
         self.ledger.add(self._per_entity_estimate(op))
 
+    def device_allocs(self) -> Optional[int]:
+        """The caching allocator's ``cudaMalloc`` calls on this device so
+        far (``None`` off CUDA, or where torch does not count them)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.memory_stats(self.device).get("num_device_alloc")
+
+    def trace_stats(self) -> dict:
+        """The engine's spans and counters (``SpanRecorder.snapshot()``),
+        with ``device.mallocs`` read now on a CUDA device."""
+        snap = self.spans.snapshot()
+        allocs = self.device_allocs()
+        if allocs is not None:
+            snap["counters"]["device.mallocs"] = allocs
+        return snap
+
     def stats(self) -> dict:
+        """Lifetime counters of this worker.  ``h2d_bytes`` counts the
+        stacked partitions on the device, padding rows included, and
+        ``d2h_bytes`` the programs' output bytes: neither is a
+        host↔device copy, since entities arrive on the device and leave
+        it through the engine's boundary (``boundary.*`` spans).
+        ``trace`` is :meth:`trace_stats`."""
         stacked = self.stacked_rows + self.pad_rows
         return {"device": str(self.device),
                 "platform": self.device.type,
@@ -393,7 +424,8 @@ class DeviceBackend(OffloadInboxMixin):
                 "h2d_bytes": self.h2d_bytes,
                 "d2h_bytes": self.d2h_bytes,
                 "padding_waste_frac": (self.pad_rows / stacked
-                                       if stacked else 0.0)}
+                                       if stacked else 0.0),
+                "trace": self.trace_stats()}
 
     # ---------------------------------------------- program-cache plumbing
     def _jit_lookup(self, key, build):
@@ -445,6 +477,14 @@ class DeviceBackend(OffloadInboxMixin):
         return tuple(ent.ops[i:j])
 
     def _run_groups(self, group):
+        t = time.perf_counter()
+        self.spans.add("device.wait", sum(t - e.inbox_t for e in group),
+                       len(group))
+        with spans_mod.using(self.spans), self.spans.span(
+                "device.group", {e.query_id for e in group}):
+            self._run_group(group)
+
+    def _run_group(self, group):
         if not self.fuse_segments:
             # per-op path: one device call covers one (op, shape, dtype)
             by_key: dict = {}
@@ -571,77 +611,85 @@ class DeviceBackend(OffloadInboxMixin):
         program WITHOUT blocking — the returned slot is settled by
         :meth:`_finalize_staged` after the next partition has been
         staged (double-buffering: staging N+1 overlaps compute N)."""
-        try:
-            self._maybe_fault()
-            n = len(live)
-            homes = self._homes(live)
-            batch, pad = self._stack(live)
-            self.stacked_rows += n
-            self.pad_rows += pad
-            self.h2d_bytes += batch.nbytes
-            fn = self._jit_lookup(skey,
-                                  lambda: self._build_segment_fn(seg))
-            ckey = (skey, tuple(batch.shape))
-            fresh = ckey not in self._compiled
-            t0 = self._clock()
-            out = fn(batch)
-            return _Staged(seg=seg, skey=skey, live=live, homes=homes,
-                           n=n, out=out, done=_sync_point(self.device),
-                           t0=t0, fresh=fresh, ckey=ckey)
-        except Exception as e:  # noqa: BLE001 — report, don't kill worker
-            self.errors += 1
-            for ent in live:
-                self._reply_to.put((DEVICE, ent, None, e, len(seg)))
-            return None
+        with self.spans.span("device.stage"):
+            try:
+                self._maybe_fault()
+                n = len(live)
+                homes = self._homes(live)
+                batch, pad = self._stack(live)
+                self.stacked_rows += n
+                self.pad_rows += pad
+                self.h2d_bytes += batch.nbytes
+                fn = self._jit_lookup(skey,
+                                      lambda: self._build_segment_fn(seg))
+                ckey = (skey, tuple(batch.shape))
+                fresh = ckey not in self._compiled
+                t0 = self._clock()
+                out = fn(batch)
+                return _Staged(seg=seg, skey=skey, live=live, homes=homes,
+                               n=n, out=out, done=_sync_point(self.device),
+                               t0=t0, fresh=fresh, ckey=ckey)
+            except Exception as e:  # noqa: BLE001 — report, keep the worker
+                self.errors += 1
+                for ent in live:
+                    self._reply_to.put((DEVICE, ent, None, e, len(seg)))
+                return None
 
     def _finalize_staged(self, st: Optional[_Staged]):
         if st is None:
             return
-        try:
-            _wait(st.done)
-            exec_s = self._clock() - st.t0
-            if st.fresh:
-                self._compiled.add(st.ckey)
-                self.compiles += 1
-                # first-run wall ≈ kernel build + lazy set-up — feeds
-                # the amortization term, which only needs the magnitude
-                self.cost_model.observe_compile(exec_s)
-            self.d2h_bytes += st.out.nbytes
-            results = self._split(st.out, st.n, st.homes)
-        except Exception as e:  # noqa: BLE001
-            self.errors += 1
-            for ent in st.live:
-                self._reply_to.put((DEVICE, ent, None, e, len(st.seg)))
-            return
-        self._deliver(st.seg, st.skey, st.live, results, exec_s)
+        with self.spans.span("device.settle"):
+            try:
+                _wait(st.done)
+                exec_s = self._clock() - st.t0
+                if st.fresh:
+                    self._compiled.add(st.ckey)
+                    self.compiles += 1
+                    # first-run wall ≈ kernel build + lazy set-up —
+                    # feeds the amortization term, which only needs the
+                    # magnitude
+                    self.cost_model.observe_compile(exec_s)
+                self.d2h_bytes += st.out.nbytes
+                results = self._split(st.out, st.n, st.homes)
+            except Exception as e:  # noqa: BLE001
+                self.errors += 1
+                for ent in st.live:
+                    self._reply_to.put((DEVICE, ent, None, e,
+                                        len(st.seg)))
+                return
+            self._deliver(st.seg, st.skey, st.live, results, exec_s)
 
     def _run_segment_host(self, seg, skey, live):
         """Host path for segments the fused program cannot serve (device
         UDFs, video payloads): op-by-op over the partition, one reply
         per entity for the whole segment."""
-        from repro_torch.core.udf import get_device_udf, has_device_udf
-        from repro_torch.core.pipeline import run_op
-        t0 = self._clock()
-        data = [e.data for e in live]
-        try:
-            self._maybe_fault()
-            for op in seg:
-                if has_device_udf(op.name):
-                    data = get_device_udf(op.name)(list(data), **op.kwargs)
-                    if len(data) != len(live):
-                        # same contract as batched UDFs: a short result
-                        # list must never strand unanswered entities
-                        raise ValueError(
-                            f"device UDF {op.name!r} returned "
-                            f"{len(data)} results for {len(live)} inputs")
-                else:
-                    data = [run_op(op, d) for d in data]
-        except Exception as e:  # noqa: BLE001
-            self.errors += 1
-            for ent in live:
-                self._reply_to.put((DEVICE, ent, None, e, len(seg)))
-            return
-        self._deliver(seg, skey, live, list(data), self._clock() - t0)
+        with self.spans.span("device.host_segment"):
+            from repro_torch.core.udf import get_device_udf, has_device_udf
+            from repro_torch.core.pipeline import run_op
+            t0 = self._clock()
+            data = [e.data for e in live]
+            try:
+                self._maybe_fault()
+                for op in seg:
+                    if has_device_udf(op.name):
+                        data = get_device_udf(op.name)(list(data),
+                                                       **op.kwargs)
+                        if len(data) != len(live):
+                            # same contract as batched UDFs: a short
+                            # result list must never strand unanswered
+                            # entities
+                            raise ValueError(
+                                f"device UDF {op.name!r} returned "
+                                f"{len(data)} results for {len(live)} "
+                                f"inputs")
+                    else:
+                        data = [run_op(op, d) for d in data]
+            except Exception as e:  # noqa: BLE001
+                self.errors += 1
+                for ent in live:
+                    self._reply_to.put((DEVICE, ent, None, e, len(seg)))
+                return
+            self._deliver(seg, skey, live, list(data), self._clock() - t0)
 
     def _deliver(self, seg, skey, live, results, exec_s):
         """Shared tail of a fused/host partition: calibration, counters,
@@ -868,5 +916,17 @@ class MultiDeviceBackend:
         agg["padding_waste_frac"] = (
             sum(w.pad_rows for w in self.workers) / stacked
             if stacked else 0.0)
+        agg["trace"] = self.trace_stats()
         agg["per_device"] = per
         return agg
+
+    def trace_stats(self) -> dict:
+        """The engine's spans and counters (one recorder for every
+        worker), ``device.mallocs`` summed over the distinct CUDA
+        devices."""
+        snap = self.workers[0].spans.snapshot()
+        allocs = {str(w.device): w.device_allocs() for w in self.workers}
+        if any(a is not None for a in allocs.values()):
+            snap["counters"]["device.mallocs"] = sum(
+                a for a in allocs.values() if a is not None)
+        return snap

@@ -47,6 +47,7 @@ import numpy as np
 from repro_torch.core.boundary import to_host
 from repro_torch.core.entity import Entity
 from repro_torch.core.result_cache import ResultCache, prefix_signatures
+from repro_torch.core.spans import SpanRecorder
 from repro_torch.query.language import Command
 from repro_torch.query.metadata import MetadataStore
 from repro_torch.storage.store import BlobStore
@@ -99,11 +100,13 @@ class QueryPlanner:
 
     def __init__(self, meta: MetadataStore, store: BlobStore,
                  result_cache: ResultCache | None = None,
-                 router=None):
+                 router=None, spans: SpanRecorder | None = None):
         self.meta = meta
         self.store = store
         self.result_cache = result_cache
         self.router = router      # BackendRouter | StaticRouter | None
+        # the engine's recorder: query.find and query.expand
+        self.spans = spans if spans is not None else SpanRecorder()
 
     # ----------------------------------------------------------- compile
     def compile(self, cmds: list[Command]) -> QueryPlan:
@@ -164,10 +167,19 @@ class QueryPlanner:
             eids = [self.ingest(cmd.kind, cmd.data, cmd.properties,
                                 eid=cmd.eid)]
         else:
-            eids = self.meta.find_ids(cmd.kind, cmd.constraints)
+            with self.spans.span("query.find", query_id):
+                eids = self.meta.find_ids(cmd.kind, cmd.constraints)
             if cmd.limit:
                 eids = eids[: cmd.limit]
         cplan.eids = eids
+        with self.spans.span("query.expand", query_id):
+            return self._expand_entities(cplan, eids, query_id, use_cache)
+
+    def _expand_entities(self, cplan: CommandPlan, eids: list[str],
+                         query_id: str, use_cache: bool) -> list[Entity]:
+        """The command's entities for ``eids``, each looked up in the
+        result cache where that applies and routed."""
+        cmd = cplan.command
         rc = self.result_cache
         # only Find pipelines are cached: an Add's processed result is
         # written back to the blob store, so snapshots taken during its
