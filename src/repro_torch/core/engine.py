@@ -14,9 +14,13 @@ Device and host: the engine runs its pipelines on one torch device
 blob store, and :mod:`repro_torch.core.boundary` is the one host
 boundary: an entity's blob becomes a device tensor when its pipeline is
 launched (:meth:`VDMSAsyncEngine._launch_now`), and results come back
-to the host where they enter the response (:meth:`_entity_done`, and
-the instant entities of :meth:`_expand_plan`) and at the write-back of an
-``Add`` with operations (:meth:`_store_result`).  Responses therefore
+to the host where they enter the response: a query's together, in one
+stacked copy a run when its last entity is done or its held results
+reach ``boundary.OUT_COPY_BYTES`` (:meth:`_to_host_many`, from the
+session, and for the instant entities of :meth:`_expand_plan`), one at
+a time where a stream or the write-back of an ``Add`` with operations
+needs the host array at once (:meth:`_entity_done`,
+:meth:`_store_result`).  Responses therefore
 hold numpy arrays, exactly as the JAX engine's can be read with
 ``np.asarray``.
 
@@ -36,7 +40,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.boundary import resolve_device, to_device, to_host
+from repro_torch.core.boundary import (resolve_device, to_device, to_host,
+                                      to_host_many)
 from repro_torch.core.entity import ERD, Entity
 from repro_torch.core.event_loop import EventLoop
 from repro_torch.core.remote import RemoteServerPool, TransportModel
@@ -612,13 +617,25 @@ class VDMSAsyncEngine:
     def _expand_plan(self, cplan: CommandPlan, qid: str,
                 use_cache: bool = True) -> list[Entity]:
         ents = self.planner.expand_plan(cplan, qid, use_cache)
-        for e in ents:
-            if e.done():
-                # born done (no ops, or a full cache hit): straight into
-                # the response — the host boundary's way out
-                with self.spans.span("boundary.out", qid):
-                    e.data = to_host(e.data)
+        born = [e for e in ents if e.done()]
+        if born:
+            # born done (no ops, or a full cache hit): straight into the
+            # response — the host boundary's way out
+            for e, arr in zip(born, self._to_host_many(
+                    qid, [e.data for e in born])):
+                e.data = arr
         return ents
+
+    def _to_host_many(self, qid: str, datas: list) -> list:
+        """The host boundary's way out for several of a query's results
+        (:func:`~repro_torch.core.boundary.to_host_many`): one
+        ``boundary.out`` range, counted once a result, and one
+        ``boundary.out_copies`` a stacked copy."""
+        with self.spans.span("boundary.out", qid, n=len(datas)):
+            arrays, copies = to_host_many(datas)
+        if copies:
+            self.spans.count("boundary.out_copies", copies)
+        return arrays
 
     def _admission_precheck(self, cplans, *, qid: str, first_phase: bool,
                             use_cache: bool = True, tenant: str = ""):
@@ -704,8 +721,8 @@ class VDMSAsyncEngine:
         self.loop.enqueue_many(ents)
 
     def _store_result(self, ent: Entity):
-        # no boundary.out here: the entity's data reached the host where
-        # it entered the response (_entity_done, _expand_plan)
+        # no boundary.out here: an Add with operations brought its data
+        # to the host in _entity_done
         self.store.put(ent.eid, to_host(ent.data))
         if self.result_cache is not None:
             # blob write-back (Add with operations): cached results for
@@ -716,10 +733,14 @@ class VDMSAsyncEngine:
         with self._session_lock:
             session = self._sessions.get(ent.query_id)
         try:
-            # the host boundary's way out: the response holds host arrays
-            with self.spans.span("boundary.out", ent.query_id):
-                ent.data = to_host(ent.data)
             if session is not None:
+                if session.wants_host_now(ent):
+                    # the host boundary's way out, one entity alone: a
+                    # stream or a write-back reads the host array now;
+                    # every other result stays on the device until the
+                    # query's copy (QuerySession)
+                    with self.spans.span("boundary.out", ent.query_id):
+                        ent.data = to_host(ent.data)
                 session.entity_done(ent)
         finally:
             if self.admission_ctl is not None and not ent.admission_released:
@@ -836,16 +857,20 @@ class VDMSAsyncEngine:
         {name: n}}``.  Spans: ``query.submit`` over ``query.plan``
         (parse and compile), ``query.find`` (the metadata selection),
         ``query.expand`` (entities and their routes) and ``boundary.in``
-        (the launch's copies to the device); ``boundary.out`` (a result
-        copied to the host, one an entity); with a device backend
+        (the launch's copies to the device); ``boundary.out`` (results
+        copied to the host, counted once a result: one range a query, or
+        a streamed or written-back entity's own); with a device backend
         ``device.wait`` (an entity's seconds in its inbox until its group
         starts), ``device.group`` over ``device.stage``,
         ``device.settle`` and ``device.host_segment``; a model UDF's
         device route adds ``udf.call`` over ``udf.prompts``,
         ``udf.prefill``, ``udf.decode`` (one a step), ``udf.sync`` and
-        ``udf.stamp``.  Counters: ``udf.rows``, ``udf.prefill_tokens``,
-        ``udf.decode_tokens``, and on a CUDA device backend
-        ``device.mallocs`` (the allocator's ``num_device_alloc``)."""
+        ``udf.stamp``.  Counters: ``boundary.out_copies`` (the stacked
+        copies of the way out, one a run of like tensors of a query, cut
+        at ``boundary.OUT_COPY_BYTES``),
+        ``udf.rows``, ``udf.prefill_tokens``, ``udf.decode_tokens``, and
+        on a CUDA device backend ``device.mallocs`` (the allocator's
+        ``num_device_alloc``)."""
         if self.device_backend is not None:
             return self.device_backend.trace_stats()
         return self.spans.snapshot()

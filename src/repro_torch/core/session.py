@@ -11,7 +11,12 @@ threads.  The session object is the per-query state machine:
 The blocking ``execute()`` is a thin ``submit().result(timeout)`` wrapper,
 so the response dict stays byte-identical to the old inline loop: results
 are assembled in (command order x matched-eid order), never in completion
-order.
+order.  A finished entity's result stays a device tensor until then, and
+the assembly brings every such result to the host in one call (the host
+boundary's way out, :mod:`repro_torch.core.boundary`); results held past
+``boundary.OUT_COPY_BYTES`` cross earlier, in one call as the entity
+that reaches it finishes, so a large fan-out never holds more than that
+on the device.  A failed or cancelled query brings none.
 
 Cancellation (``future.cancel()`` or an ``execute`` timeout) marks the
 session, drops its queued native work from Queue_1, and forgets its
@@ -26,6 +31,10 @@ import time
 from concurrent.futures import CancelledError
 from typing import TYPE_CHECKING, Any, Callable, Optional
 
+import numpy as np
+import torch
+
+from repro_torch.core import boundary
 from repro_torch.core.entity import Entity
 from repro_torch.query.admission import OverloadError
 
@@ -57,6 +66,9 @@ class QuerySession:
         self._cmds = {cp.index: cp for phase in plan.phases for cp in phase}
         self._ent_results: dict[int, dict[str, Any]] = {
             i: {} for i in self._cmds}
+        # results still on the device, and their bytes, until they cross
+        self._held: list[tuple[int, str]] = []
+        self._held_bytes = 0
         self.stats: dict[str, Any] = {"matched": 0, "failed": 0}
         # cache-hit stats appear only when the engine cache exists, so the
         # cache-off response dict stays byte-identical to the baseline
@@ -138,6 +150,9 @@ class QuerySession:
                 return
             self._record_locked(ent)
             phase = self._phase
+            held = self._hold_locked(ent)
+        if held and not self._bring_out(held):
+            return
         # stream BEFORE decrementing: _pending can only hit zero (letting
         # result() return) once every completed entity's callback fired
         self._stream(ent)
@@ -165,6 +180,15 @@ class QuerySession:
                                  daemon=True).start()
 
     # ----------------------------------------------------------- records
+    def wants_host_now(self, ent: Entity) -> bool:
+        """Whether ``ent``'s result must reach the host as it finishes: a
+        stream hands it to the client, and an Add with operations writes
+        it back to the blob store.  Any other result waits on the device
+        for the query's copy (:meth:`_hold_locked`, :meth:`_finish`)."""
+        command = self._cmds[ent.cmd_index].command
+        return self._on_entity is not None or (
+            command.verb == "add" and bool(command.operations))
+
     def _record_locked(self, ent: Entity):
         # old-loop semantics, kept byte-identical: only Find failures are
         # counted, and an Add with operations always persists its (possibly
@@ -186,6 +210,35 @@ class QuerySession:
         elif ent.failed:
             self.stats["failed"] += 1
         self._ent_results[ent.cmd_index][ent.eid] = ent.data
+
+    def _hold_locked(self, ent: Entity) -> list[tuple[int, str]]:
+        """Note ``ent``'s result if it stays on the device; once the held
+        results reach ``boundary.OUT_COPY_BYTES``, hand them back to be
+        brought over now (:meth:`_bring_out`), else ``[]``."""
+        if not isinstance(ent.data, torch.Tensor):
+            return []
+        self._held.append((ent.cmd_index, ent.eid))
+        self._held_bytes += ent.data.nbytes
+        if self._held_bytes < boundary.OUT_COPY_BYTES:
+            return []
+        held, self._held, self._held_bytes = self._held, [], 0
+        return held
+
+    def _bring_out(self, held: list[tuple[int, str]]) -> bool:
+        """Bring ``held`` results to the host in one call, outside the
+        lock so cancel() never waits on the copy; False when the copy
+        failed the query."""
+        with self._cv:
+            datas = [self._ent_results[c][eid] for c, eid in held]
+        try:
+            arrays = self._engine._to_host_many(self.qid, datas)
+        except Exception as e:  # noqa: BLE001 — surface via the future
+            self._fail(e)
+            return False
+        with self._cv:
+            for (c, eid), arr in zip(held, arrays):
+                self._ent_results[c][eid] = arr
+        return True
 
     def _stream(self, ent: Entity):
         if self._on_entity is None:
@@ -217,6 +270,21 @@ class QuerySession:
                     for eid in cp.eids:
                         if eid in res:
                             entities[eid] = res[eid]
+        # the host boundary's way out: every result not yet a host array
+        # crosses in one call, outside the lock so cancel() never waits
+        # on the copy
+        held = [eid for eid, v in entities.items()
+                if not isinstance(v, np.ndarray)]
+        if held:
+            try:
+                entities.update(zip(held, self._engine._to_host_many(
+                    self.qid, [entities[eid] for eid in held])))
+            except Exception as e:  # noqa: BLE001 — surface via the future
+                self._fail(e)
+                return
+        with self._cv:
+            if self._state is not _RUNNING:
+                return
             self.stats["duration_s"] = time.monotonic() - self._t0
             self._result = {"entities": entities, "stats": self.stats}
             self._state = _DONE

@@ -2,11 +2,12 @@
 layer by layer, at a cost small enough to leave on.
 
 One :class:`SpanRecorder` per engine.  ``with rec.span(name, qid):``
-adds one count and the block's ``time.perf_counter()`` duration to
-``name``'s totals; ``rec.add(name, seconds, n)`` does the same for an
-interval that starts on one thread and ends on another (an entity's
-wait in the device backend's inbox); ``rec.count(name, n)`` keeps a
-plain counter.  ``rec.snapshot()`` returns a fresh dict,
+adds one count (``n`` with ``rec.span(name, qid, n)``, for a block
+that does the work of ``n``) and the block's ``time.perf_counter()``
+duration to ``name``'s totals; ``rec.add(name, seconds, n)`` does the
+same for an interval that starts on one thread and ends on another (an
+entity's wait in the device backend's inbox); ``rec.count(name, n)``
+keeps a plain counter.  ``rec.snapshot()`` returns a fresh dict,
 ``{"spans": {name: [count, seconds]}, "counters": {name: n}}``, so a
 reader may keep it and take differences of two.
 
@@ -46,12 +47,13 @@ def _range_args(qid) -> tuple:
 
 
 class _Span:
-    __slots__ = ("_rec", "_name", "_qid", "_t0", "_range")
+    __slots__ = ("_rec", "_name", "_qid", "_n", "_t0", "_range")
 
-    def __init__(self, rec, name, qid):
+    def __init__(self, rec, name, qid, n):
         self._rec = rec
         self._name = name
         self._qid = qid
+        self._n = n
 
     def __enter__(self):
         if _autograd_profiler._is_profiler_enabled:
@@ -66,7 +68,7 @@ class _Span:
         seconds = time.perf_counter() - self._t0
         if self._range is not None:
             torch.autograd._record_function_with_args_exit(self._range)
-        self._rec.add(self._name, seconds)
+        self._rec.add(self._name, seconds, self._n)
         return False
 
 
@@ -78,10 +80,11 @@ class SpanRecorder:
         self._spans: dict[str, list] = {}        # guarded-by: _lock
         self._counters: dict[str, int] = {}      # guarded-by: _lock
 
-    def span(self, name: str, qid=None) -> _Span:
-        """A context manager timing its block into ``name``; ``qid`` is
-        the query's id, or a set of ids (a device group's)."""
-        return _Span(self, name, qid)
+    def span(self, name: str, qid=None, n: int = 1) -> _Span:
+        """A context manager timing its block into ``name`` as ``n``
+        counts; ``qid`` is the query's id, or a set of ids (a device
+        group's)."""
+        return _Span(self, name, qid, n)
 
     def add(self, name: str, seconds: float, n: int = 1) -> None:
         with self._lock:

@@ -891,6 +891,35 @@ def test_wire_codes_a_cuda_tensor_through_the_host(cuda, shape):
 
 
 @pytest.mark.cuda
+def test_the_way_out_copies_a_group_still_being_written(cuda):
+    """The boundary's way out on a 256-image group that queued kernels
+    are still writing: ``to_host_many`` orders its pinned copies after
+    them and gives the per-entity ``to_host`` arrays, bit for bit.  The
+    group (154 MB) is cut into two stacks under ``OUT_COPY_BYTES``; a CPU
+    tensor of the same shape is a run of its own."""
+    from repro_torch.core.boundary import OUT_COPY_BYTES, to_host, to_host_many
+    src = _uniform(0, (256, 224, 224, 3), cuda)
+    group = torch.zeros_like(src)
+    on_host = src[0].cpu()
+    torch.cuda.synchronize()
+    group.copy_(src)
+    for _ in range(1000):       # ≈ 0.1 s of device work, queued in ≈ 10 ms
+        group.add_(0.5)
+    datas = [group[i] for i in range(256)] + [on_host]
+    assert not torch.cuda.current_stream().query()
+    got, copies = to_host_many(datas)
+    want = [to_host(d) for d in datas]
+    assert copies == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+    assert got[7].min() >= 500.0
+    assert torch.from_numpy(got[0]).is_pinned()
+    assert got[0].base is not got[255].base
+    assert max(got[0].base.nbytes, got[255].base.nbytes) <= OUT_COPY_BYTES
+
+
+@pytest.mark.cuda
 def test_executors_on_the_card_agree_with_the_engine_on_iq3(cuda):
     """IQ3 (a remote blur): the sync, pooled and frame executors on the
     card answer what the engine on the card answers, bit for bit (the

@@ -30,9 +30,12 @@ def test_spans_nest_and_their_counts_and_seconds_add_up():
     rec.add("wait", 0.5)
     rec.count("rows", 7)
     rec.count("rows")
+    with rec.span("batch", "1", n=5):        # one block, five results
+        pass
     snap = rec.snapshot()
     outer, inner = snap["spans"]["outer"], snap["spans"]["inner"]
     assert outer[0] == 1 and inner[0] == 3
+    assert snap["spans"]["batch"][0] == 5
     assert 0 < inner[1] <= outer[1]
     assert snap["spans"]["wait"] == [5, 0.75]
     assert snap["counters"] == {"rows": 8}
@@ -181,6 +184,8 @@ def test_an_engine_run_records_each_layer(model_udf):
         assert sp[name][0] == 3, name
     for name in ("boundary.out", "device.wait"):
         assert sp[name][0] == n, name
+    # the way out: one stacked copy a query, its 4 results of one shape
+    assert ct["boundary.out_copies"] == 3
     groups = sp["device.group"][0]
     assert groups >= 1
     assert sp["device.host_segment"][0] == groups
@@ -198,6 +203,23 @@ def test_an_engine_run_records_each_layer(model_udf):
         assert count > 0 and seconds >= 0, name
     # the response's stats gain no key
     assert set(res[0]["stats"]) == {"matched", "failed", "duration_s"}
+
+
+def test_a_streamed_query_copies_each_entity_alone(model_udf):
+    eng = _engine()
+    streamed = []
+    try:
+        for i, img in enumerate(_faces(4, seed=11)):
+            eng.add_entity("image", img, {"group": 0})
+        res = eng.submit(_query(0), on_entity=lambda e: streamed.append(
+            type(e.data))).result(120)
+        snap = eng.trace_stats()
+    finally:
+        eng.shutdown()
+    assert res["stats"]["failed"] == 0
+    assert streamed == [np.ndarray] * 4
+    assert snap["spans"]["boundary.out"][0] == 4
+    assert "boundary.out_copies" not in snap["counters"]
 
 
 def test_the_route_reports_the_calls_it_served(model_udf):
@@ -242,4 +264,5 @@ def test_a_static_engine_reports_no_dispatch_blocks():
         eng.shutdown()
     assert snap["spans"]["query.find"][0] == 1
     assert snap["spans"]["boundary.out"][0] == 1      # born done
+    assert "boundary.out_copies" not in snap["counters"]  # a host blob
     assert "device.wait" not in snap["spans"]
